@@ -1,0 +1,75 @@
+"""The flagship configuration and model (the port's copy of
+``__graft_entry__.py::_flagship_config``): Informer d832/e6/d_ff 3328 with
+factor 4, distil and the smart decoder; SwinV2-base (window 16 at 256 px,
+tanh gelu, bf16 compute); d128 Perceive stacks of 8 and 2 layers with bf16
+Linear layers; video and gaze, dense prediction, 5 Hz output.
+"""
+
+import math
+
+import torch
+import torch.nn as nn
+
+from routeformer_torch.models import Routeformer, RouteformerConfig
+from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+from routeformer_torch.models.video_backbone import TimmBackboneConfig
+from routeformer_torch.utils.device import DeviceLike, resolve_device
+
+
+def flagship_config() -> RouteformerConfig:
+    gps_cfg = GPSBackboneConfig(
+        seq_len=40, label_len=40, pred_len=30,
+        embed="timeF", freq="m", moving_avg=25, factor=4, distil=True,
+        dropout=0.0, activation="relu", individual=False,
+        d_model=832, n_heads=8, e_layers=6, d_layers=1, d_ff=832 * 4,
+    )
+    video_cfg = TimmBackboneConfig(
+        model_type="swinv2_base_window12to16_192to256.ms_in22k_ft_in1k",
+        cache_enabled=False, gelu="tanh",
+    )
+    return RouteformerConfig(
+        gps_backbone_config=gps_cfg,
+        video_backbone_config=video_cfg,
+        with_video=True, with_gaze=True,
+        dense_prediction=True, dense_loss_ratio=0.5,
+        decoder_mode="smart",
+        discount_factor={0: 0.97, 100: 0.98, 200: 0.99},
+        epsilon=1.0, visual_epsilon=0.3,
+        compute_dtype="bfloat16",
+        image_embedding_size=64, encoder_hidden_size=64,
+        encoder_heads=8, encoder_layers=8, encoder_d_ff=64 * 4,
+        cross_modal_decoder_heads=8, cross_modal_decoder_layers=2,
+        view_dropout=0.6, gaze_dropout=0.2, feature_dropout=0.05,
+        output_fps=5, video_fps=1, gaze_fps=1,
+    )
+
+
+def init_weights(model: nn.Module, seed: int) -> None:
+    """Seeded initialisation, the same on every device: Linear/conv weights
+    normal(0, 1/fan_in), biases 0, norms 1/0, the view embeddings
+    normal(0, 1), SwinV2 logit scales log(10)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if name.endswith("_embedding") and p.ndim == 3 and p.shape[:2] == (1, 1):
+                value = torch.randn(p.shape, generator=gen)
+            elif leaf == "logit_scale":
+                value = torch.full(p.shape, math.log(10.0))
+            elif p.ndim >= 2:
+                fan_in = p[0].numel()
+                value = torch.randn(p.shape, generator=gen) / math.sqrt(fan_in)
+            elif ".norm" in name or "_norm" in name or leaf == "weight":
+                value = torch.ones(p.shape) if leaf == "weight" else torch.zeros(p.shape)
+            else:
+                value = torch.zeros(p.shape)
+            p.copy_(value.to(p.device))
+
+
+def build_flagship(seed: int = 0, device: DeviceLike = None) -> Routeformer:
+    """The flagship model with seeded weights, in eval mode, on ``device``
+    (CUDA by default)."""
+    dev = resolve_device(device)
+    model = Routeformer(flagship_config())
+    init_weights(model, seed)
+    return model.to(dev).eval()

@@ -1,0 +1,74 @@
+"""Informer GPS backbone (counterpart of
+``routeformer_tpu/models/gps_backbone/informer.py``): ProbSparse encoder
+with distillation convs, ProbSparse self- and cross-attention decoder, and
+the smart decoder seed. Every ``AttentionLayer`` is ``mix=True``. The
+backbone computes in f32 whatever the model's compute dtype."""
+
+import torch
+import torch.nn as nn
+
+from routeformer_torch.models.gps_backbone.config import GPSBackboneConfig
+from routeformer_torch.models.layers import (
+    AttentionLayer,
+    ConvLayer,
+    DataEmbedding,
+    Decoder,
+    DecoderLayer,
+    Encoder,
+    EncoderLayer,
+    ProbAttention,
+)
+from routeformer_torch.models.layers.encdec import LN_EPS
+
+
+class Informer(nn.Module):
+    def __init__(self, configs: GPSBackboneConfig):
+        super().__init__()
+        c = configs
+        if c.output_attention:
+            raise NotImplementedError("output_attention is not ported")
+        self.pred_len = c.pred_len
+        self.smart_decoder = c.smart_decoder
+        self.enc_embedding = DataEmbedding(c.enc_in, c.d_model, c.embed, c.freq,
+                                           c.dropout)
+        self.dec_embedding = DataEmbedding(c.dec_in, c.d_model, c.embed, c.freq,
+                                           c.dropout)
+
+        def attn(causal):
+            return AttentionLayer(ProbAttention(causal, c.factor), c.d_model,
+                                  c.n_heads, mix=True)
+
+        self.encoder = Encoder(
+            [
+                EncoderLayer(attn(False), c.d_model, c.d_ff, dropout=c.dropout,
+                             activation=c.activation)
+                for _ in range(c.e_layers)
+            ],
+            [ConvLayer(c.d_model) for _ in range(c.e_layers - 1)]
+            if c.distil else None,
+            norm_layer=nn.LayerNorm(c.d_model, eps=LN_EPS),
+        )
+        self.decoder = Decoder(
+            [
+                DecoderLayer(attn(True), attn(False), c.d_model, c.d_ff,
+                             dropout=c.dropout, activation=c.activation)
+                for _ in range(c.d_layers)
+            ],
+            norm_layer=nn.LayerNorm(c.d_model, eps=LN_EPS),
+            projection=nn.Linear(c.d_model, c.c_out),
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, seq_len, C) -> (B, pred_len, c_out)``."""
+        b, l, _ = x.shape
+        marks = torch.arange(l + self.pred_len, dtype=torch.float32,
+                             device=x.device)[None, :, None]
+        if self.smart_decoder:
+            seed = x[:, -1:].expand(b, self.pred_len, x.shape[-1])
+        else:
+            seed = x.new_zeros(b, self.pred_len, x.shape[-1])
+        x_dec = torch.cat([x, seed], dim=1)
+        enc_out = self.encoder(self.enc_embedding(x, marks[:, :l].expand(b, l, 1)))
+        dec_out = self.dec_embedding(x_dec, marks.expand(b, -1, 1))
+        dec_out = self.decoder(dec_out, enc_out)
+        return dec_out[:, -self.pred_len:]

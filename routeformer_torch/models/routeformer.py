@@ -1,0 +1,196 @@
+"""Routeformer, eval forward (counterpart of
+``routeformer_tpu/models/routeformer.py``).
+
+Motion features from GPS velocities, scene video (left/right views) and the
+front camera through one merged SwinV2 pass and the frame encoder, the gaze
+path (median downsampling, gaze encoder, gaze-video decoder), view
+embeddings and output-query tokens into the video encoder, then the
+Informer and cumsum integration onto the last GPS fix, with the dense
+visual-feature split. Video is channel-last ``(B, T, H, W, C)``.
+
+This slice ports the eval path only: view, gaze and feature dropout, motion
+noise and the autoregressive decode (off in the flagship config) come with
+training.
+"""
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from routeformer_torch.models.config import RouteformerConfig
+from routeformer_torch.models.cross_modal import PerceiveDecoder, PerceiveEncoder
+from routeformer_torch.models.gps_backbone import Informer
+from routeformer_torch.models.video_backbone.swin import SwinV2Backbone
+from routeformer_torch.utils.filter import median_downsampler
+from routeformer_torch.utils.vector import estimate_angle_and_norm, rotate
+
+
+def fps_subsample_indices(length: int, relative_fps: int) -> np.ndarray:
+    """Every ``relative_fps``-th frame counting back from the last."""
+    return np.ascontiguousarray(np.arange(length - 1, 0, -relative_fps)[::-1])
+
+
+class Routeformer(nn.Module):
+    def __init__(self, configs: RouteformerConfig):
+        super().__init__()
+        self.configs = cfg = configs.copy()
+        if cfg.autoregressive:
+            raise NotImplementedError("the autoregressive decode is not ported yet")
+        self.with_video = cfg.with_video
+        self.with_scene = cfg.with_scene
+        self.with_gaze = cfg.with_gaze
+        if self.with_gaze and not self.with_video:
+            raise ValueError("Current gaze backbone requires a video backbone.")
+        if self.with_video and not (self.with_scene or self.with_gaze):
+            raise ValueError("with_video requires with_scene and/or with_gaze")
+        seq_len = cfg.gps_backbone_config.seq_len
+        if self.with_video:
+            self.video_backbone = SwinV2Backbone(cfg.video_backbone_config)
+            feat_c = self.video_backbone.output_feature_shape[-1]
+            enc = dict(n_heads=cfg.encoder_heads, layers=cfg.encoder_layers,
+                       d_ff=cfg.encoder_d_ff, dropout=cfg.feature_dropout,
+                       compute_dtype=cfg.compute_dtype)
+            emb = cfg.image_embedding_size
+            self.frame_encoder = PerceiveEncoder(feat_c, emb, 1, **enc)
+            for name in ("left_video_embedding", "right_video_embedding",
+                         "gaze_video_embedding", "video_output_embedding"):
+                setattr(self, name, nn.Parameter(torch.randn(1, 1, emb)))
+            self.video_encoder = PerceiveEncoder(emb, cfg.encoder_hidden_size,
+                                                 seq_len, **enc)
+            if self.with_gaze:
+                self.gaze_encoder = PerceiveEncoder(2, cfg.encoder_hidden_size,
+                                                    seq_len, **enc)
+                self.gaze_video_decoder = PerceiveDecoder(
+                    cfg.encoder_hidden_size, cfg.encoder_hidden_size,
+                    cfg.encoder_hidden_size, seq_len,
+                    dropout=cfg.feature_dropout, d_ff=cfg.encoder_d_ff,
+                    n_heads=cfg.cross_modal_decoder_heads,
+                    layers=cfg.cross_modal_decoder_layers, mix=False,
+                    compute_dtype=cfg.compute_dtype,
+                )
+        self.gps_backbone = Informer(cfg.gps_backbone_config)
+
+    # ------------------------------------------------------------------ #
+
+    def forward(self, batch: dict):
+        """``batch``: ``gps (B, T, 2)``, ``left_video``/``right_video``/
+        ``front_video (B, T, H, W, C)``, ``gaze (B, Tg, 2)`` tensors.
+
+        Returns future GPS ``(B, pred_len, 2)``, or ``(gps, dense)`` with
+        ``dense_prediction``.
+        """
+        if self.training:
+            raise NotImplementedError(
+                "the training forward is not ported yet; call model.eval()"
+            )
+        motion_dynamics, visual_features = self.preprocess_batch(batch)
+        last_input_gps = batch["gps"][:, -1:, :]
+        output = self._forward(motion_dynamics, visual_features)
+        gps, dense = self.postprocess_batch(last_input_gps, output)
+        if self.configs.dense_prediction:
+            return gps, dense
+        return gps
+
+    def _forward(self, motion_dynamics, visual_features):
+        angle, norm = estimate_angle_and_norm(motion_dynamics)
+        if self.configs.rotate_motion:
+            origin_angles = angle[:, -1:, :]
+        else:
+            origin_angles = angle[:, :1, :]
+        normalized_angles = (angle - origin_angles) / math.pi
+        acceleration = nn.functional.pad(norm[:, 1:] - norm[:, :-1], (0, 0, 1, 0))
+        if self.configs.rotate_motion:
+            motion_dynamics = rotate(motion_dynamics, -origin_angles)
+        inputs = [torch.cat([motion_dynamics, normalized_angles, norm,
+                             acceleration], dim=-1)]
+        if self.with_video:
+            inputs.append(visual_features)
+        if self.configs._only_motion:
+            inputs[-1] = torch.zeros_like(inputs[-1])
+        x = torch.cat(inputs, dim=-1)
+        output = self.gps_backbone(x)
+        if self.configs.decoder_mode == "recursive":
+            width = None if self.configs.dense_prediction else 2
+            output = output + x[:, -1:, :width]
+        if self.configs.rotate_motion:
+            output = torch.cat([rotate(output[..., :2], origin_angles),
+                                output[..., 2:]], dim=-1)
+        return output
+
+    def preprocess_batch(self, batch: dict):
+        cfg = self.configs
+        gps = batch["gps"].float()
+        motion = gps[:, 1:] - gps[:, :-1]
+        if cfg.normalize_motion:
+            motion = (motion - cfg.motion_mean) / cfg.motion_std
+        motion_dynamics = nn.functional.pad(motion, (0, 0, 1, 0))
+        if not self.with_video:
+            return motion_dynamics, None
+
+        # Left, right and front frames ride one backbone pass and one
+        # frame-encoder call.
+        streams, meta = [], {}
+        if self.with_scene:
+            left = batch["left_video"]
+            right = batch.get("right_video", left)
+            idx = fps_subsample_indices(left.shape[1], cfg.output_fps // cfg.video_fps)
+            meta["scene"] = (left.shape[0], left.shape[1], idx)
+            t = torch.from_numpy(idx)
+            streams += [left[:, t].flatten(0, 1), right[:, t].flatten(0, 1)]
+        if self.with_gaze:
+            front = batch["front_video"]
+            idx = fps_subsample_indices(front.shape[1], cfg.output_fps // cfg.gaze_fps)
+            meta["front"] = (front.shape[0], front.shape[1], idx)
+            streams.append(front[:, torch.from_numpy(idx)].flatten(0, 1))
+        encoded = self._encode_frame_streams(streams)
+
+        visual = []
+        if self.with_scene:
+            visual += [
+                self._scatter_timeline(encoded[0], *meta["scene"])
+                + self.left_video_embedding,
+                self._scatter_timeline(encoded[1], *meta["scene"])
+                + self.right_video_embedding,
+            ]
+        if self.with_gaze:
+            gaze_video = self._scatter_timeline(encoded[-1], *meta["front"])
+            in_len = gaze_video.shape[1]
+            gaze = median_downsampler(batch["gaze"].float(),
+                                      cfg.gps_backbone_config.seq_len)
+            gaze = self.gaze_encoder(gaze)
+            gaze_features = self.gaze_video_decoder(gaze_video, gaze)[:, :in_len]
+            visual.append(gaze_features + self.gaze_video_embedding)
+        visual.append(torch.zeros_like(visual[-1]) + self.video_output_embedding)
+        return motion_dynamics, self.video_encoder(torch.cat(visual, dim=1))
+
+    def postprocess_batch(self, last_input_gps, output):
+        cfg = self.configs
+        motion = output[..., :2]
+        if cfg.normalize_motion:
+            motion = motion * cfg.motion_std + cfg.motion_mean
+        gps = (last_input_gps + torch.cumsum(motion, dim=1)).to(last_input_gps.dtype)
+        dense = None
+        if self.with_video and cfg.dense_prediction:
+            dense = output[..., 2 : 2 + cfg.image_embedding_size]
+        return gps, dense
+
+    def _encode_frame_streams(self, streams):
+        bb = self.video_backbone
+        sizes = [s.shape[0] for s in streams]
+        feats = bb.encode_frames(
+            torch.cat([bb.preprocess_frames(s) for s in streams], dim=0)
+        )
+        tokens = feats.reshape(feats.shape[0], -1, feats.shape[-1])
+        tokens = torch.cat([tokens, -torch.ones_like(tokens[:, :1])], dim=1)
+        encoded = self.frame_encoder(tokens).reshape(-1, self.configs.image_embedding_size)
+        return torch.split(encoded, sizes, dim=0)
+
+    @staticmethod
+    def _scatter_timeline(feats, batch_size, length, indices):
+        """(B*T', emb) -> (B, T, emb), zeros where no frame was sampled."""
+        feats = feats.reshape(batch_size, -1, feats.shape[-1])
+        full = feats.new_zeros(batch_size, length, feats.shape[-1])
+        full[:, torch.as_tensor(indices, device=feats.device)] = feats
+        return full

@@ -1,0 +1,25 @@
+"""Video backbone config (the port's copy of
+``routeformer_tpu/models/video_backbone/config.py:TimmBackboneConfig``)."""
+
+from dataclasses import dataclass
+from typing import Optional
+
+from routeformer_torch.utils.config import BaseConfig
+
+
+@dataclass
+class TimmBackboneConfig(BaseConfig):
+    cache_dir: Optional[str] = None
+    train_backbone: bool = False
+    cache_enabled: bool = False
+    pad_to_square: bool = True
+    model_type: Optional[str] = None
+    # Encoder compute dtype; parameters stay float32.
+    compute_dtype: str = "bfloat16"
+    # "exact" (erf) or "tanh". tanh blocks run the fused block kernel (K1);
+    # exact blocks run window attention (K2) with plain Linear/LayerNorm.
+    gelu: str = "exact"
+
+    def __post_init__(self):
+        if self.train_backbone:
+            raise NotImplementedError("backbone training is not ported yet")

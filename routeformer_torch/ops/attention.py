@@ -1,0 +1,118 @@
+"""Attention functions on ``(B, L, H, E)`` tensors (counterpart of
+``routeformer_tpu/ops/attention.py``).
+
+- ``dot_product_attention``: dense softmax attention, the plain path of the
+  JAX package (its flash kernel is dispatched only when ``L_k >= 512``,
+  which the flagship never reaches).
+- ``prob_sparse_attention``: Informer's ProbSparse attention in the JAX
+  package's default "masked" formulation: dense scores and softmax for all
+  queries, and each row keeps the dense output when its sparsity measure
+  is at least the ``u``-th largest, else the mean of V (non-causal) or the
+  running sum of V (causal).
+
+Rounding follows the JAX code: scores of bf16 inputs accumulate in f32
+(``preferred_element_type``) for ProbSparse; the dense path rounds its
+scores to the input dtype before the f32 softmax, as ``jnp.einsum`` does.
+"""
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from routeformer_torch.utils.prng import prob_sparse_index_sample
+
+_NEG_INF = -1e30
+_index_cache = {}  # (l_q, u_part, l_k, device) -> the eval key sample
+
+
+def _causal_mask(l_q: int, l_k: int, device) -> torch.Tensor:
+    return torch.ones(l_q, l_k, dtype=torch.bool, device=device).triu(1)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense softmax attention; scale defaults to ``1/sqrt(E)``."""
+    l_q, l_k = q.shape[1], k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("blhe,bshe->bhls", q, k).float()
+    if causal:
+        scores = scores.masked_fill(_causal_mask(l_q, l_k, q.device), _NEG_INF)
+    weights = torch.softmax(scores * scale, dim=-1)
+    return torch.einsum("bhls,bshd->blhd", weights.to(v.dtype), v)
+
+
+def prob_sparse_sizes(l_q: int, l_k: int, factor: int):
+    """``(u, u_part)``: selected queries and sampled keys per query."""
+    u_part = min(int(factor * math.ceil(math.log(l_k))), l_k)
+    u = min(int(factor * math.ceil(math.log(l_q))), l_q)
+    return u, u_part
+
+
+def prob_sparse_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    factor: int = 5,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    index_sample=None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """ProbSparse attention; returns f32 ``(B, L_q, H, D)``.
+
+    ``index_sample`` ``(L_q, U_part)`` picks the sampled keys. When it is
+    None, a ``generator`` draws it (training); without one, the eval draw
+    of the JAX package (``randint(PRNGKey(0), ...)``) is used.
+    """
+    b, l_q, h, e = q.shape
+    l_k = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(e)
+    u, u_part = prob_sparse_sizes(l_q, l_k, factor)
+    if index_sample is None:
+        if generator is not None:
+            index_sample = torch.randint(
+                0, l_k, (l_q, u_part), generator=generator,
+                device=generator.device,
+            )
+        else:
+            key = (l_q, u_part, l_k, q.device)
+            if key not in _index_cache:  # one host-to-device copy per shape
+                _index_cache[key] = torch.from_numpy(
+                    prob_sparse_index_sample(l_q, u_part, l_k).astype(np.int64)
+                ).to(q.device)
+            index_sample = _index_cache[key]
+    if isinstance(index_sample, np.ndarray):
+        index_sample = torch.from_numpy(index_sample.astype(np.int64))
+    index_sample = index_sample.to(device=q.device, dtype=torch.long)
+
+    qt, kt = q.float().transpose(1, 2), k.float().transpose(1, 2)
+    vt = v.transpose(1, 2)  # (B, H, L, D)
+    qk = qt @ kt.transpose(-1, -2)  # (B, H, L_q, L_k) f32
+    sample = torch.gather(
+        qk, 3, index_sample.expand(b, h, l_q, u_part)
+    )  # (B, H, L_q, U_part)
+    m = sample.amax(-1) - sample.sum(-1) / l_k
+    thresh = torch.topk(m, u, dim=-1).values[..., -1:]
+    selected = m >= thresh
+
+    scores = qk * scale
+    vf = vt.float()
+    if causal:
+        scores = scores.masked_fill(_causal_mask(l_q, l_k, q.device), _NEG_INF)
+        context = vf.cumsum(2).to(v.dtype).float()  # requires L_q == L_k
+    else:
+        context = vf.mean(2, keepdim=True).to(v.dtype).float().expand(
+            b, h, l_q, vf.shape[-1]
+        )
+    update = torch.softmax(scores, dim=-1) @ vf
+    out = torch.where(selected[..., None], update, context)
+    return out.transpose(1, 2)

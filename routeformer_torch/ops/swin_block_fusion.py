@@ -1,0 +1,166 @@
+"""K1: the fused SwinV2 block (counterpart of
+``routeformer_tpu/ops/swin_block_fusion.py::fused_swin_block_forward``).
+
+On Hopper the block is a pipeline of hand-written kernels over all windows
+at once (``csrc/swin_block.cu`` explains why and what bounds it): qkv GEMM,
+window attention (K2), proj GEMM, ``x + LN1``, fc1 GEMM with tanh gelu,
+fc2 GEMM, ``x + LN2``. ``fused_swin_block`` runs it for CUDA tensors and
+the plain PyTorch version for CPU tensors. ``launches`` counts pipeline
+launches (one per block call).
+
+``params`` holds the block's weights in torch layout (``(out, in)``):
+``wqkv (3C, C)``, ``bqkv (3C,)``, ``wproj (C, C)``, ``bproj``,
+``ln1_scale``, ``ln1_bias``, ``wfc1 (4C, C)``, ``bfc1``, ``wfc2 (C, 4C)``,
+``bfc2``, ``ln2_scale``, ``ln2_bias`` and ``logit_scale (H,)``, already
+clamped and exponentiated. ``bias`` is ``(H, n, n)`` shared by every
+window, or ``(nW, H, n, n)`` per window kind with the window index varying
+fastest along the batch.
+"""
+
+import ctypes
+import math
+
+import torch
+
+from routeformer_torch.ops import cuda_build, flash_attention
+
+launches = 0
+LN_EPS = 1e-5
+
+
+def tanh_gelu(x: torch.Tensor) -> torch.Tensor:
+    c = math.sqrt(2.0 / math.pi)
+    return 0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))
+
+
+def _ln(x, scale, bias, eps=LN_EPS):
+    mu = x.mean(-1, keepdim=True)
+    xc = x - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    return xc * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def fused_swin_block_plain(x_windows, params, bias, n_heads, compute_bf16=True):
+    """Plain version of the block on ``(B, n, C)`` window rows.
+
+    With ``compute_bf16`` every matmul operand is rounded to bf16 (f32
+    accumulation) at the TPU kernel's rounding points; with False it is the
+    f32 ``swin_block_reference``. Returns ``x_windows``' dtype.
+    """
+    b, n, c = x_windows.shape
+    h = n_heads
+    mm = torch.bfloat16 if compute_bf16 else torch.float32
+
+    def rnd(t):
+        return t.to(mm).float()
+
+    def linear(t, w, bb):
+        return rnd(t) @ rnd(w).transpose(0, 1) + bb.float()
+
+    x = x_windows.float()
+    qkv = linear(x, params["wqkv"], params["bqkv"])
+    qkv = qkv.reshape(b, n, 3, h, c // h).permute(2, 0, 3, 1, 4)
+    q, k, v = flash_attention._normalise(qkv[0]), flash_attention._normalise(qkv[1]), qkv[2]
+    s = rnd(q) @ rnd(k).transpose(-1, -2)
+    s = s * params["logit_scale"].float().reshape(1, h, 1, 1)
+    bias = bias.float()
+    if bias.ndim == 3:
+        bias = bias[None]
+    nb = bias.shape[0]
+    s = (s.reshape(b // nb, nb, h, n, n) + bias[None]).reshape(b, h, n, n)
+    p = torch.softmax(s, dim=-1)
+    attn = (rnd(p) @ rnd(v)).transpose(1, 2).reshape(b, n, c)
+    a = linear(attn, params["wproj"], params["bproj"])
+    x = x + _ln(a, params["ln1_scale"], params["ln1_bias"])
+    y = tanh_gelu(linear(x, params["wfc1"], params["bfc1"]))
+    y = linear(y, params["wfc2"], params["bfc2"])
+    x = x + _ln(y, params["ln2_scale"], params["ln2_bias"])
+    return x.to(x_windows.dtype)
+
+
+def _f32(t):
+    return t.float().contiguous()
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).contiguous()
+
+
+def _fused_swin_block_cuda(x_windows, params, bias, n_heads):
+    global launches
+    b, n, c = x_windows.shape
+    h = n_heads
+    d = c // h
+    dev = x_windows.device
+    if x_windows.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"x_windows must be bf16 or f32, got {x_windows.dtype}")
+    if c % h or c % 8 or d not in (16, 32, 64) or not 1 <= n <= 256:
+        raise ValueError(f"unsupported block geometry n={n}, C={c}, heads={h}")
+    bias = bias.float()
+    if bias.ndim == 3:
+        bias = bias[None]
+    bias = bias.contiguous()
+    if bias.shape[1:] != (h, n, n) or b % bias.shape[0]:
+        raise ValueError(f"bias {tuple(bias.shape)} does not fit ({b}, {h}, {n}, {n})")
+    lib = cuda_build.libraries()["swin_block"]
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    m = b * n
+    x = x_windows.reshape(m, c).contiguous()
+    xb = _bf16(x)
+
+    def gemm(a, w, bb, out, act=0):
+        err = lib.rf_gemm_bias_act(
+            a.data_ptr(), w.data_ptr(), bb.data_ptr(), out.data_ptr(),
+            int(out.dtype == torch.bfloat16), m, w.shape[0], w.shape[1], act,
+            stream,
+        )
+        cuda_build.check(err, "gemm_bias_act")
+
+    def res_ln(a, res, scale, shift, out_f32, out_bf16):
+        err = lib.rf_residual_layernorm(
+            a.data_ptr(), res.data_ptr(), int(res.dtype == torch.bfloat16),
+            scale.data_ptr(), shift.data_ptr(),
+            None if out_f32 is None else out_f32.data_ptr(),
+            None if out_bf16 is None else out_bf16.data_ptr(),
+            m, c, LN_EPS, stream,
+        )
+        cuda_build.check(err, "residual_layernorm")
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    qkv = torch.empty(m, 3 * c, **f32)
+    gemm(xb, _bf16(params["wqkv"]), _f32(params["bqkv"]), qkv)
+    attn = torch.empty(m, c, **bf)
+    # q, k, v are views of the qkv rows: (window, head, token) strides.
+    flash_attention.launch_window_attention(
+        qkv, qkv[:, c:], qkv[:, 2 * c:], (n * 3 * c, d, 3 * c), bias,
+        _f32(params["logit_scale"]), attn, (n * c, d, c), b, h, n, d, True,
+    )
+    a = torch.empty(m, c, **f32)
+    gemm(attn, _bf16(params["wproj"]), _f32(params["bproj"]), a)
+    x1 = torch.empty(m, c, **f32)
+    x1b = torch.empty(m, c, **bf)
+    res_ln(a, x, _f32(params["ln1_scale"]), _f32(params["ln1_bias"]), x1, x1b)
+    y = torch.empty(m, 4 * c, **bf)
+    gemm(x1b, _bf16(params["wfc1"]), _f32(params["bfc1"]), y, act=1)
+    y2 = torch.empty(m, c, **f32)
+    gemm(y, _bf16(params["wfc2"]), _f32(params["bfc2"]), y2)
+    out = torch.empty(m, c, dtype=x_windows.dtype, device=dev)
+    is_bf16 = out.dtype == torch.bfloat16
+    res_ln(y2, x1, _f32(params["ln2_scale"]), _f32(params["ln2_bias"]),
+           None if is_bf16 else out, out if is_bf16 else None)
+    launches += 1
+    return out.reshape(b, n, c)
+
+
+def fused_swin_block(x_windows, params, bias, n_heads, compute_bf16=True):
+    """One SwinV2 block (attention + MLP, res-post-norm) on window rows."""
+    if x_windows.device.type == "cpu":
+        return fused_swin_block_plain(x_windows, params, bias, n_heads,
+                                      compute_bf16)
+    if not compute_bf16:
+        raise ValueError(
+            "the CUDA fused block computes with bf16 operands; "
+            "compute_bf16=False runs only on the CPU"
+        )
+    return _fused_swin_block_cuda(x_windows, params, bias, n_heads)

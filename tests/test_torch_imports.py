@@ -1,0 +1,81 @@
+"""The port stands alone: no module of ``routeformer_torch`` (nor
+``chip_smoke.py``) imports jax, flax or routeformer_tpu; entry points
+default to CUDA and raise without it; ``chip_smoke.py`` fails without a
+card and without the package."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import routeformer_torch
+from routeformer_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_BLOCKER = r"""
+import importlib.abc, importlib.util, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "routeformer_tpu")
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import routeformer_torch
+names = [m.name for m in pkgutil.walk_packages(routeformer_torch.__path__,
+                                                "routeformer_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names), "modules")
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    return env
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    out = subprocess.run([sys.executable, "-c", _BLOCKER], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[0]) >= 25
+
+
+def test_default_device_is_cuda():
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+        return
+    for entry in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
+                  lambda: routeformer_torch.build_flagship(),
+                  lambda: routeformer_torch.synthetic_batch(0, 1),
+                  lambda: routeformer_torch.load_serving_bundle("missing")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry()
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_card_or_package(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: chip_smoke.py would run")
+    for cwd in (ROOT, tmp_path):
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,140 @@
+"""The port's Informer and SwinV2 backbone against the JAX package on the
+CPU, with the JAX modules' parameters carried over by
+``routeformer_torch.convert.load_flax_params`` (every parameter matched).
+Biases and BatchNorm statistics are perturbed first so that none is a
+trivial zero or one."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from routeformer_tpu.models.gps_backbone import GPSBackboneConfig as JaxGPSConfig
+from routeformer_tpu.models.gps_backbone import Informer as JaxInformer
+from routeformer_tpu.models.video_backbone import SwinV2Backbone as JaxSwin
+from routeformer_tpu.models.video_backbone import TimmBackboneConfig as JaxTimmConfig
+from routeformer_torch.convert import load_flax_params
+from routeformer_torch.models.gps_backbone import GPSBackboneConfig, Informer
+from routeformer_torch.models.video_backbone import SwinV2Backbone, TimmBackboneConfig
+
+
+def export_params(model, rng, noise=0.05) -> dict:
+    """Perturb a JAX module's 1-D parameters and batch statistics in place
+    and return all its parameters as numpy, keyed by flat-state path."""
+    state = nnx.state(model, (nnx.Param, nnx.BatchStat))
+    out = {}
+    for path, var in nnx.to_flat_state(state):
+        name = ".".join(str(p) for p in path)
+        arr = np.asarray(var[...], dtype=np.float32)
+        if name.endswith(".var"):
+            arr = 1.0 + rng.uniform(0.0, 0.5, arr.shape)
+        elif arr.ndim == 1 or name.endswith(("q_bias", "v_bias")):
+            arr = arr + noise * rng.normal(size=arr.shape)
+        arr = arr.astype(np.float32)
+        var[...] = jnp.asarray(arr)
+        out[name] = arr
+    nnx.update(model, state)
+    return out
+
+
+def import_params(model, flat: dict) -> None:
+    """Set a JAX module's parameters from an ``export_params`` dict."""
+    state = nnx.state(model, (nnx.Param, nnx.BatchStat))
+    for path, var in nnx.to_flat_state(state):
+        var[...] = jnp.asarray(flat[".".join(str(p) for p in path)])
+    nnx.update(model, state)
+
+
+def _informer_pair(rng, **kw):
+    jcfg = JaxGPSConfig(**kw)
+    jcfg.smart_decoder = True
+    jax_model = JaxInformer(jcfg, rngs=nnx.Rngs(0))
+    jax_model.eval()
+    flat = export_params(jax_model, rng)
+    cfg = GPSBackboneConfig(**kw)
+    cfg.smart_decoder = True
+    port = Informer(cfg).eval()
+    assert load_flax_params(port, flat) == len(
+        [k for k in port.state_dict() if not k.endswith("num_batches_tracked")])
+    return jax_model, port
+
+
+@pytest.mark.parametrize("width", ["tiny", "flagship"])
+def test_informer_matches_jax(rng, width):
+    """Real (non-exhaustive) ProbSparse factors: tiny d32 at factor 1 and
+    the flagship width d832/d_ff 3328/8 heads at factor 4 with two
+    distilling convs (encoder L = 40, 21, 12). f32 at 2e-4."""
+    if width == "tiny":
+        kw = dict(seq_len=20, label_len=20, pred_len=10, d_model=32, n_heads=4,
+                  e_layers=2, d_layers=1, d_ff=64, factor=1)
+    else:
+        kw = dict(seq_len=40, label_len=40, pred_len=30, d_model=832, n_heads=8,
+                  e_layers=3, d_layers=1, d_ff=3328, factor=4)
+    kw.update(dropout=0.0, activation="relu", distil=True, _enc_in=69, _c_out=66)
+    jax_model, port = _informer_pair(rng, **kw)
+    x = rng.normal(size=(2, kw["seq_len"], 69)).astype(np.float32)
+    want = np.asarray(jax_model(jnp.asarray(x)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == (2, kw["pred_len"], 66)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("gelu,dtype,hw", [
+    ("exact", "float32", (64, 64)),   # K2 path, no resize
+    ("exact", "float32", (96, 96)),   # antialiased downsampling to 64
+    ("tanh", "float32", (40, 64)),    # K1 path, pad to square
+    ("tanh", "bfloat16", (64, 64)),   # K1 path, bf16 rounding points
+])
+def test_swin_backbone_matches_jax(rng, monkeypatch, gelu, dtype, hw):
+    """SwinV2 on ``swinv2_parity_test`` (two stages, shifted windows, one
+    merge). tanh blocks run the JAX fused-block kernel in interpret mode
+    against the port's K1 plain version; exact blocks run the JAX einsum
+    window path against K2's plain version. f32 at 2e-4.
+
+    In bf16 the block itself matches the Pallas kernel to a bf16
+    rounding (``test_torch_kernels``), but LayerNorm statistics summed in another
+    order flip single bf16 roundings, which the random-weight stages
+    amplify. So bf16 is held to the noise floor of bf16 itself: the port's
+    mean error against JAX bf16 is at most twice JAX bf16's mean error
+    against JAX f32 on the same weights."""
+    if gelu == "tanh":
+        monkeypatch.setenv("ROUTEFORMER_SWIN_BLOCK_FUSION", "interpret")
+    kw = dict(model_type="swinv2_parity_test", compute_dtype=dtype, gelu=gelu,
+              pad_to_square=True)
+    jax_model = JaxSwin(JaxTimmConfig(cache_enabled=False, **kw), rngs=nnx.Rngs(0))
+    jax_model.eval()
+    flat = export_params(jax_model, rng)
+    port = SwinV2Backbone(TimmBackboneConfig(**kw)).eval()
+    load_flax_params(port, flat)
+    x = rng.uniform(size=(3, *hw, 3)).astype(np.float32)
+    want = np.asarray(jax_model(jnp.asarray(x)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (3, 8, 8, 32)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-3)
+        return
+    jax_f32 = JaxSwin(JaxTimmConfig(cache_enabled=False,
+                                    **dict(kw, compute_dtype="float32")),
+                      rngs=nnx.Rngs(0))
+    jax_f32.eval()
+    import_params(jax_f32, flat)
+    floor = np.abs(want - np.asarray(jax_f32(jnp.asarray(x)))).mean()
+    assert 0 < np.abs(got - want).mean() <= 2 * floor
+
+
+def test_load_flax_params_rejects_unmatched(rng):
+    kw = dict(seq_len=8, label_len=8, pred_len=4, d_model=16, n_heads=2,
+              e_layers=2, d_layers=1, d_ff=32, factor=1, dropout=0.0,
+              _enc_in=5, _c_out=2)
+    jcfg = JaxGPSConfig(**kw)
+    flat = export_params(JaxInformer(jcfg, rngs=nnx.Rngs(0)), rng)
+    port = Informer(GPSBackboneConfig(**kw))
+    extra = dict(flat, **{"encoder.extra.kernel": np.zeros((2, 2), np.float32)})
+    with pytest.raises(KeyError, match="flax-only"):
+        load_flax_params(port, extra)
+    missing = {k: v for k, v in flat.items() if "norm" not in k}
+    with pytest.raises(KeyError, match="port-only"):
+        load_flax_params(port, missing)
