@@ -16,9 +16,26 @@ Phases (any failure exits non-zero):
    one batch-4 request of synthetic GEM-geometry clips; check shapes,
    finiteness and 24 K1 and 24 K2 launches per forward; hold the card's
    forward against a CPU run of the same weights (plain versions,
-   exhaustive ProbSparse); time a request with CUDA events.
-6. Print a ``kernels`` JSON line (launches, times, bound, library time).
-7. Print ``{"ok": true, "device": {...}}`` as the last line.
+   exhaustive ProbSparse); time a request with CUDA events. Then one
+   batch-1 request with the fused Perceive stack (K3a, 24 launches per
+   forward) against the plain-stack request.
+6. K3a (fused Perceive stack forward) against its plain version at every
+   stack geometry of the flagship train step, eval and train (dropout
+   masks at p = 0.05): bf16 with exhaustive ProbSparse and f32 with the
+   real u; at bf16 with the real u, the share of top-u selections that
+   differ and the error elsewhere. K3b (per-layer backward) against the
+   plain backward at the same geometries. K1/K2 gradients through their
+   autograd Functions against autograd of the plain versions.
+7. Flagship training with ``ROUTEFORMER_FUSION_KERNEL=1``: two steps at
+   batch 16 on synthetic GEM clips at epoch 12; finite metrics, the
+   non-backbone parameters move and the frozen backbone does not, and the
+   launches per step that the design implies (``PER_STEP``). Step time,
+   peak memory, the plain-stack step and one profiled step. Then one step
+   with the kernels and one with the plain stack from the same weights,
+   dropout off and exhaustive ProbSparse: loss, gradients and the update.
+8. Print a ``kernels`` JSON line (launches on the training path, times,
+   bound, library time).
+9. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
 """
@@ -34,6 +51,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
+PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BUNDLE_DIR = ROOT / "build" / "smoke_bundle"
 
@@ -50,6 +68,29 @@ K2_TOL = 1e-2  # max |kernel - plain| / max(1, max |plain|), bf16 output
 K1_TOL = 1e-2  # max |kernel - plain| / max |plain|, bf16 output
 FEATURE_TOL = 5e-2  # backbone feature maps, card vs CPU, relative to max
 PRED_TOL = 5e-2  # displacement and dense features, card vs CPU, relative to max
+
+# The Perceive stacks at the flagship train step, batch 16: (encoder, rows,
+# tokens, stack calls per step). Each encoder runs on the input and,
+# detached, on the target; the gaze encoder's geometry is the same in both.
+K3_GEOMS = [("frame", 384, 65, 1), ("frame target", 288, 65, 1),
+            ("video", 16, 160, 1), ("video target", 16, 120, 1),
+            ("gaze", 16, 40, 2)]
+K3_BACKWARD = {"frame", "video", "gaze"}  # the stacks that backpropagate
+K3_D, K3_F, K3_H, K3_N, K3_FACTOR, K3_P = 128, 256, 8, 8, 5, 0.05
+K3A_TOL = 2e-2  # max|kernel - plain| / max|plain| (the JAX fused-stack forward parity)
+K3B_TOL = 5e-2  # dx against its max, weight grads against one global scale
+K12_GRAD_TOL = 1e-2  # the Functions' gradients against autograd of the plain versions
+TRAIN_BATCH, TRAIN_EPOCH = 16, 12  # epoch >= 10: lr > 0, dense loss on
+# Launches per flagship train step: 24 SwinV2 blocks (K1, each with one K2)
+# in the input and in the target backbone pass; 3 Perceive stacks of 8
+# layers (K3a, one launch per layer) in each pass; K3b once per layer of
+# the input-pass stacks that receive a gradient (the target pass is
+# detached): all 3, or the frame and video encoders' when gaze dropout
+# zeroes the gaze features (one decision per batch, p = 0.2), which cuts
+# the gaze encoder out of the backward.
+PER_STEP = {"K1": (48,), "K2": (48,), "K3a": (48,), "K3b": (24, 16)}
+STEP_LOSS_TOL = 1e-2  # kernel vs plain-stack step: relative loss
+STEP_GRAD_TOL = 5e-2  # kernel vs plain-stack step: gradients, of the global max
 
 
 def log(msg: str) -> None:
@@ -271,7 +312,37 @@ def serve_flagship(results: dict) -> dict:
     assert errs["displacement"] <= PRED_TOL and errs["dense"] <= PRED_TOL, errs
     results["card_vs_cpu"] = errs
     assert np.isfinite(list(errs.values())).all()
+    serve_fused(serving, batch, results)
     return launches
+
+
+def serve_fused(serving, batch, results: dict) -> None:
+    """One batch-1 request with the fused Perceive stack (K3a) against the
+    plain-stack request, both exhaustive; K3a launches per forward."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    set_fusion("0")
+    gps_plain, dense_plain = serving(batch)
+    plain_ms = cuda_ms(lambda: serving(batch), iters=3, warmup=1)
+    set_fusion("1")
+    fs.launches_fwd = 0  # this path's count: set to 0 just before, read just after
+    gps, dense = serving(batch)
+    torch.cuda.synchronize()
+    per_forward = fs.launches_fwd
+    fused_ms = cuda_ms(lambda: serving(batch), iters=3, warmup=1)
+    set_fusion("0")
+    last = torch.as_tensor(batch["gps"][:, -1:], device=gps.device)
+    errs = {"displacement": rel_err(gps - last, gps_plain - last),
+            "dense": rel_err(dense, dense_plain)}
+    log(f"batch-1 request with the fused stack: {per_forward} K3a launches, "
+        f"{fused_ms:.2f} ms (plain stack {plain_ms:.2f} ms); fused vs plain stack, "
+        f"max|diff|/max|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert per_forward == 24, f"K3a launches per forward {per_forward}, expected 24"
+    assert errs["displacement"] <= PRED_TOL and errs["dense"] <= PRED_TOL, errs
+    results["serve_fused"] = {"k3a_launches": per_forward, "request_ms": fused_ms,
+                              "plain_stack_request_ms": plain_ms, **errs}
 
 
 def profile_request(serving, batch, results: dict) -> None:
@@ -317,6 +388,465 @@ def profile_request(serving, batch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------- phase 6 #
+
+
+def k3_inputs(r, l, seed, train):
+    """Random stack weights at the flagship widths, rows ``(r, l, D)``,
+    dropout keep-masks (train) and the eval key sample's counts."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, d, f = K3_N, K3_D, K3_F
+
+    def rnd(*shape, s):
+        return torch.randn(*shape, device="cuda", generator=g) * s
+
+    w = fs.StackWeights(
+        wq=rnd(n, d, d, s=d ** -0.5), bq=rnd(n, d, s=0.1),
+        wk=rnd(n, d, d, s=d ** -0.5), bk=rnd(n, d, s=0.1),
+        wv=rnd(n, d, d, s=d ** -0.5), bv=rnd(n, d, s=0.1),
+        wout=rnd(n, d, d, s=d ** -0.5), bout=rnd(n, d, s=0.1),
+        ln1_scale=1 + rnd(n, d, s=0.05), ln1_bias=rnd(n, d, s=0.05),
+        wff1=rnd(n, d, f, s=d ** -0.5), bff1=rnd(n, f, s=0.1),
+        wff2=rnd(n, f, d, s=f ** -0.5), bff2=rnd(n, d, s=0.1),
+        ln2_scale=1 + rnd(n, d, s=0.05), ln2_bias=rnd(n, d, s=0.05),
+    )
+    x = rnd(r, l, d, s=1.0)
+    masks = (fs.make_dropout_masks(n, r, l, d, f, K3_P, generator=g, device="cuda")
+             if train else None)
+    cnt = fs.sample_count_matrices(n, l, l, fs.prob_sparse_u(l, K3_FACTOR),
+                                   device="cuda")
+    return x, w, masks, cnt
+
+
+def layer_of(stack, i):
+    return None if stack is None else tuple(t[i] for t in stack)
+
+
+def selection_flips(x, w, cnt, masks, u, p):
+    """bf16 with the real u, layer by layer from the plain layer input:
+    ``(selections that differ, selections, max|kernel - plain| / max|plain|
+    over the tokens where no head's selection differs)``."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    flips = total = 0
+    rest = 0.0
+    kw = dict(heads=K3_H, u=u, dropout_rate=p, activation="gelu")
+    for i in range(K3_N):
+        wl, ml, c = layer_of(w, i), layer_of(masks, i), cnt[i].contiguous()
+        sel = torch.empty(x.shape[0], K3_H, x.shape[1], dtype=torch.int8, device="cuda")
+        y_k = fs.layer_forward_cuda(x, wl, c, ml, compute_bf16=True, selection=sel, **kw)
+        y_p, inner = fs.layer_forward(x, wl, c, ml, mm_dtype=torch.bfloat16,
+                                      internals=True, **kw)
+        differ = sel.bool() != inner["saved"][4][..., 0]
+        flips += int(differ.sum())
+        total += differ.numel()
+        clean = ~differ.any(1)  # (R, L): no head flipped at this token
+        if clean.any():
+            err = (y_k - y_p).abs().amax(-1)[clean].max() / y_p.abs().max()
+            rest = max(rest, err.item())
+        x = y_p
+    return flips, total, rest
+
+
+def check_k3a(results: dict) -> None:
+    from routeformer_torch.ops import fusion_stack as fs
+
+    worst = 0.0
+    for name, r, l, _ in K3_GEOMS:
+        u = fs.prob_sparse_u(l, K3_FACTOR)
+        for train in (False, True):
+            x, w, masks, cnt = k3_inputs(r, l, seed=r * l + train, train=train)
+            p = K3_P if train else 0.0
+            mode = "train" if train else "eval"
+            for label, bf16, factor in (("bf16 u=L", True, 10 ** 6),
+                                        (f"f32 u={u}", False, K3_FACTOR)):
+                got = fs.fused_perceive_stack(x, w, cnt, masks, heads=K3_H, factor=factor,
+                                              dropout_rate=p, compute_bf16=bf16)
+                want = fs.stack_reference(x, w, cnt, masks, heads=K3_H,
+                                          u=fs.prob_sparse_u(l, factor),
+                                          dropout_rate=p, compute_bf16=bf16)
+                err = rel_err(got, want)
+                worst = max(worst, (got - want).abs().max().item())
+                log(f"K3a {name} ({r}, {l}) {mode} {label}, {K3_N} layers: "
+                    f"max|kernel-plain|/max|plain| = {err:.3e}")
+                if not err <= K3A_TOL:
+                    raise AssertionError(f"K3a disagrees with its plain version: {err} > {K3A_TOL}")
+            flips, total, rest = selection_flips(x, w, cnt, masks, u, p)
+            log(f"K3a {name} ({r}, {l}) {mode} bf16 u={u}: {flips} of {total} "
+                f"selections differ ({flips / total:.3e}); max|kernel-plain|/max|plain| "
+                f"on the other tokens {rest:.3e} (per layer, from the plain layer input)")
+    results["k3a_max_abs_err"] = worst
+
+
+def check_k3b(results: dict) -> None:
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    worst = 0.0
+    for name, r, l, _ in K3_GEOMS:
+        u = fs.prob_sparse_u(l, K3_FACTOR)
+        x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 7, train=True)
+        g = torch.randn(x.shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(r * l))
+        wl, ml, c = layer_of(w, 0), layer_of(masks, 0), cnt[0].contiguous()
+        for label, bf16, uu in (("bf16 u=L", True, l), (f"f32 u={u}", False, u)):
+            kw = dict(heads=K3_H, u=uu, dropout_rate=K3_P, activation="gelu")
+            dx_k, dw_k = fs.layer_backward_cuda(x, g, wl, c, ml, compute_bf16=bf16, **kw)
+            dx_p, dw_p = fs.layer_backward(
+                x, g, wl, c, ml, mm_dtype=torch.bfloat16 if bf16 else torch.float32, **kw)
+            err_dx = rel_err(dx_k, dx_p)
+            scale = max(t.abs().max().item() for t in dw_p)
+            diff_w = max((a - b).abs().max().item() for a, b in zip(dw_k, dw_p))
+            worst = max(worst, (dx_k - dx_p).abs().max().item(), diff_w)
+            log(f"K3b {name} ({r}, {l}) train {label}: dx max|kernel-plain|/max|plain| = "
+                f"{err_dx:.3e}; weight grads max|kernel-plain|/global max = "
+                f"{diff_w / scale:.3e}")
+            if not (err_dx <= K3B_TOL and diff_w <= K3B_TOL * scale):
+                raise AssertionError(f"K3b disagrees with the plain backward: "
+                                     f"{err_dx}, {diff_w / scale} > {K3B_TOL}")
+    results["k3b_max_abs_err"] = worst
+
+
+def check_k12_grad(results: dict) -> None:
+    """At the stage-3 geometry: gradients through the K1/K2 autograd
+    Functions (kernel forward) against autograd of the plain versions
+    (the Functions' backward recomputes the plain version in f32)."""
+    import torch
+
+    from routeformer_torch.ops import flash_attention as fa
+    from routeformer_torch.ops import swin_block_fusion as sbf
+
+    def grads(fn, leaves, weight):
+        leaves = [t.detach().requires_grad_(True) for t in leaves]
+        out = fn(*leaves)
+        return torch.autograd.grad((out.float() * weight).sum(), leaves)
+
+    def compare(name, got, want):
+        scale = max(t.float().abs().max().item() for t in want)
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        log(f"{name} gradient, Function vs autograd of the plain version: "
+            f"max|diff|/global max = {err / scale:.3e}")
+        if not (scale > 0 and err <= K12_GRAD_TOL * scale):
+            raise AssertionError(f"{name} gradient disagrees: {err / scale} > {K12_GRAD_TOL}")
+
+    _, b, n, c, h, _, _ = STAGES[3]
+    q, k, v, bias, scale = k2_inputs(b, h, n, c // h, 1, seed=3)
+    weight = torch.randn(q.shape, device="cuda")
+    before = fa.launches
+    got = grads(lambda *t: fa.flash_window_attention(*t, cosine=True),
+                (q, k, v, bias, scale), weight)
+    assert fa.launches == before + 1, "K2 did not launch"
+    want = grads(lambda q_, k_, v_, b_, s_: fa.flash_window_attention_plain(
+        q_.float(), k_.float(), v_.float(), b_, s_, True).to(v_.dtype),
+        (q, k, v, bias, scale), weight)
+    compare("K2", got, want)
+
+    x, params, bias = k1_inputs(b, n, c, h, None, seed=4)
+    keys = sbf.PARAM_KEYS
+    weight = torch.randn(x.shape, device="cuda")
+    before = sbf.launches
+    got = grads(lambda x_, b_, *p: sbf.fused_swin_block(x_, dict(zip(keys, p)), b_, h, True),
+                (x, bias, *(params[k] for k in keys)), weight)
+    assert sbf.launches == before + 1, "K1 did not launch"
+    want = grads(lambda x_, b_, *p: sbf.fused_swin_block_plain(
+        x_, dict(zip(keys, p)), b_, h, compute_bf16=False),
+        (x, bias, *(params[k] for k in keys)), weight)
+    compare("K1", got, want)
+
+
+# ---------------------------------------------------------------- phase 7 #
+
+
+def launch_counts() -> dict:
+    from routeformer_torch.ops import flash_attention as fa
+    from routeformer_torch.ops import fusion_stack as fs
+    from routeformer_torch.ops import swin_block_fusion as sbf
+
+    return {"K1": sbf.launches, "K2": fa.launches, "K3a": fs.launches_fwd,
+            "K3b": fs.launches_bwd}
+
+
+def reset_counts() -> None:
+    from routeformer_torch.ops import flash_attention as fa
+    from routeformer_torch.ops import fusion_stack as fs
+    from routeformer_torch.ops import swin_block_fusion as sbf
+
+    sbf.launches = fa.launches = fs.launches_fwd = fs.launches_bwd = 0
+
+
+def train_batches(seed: int):
+    import routeformer_torch as rt
+
+    cfg = rt.flagship_config()
+    g = cfg.gps_backbone_config
+    data = rt.synthetic_batch(seed, TRAIN_BATCH, seq_len=g.seq_len, pred_len=g.pred_len,
+                              fps=cfg.output_fps, with_video=True, with_gaze=True,
+                              frame_hw=(54, 96))
+    return data["train"], data["target"]
+
+
+def set_fusion(mode: str) -> None:
+    os.environ["ROUTEFORMER_FUSION_KERNEL"] = mode
+
+
+def train_flagship(results: dict) -> dict:
+    """The main path of this slice: flagship train steps with the fused
+    Perceive stacks. Returns the launches of its two checked steps."""
+    import torch
+
+    import routeformer_torch as rt
+
+    set_fusion("1")
+    model, _, step = rt.build_flagship_training(seed=0, start_step=TRAIN_EPOCH)
+    inp, tgt = train_batches(21)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    reset_counts()  # the main path: counts set to 0 just before, read just after
+    metrics, per_step = [], []
+    for _ in range(2):
+        counts = launch_counts()
+        metrics.append(step(inp, tgt, TRAIN_EPOCH))
+        torch.cuda.synchronize()
+        per_step.append({k: v - counts[k] for k, v in launch_counts().items()})
+    launches = launch_counts()
+    log(f"flagship train, 2 steps at batch {TRAIN_BATCH}: launches per step {per_step}")
+    for counts in per_step:
+        assert all(counts[k] in PER_STEP[k] for k in PER_STEP), (
+            f"launches {counts}, expected {PER_STEP}")
+    for m in metrics:
+        values = {k: v.item() for k, v in m.items()}
+        log(f"step metrics: {values}")
+        assert all(math.isfinite(v) for v in values.values()), values
+    moved = {"backbone": 0.0, "rest": 0.0}
+    for n, p in model.named_parameters():
+        key = "backbone" if "video_backbone" in n else "rest"
+        moved[key] = max(moved[key], (p.detach() - before[n]).abs().max().item())
+    log(f"largest parameter change after 2 steps: {moved}")
+    assert moved["rest"] > 0.0, "the trained parameters did not move"
+    assert moved["backbone"] < 1e-7, "the frozen backbone moved"
+    del before
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(inp, tgt, TRAIN_EPOCH), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    set_fusion("0")
+    plain_ms = cuda_ms(lambda: step(inp, tgt, TRAIN_EPOCH), iters=3, warmup=1)
+    set_fusion("1")
+    log(f"train step batch {TRAIN_BATCH}: {step_ms:.2f} ms with K3a/K3b, "
+        f"{plain_ms:.2f} ms with the plain stack; peak memory {peak:.2f} GiB")
+    results.update(train_step_ms=step_ms, train_step_plain_stack_ms=plain_ms,
+                   train_peak_gib=peak)
+    profile_step(lambda: step(inp, tgt, TRAIN_EPOCH), step_ms, results)
+    return launches
+
+
+def profile_step(run, step_ms: float, results: dict) -> None:
+    """Device time by kernel over one train step (torch.profiler) and the
+    device's idle share of the step time measured with CUDA events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    groups, count = {}, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if (e.device_type != DeviceType.CUDA or t <= 0
+                or getattr(e, "is_user_annotation", False)):
+            continue  # device ops only (an annotation spans ops counted already)
+        groups[e.key] = groups.get(e.key, 0.0) + t / 1e3
+        count += e.count
+    busy = sum(groups.values())
+    top = sorted(groups.items(), key=lambda kv: -kv[1])[:12]
+    line = {
+        "device_busy_ms_per_step": busy,
+        "step_ms": step_ms,
+        "idle_share": 1 - busy / step_ms if busy else None,
+        "kernels_per_step": count,
+        "top_device_ms_per_step": {k[:80]: v for k, v in top},
+    }
+    results["train_profile"] = line
+    log("train profile: " + json.dumps(line))
+
+
+def quiet(model) -> None:
+    """Every dropout rate 0, no motion noise, exhaustive ProbSparse."""
+    import torch
+
+    from routeformer_torch.models.cross_modal import PerceiveEncoder
+    from routeformer_torch.models.layers.attention import FullAttention
+
+    cfg = model.configs
+    cfg.view_dropout = cfg.gaze_dropout = cfg.motion_noise = 0.0
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+        elif isinstance(m, PerceiveEncoder):
+            m.dropout_rate = 0.0
+        elif isinstance(m, FullAttention):
+            m.attention_dropout = 0.0
+    set_exhaustive(model)
+
+
+def perceive_f32(model) -> None:
+    """The Perceive encoders compute in f32: the plain layers then round
+    as the fused stack does, up to the order of sums."""
+    from routeformer_torch.models.cross_modal import PerceiveEncoder
+    from routeformer_torch.models.layers.attention import Linear
+
+    for m in model.modules():
+        if isinstance(m, PerceiveEncoder):
+            m.compute_bf16 = False
+            for lin in m.stacked_layers.modules():
+                if isinstance(lin, Linear):
+                    lin.compute_dtype = None
+
+
+def step_pair(inp, tgt, stacks_f32: bool) -> dict:
+    """One step with the kernels ("1") and one with the plain stack ("0")
+    from the same weights and batch, dropout off, exhaustive ProbSparse."""
+    import torch
+
+    import routeformer_torch as rt
+
+    runs = {}
+    for mode in ("1", "0"):
+        set_fusion(mode)
+        model, optimizer, step = rt.build_flagship_training(seed=0, start_step=TRAIN_EPOCH)
+        quiet(model)
+        if stacks_f32:
+            perceive_f32(model)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        metrics = step(inp, tgt, TRAIN_EPOCH)
+        runs[mode] = {
+            "loss": metrics["total_loss"].item(),
+            "grads": {n: p.grad.detach().clone() for n, p in model.named_parameters()},
+            "update": {n: p.detach() - before[n] for n, p in model.named_parameters()},
+            "lr": optimizer.opt.param_groups[0]["lr"],
+        }
+        del model, optimizer, step, before
+        torch.cuda.empty_cache()
+    set_fusion("1")
+    return runs
+
+
+def train_parity(results: dict) -> None:
+    """Kernel step against plain-stack step. Checked with the Perceive
+    encoders in f32, where the two formulations round alike; in the
+    flagship's bf16 the plain layers round every Linear output to bf16 and
+    the fused stack keeps f32 outputs (as the JAX package's scan and fused
+    paths differ), and that gap is reported."""
+    inp, tgt = train_batches(22)
+    results["train_parity"] = {}
+    for stacks in ("f32", "bf16"):
+        runs = step_pair(inp, tgt, stacks_f32=stacks == "f32")
+        k, p = runs["1"], runs["0"]
+        loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        gscale = max(g.abs().max().item() for g in p["grads"].values())
+        gdiff = {n: (k["grads"][n] - g).abs().max().item() for n, g in p["grads"].items()}
+        gerr = max(gdiff.values())
+        worst = sorted(gdiff, key=gdiff.get, reverse=True)[:3]
+        # Adam's first update is about lr * sign(g): an element whose
+        # gradient lies within the gradient tolerance of 0 may flip; one
+        # well above it must take the same step.
+        lr = p["lr"]
+        upd_err, flipped, elements, firm_err = 0.0, 0, 0, 0.0
+        for n, u in p["update"].items():
+            diff = (k["update"][n] - u).abs()
+            upd_err = max(upd_err, diff.max().item())
+            flipped += int((diff > 0.1 * lr).sum())
+            elements += diff.numel()
+            firm = p["grads"][n].abs() > 2 * STEP_GRAD_TOL * gscale
+            if firm.any():
+                firm_err = max(firm_err, diff[firm].max().item())
+        log(f"kernel vs plain-stack step, Perceive stacks in {stacks} (dropout off, "
+            f"exhaustive): loss {k['loss']:.6f} vs {p['loss']:.6f} (rel {loss_err:.3e}); "
+            f"grads max|diff|/global max {gerr / gscale:.3e} (largest in "
+            + ", ".join(f"{n} {gdiff[n] / gscale:.2e}" for n in worst)
+            + f"); update max|diff| {upd_err / lr:.3f} lr, {flipped} of {elements} "
+            f"elements differ by > 0.1 lr, {firm_err / lr:.3e} lr where |g| > "
+            f"{2 * STEP_GRAD_TOL} of the max")
+        results["train_parity"][stacks] = {
+            "loss_rel": loss_err, "grad_rel": gerr / gscale, "update_max_lr": upd_err / lr,
+            "update_share_differs": flipped / elements, "firm_update_max_lr": firm_err / lr}
+        if stacks == "f32":
+            assert loss_err <= STEP_LOSS_TOL, loss_err
+            assert gerr <= STEP_GRAD_TOL * gscale, gerr / gscale
+            assert upd_err <= 2.5 * lr and firm_err <= 0.1 * lr, (upd_err / lr, firm_err / lr)
+
+
+# ---------------------------------------------------------------- phase 8 #
+
+
+def k3_cost(r, l, u, backward):
+    """``(bf16 operations, f32 operations, bytes)`` of one K3a (or K3b)
+    layer call: the products' multiply-adds, p.v (and in the backward dv
+    and dp) over the selected queries in f32; x (and g) read, y (dx)
+    written, weights (and their grads), masks and counts once."""
+    d, f = K3_D, K3_F
+    m = r * l
+    gemm = 2 * m * (4 * d * d + 2 * d * f)
+    qk = 2 * r * l * l * d
+    sel = 2 * r * u * l * d  # one (u x L) by (L x dh) product per head
+    weights = 4 * (4 * d * d + 2 * d * f + 9 * d + f)
+    nbytes = 4 * 2 * m * d + m * (2 * d + f) + 4 * l * l + weights
+    if not backward:
+        return gemm + qk, sel, nbytes
+    # recompute, dX and dW of the six projections, dq and dk (bf16
+    # operands), dv and dp (f32)
+    return 3 * gemm + qk + 2 * sel, 3 * sel, nbytes + 4 * m * d + weights
+
+
+def k3_times() -> dict:
+    """K3a and K3b per flagship train step: kernel and plain times of one
+    layer at each geometry, times the layer calls per step."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
+           for k in ("K3a", "K3b")}
+    for name, r, l, calls in K3_GEOMS:
+        u = fs.prob_sparse_u(l, K3_FACTOR)
+        x, w, masks, cnt = k3_inputs(r, l, seed=1, train=True)
+        g = torch.randn_like(x)
+        wl, ml, c = layer_of(w, 0), layer_of(masks, 0), cnt[0].contiguous()
+        kw = dict(heads=K3_H, u=u, dropout_rate=K3_P, activation="gelu")
+        runs = {"K3a": (lambda: fs.layer_forward_cuda(x, wl, c, ml, compute_bf16=True, **kw),
+                        lambda: fs.layer_forward(x, wl, c, ml, mm_dtype=torch.bfloat16, **kw),
+                        calls)}
+        if name in K3_BACKWARD:
+            runs["K3b"] = (
+                lambda: fs.layer_backward_cuda(x, g, wl, c, ml, compute_bf16=True, **kw),
+                lambda: fs.layer_backward(x, g, wl, c, ml, mm_dtype=torch.bfloat16, **kw),
+                1)
+        for kernel, (run, plain, n_calls) in runs.items():
+            t = cuda_ms(run)
+            tp = cuda_ms(plain, iters=3, warmup=1)
+            bf, f32, nbytes = k3_cost(r, l, u, kernel == "K3b")
+            ops_s = bf / PEAK_BF16 + f32 / PEAK_F32
+            bytes_s = nbytes / PEAK_BYTES
+            times = n_calls * K3_N
+            a = acc[kernel]
+            a["ms"] += times * t
+            a["plain_ms"] += times * tp
+            a["bound_ms"] += times * 1e3 * max(ops_s, bytes_s)
+            a["ops_s"] += times * ops_s
+            a["bytes_s"] += times * bytes_s
+            log(f"{kernel} {name} ({r}, {l}, u={u}): {t:.3f} ms per layer (plain {tp:.3f}, "
+                f"bound {1e3 * max(ops_s, bytes_s):.4f}) x {times}")
+        del x, w, masks, cnt, g
+        torch.cuda.empty_cache()
+    return acc
 
 
 def kernel_line(launches: dict, results: dict) -> dict:
@@ -382,6 +912,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
             "library_ms": library_ms,
         }
 
+    k3 = k3_times()
     return {"kernels": [
         entry("K1", "routeformer_torch/csrc/swin_block.cu",
               "routeformer_tpu/ops/swin_block_fusion.py:57", k1,
@@ -389,6 +920,13 @@ def kernel_line(launches: dict, results: dict) -> dict:
         entry("K2", "routeformer_torch/csrc/window_attention.cu",
               "routeformer_tpu/ops/flash_attention.py:120", k2,
               results["k2_max_abs_err"], k2["library_ms"]),
+        # No single PyTorch call computes a ProbSparse encoder layer.
+        entry("K3a", "routeformer_torch/csrc/perceive_stack.cu",
+              "routeformer_tpu/ops/fusion_stack.py:357", k3["K3a"],
+              results["k3a_max_abs_err"], None),
+        entry("K3b", "routeformer_torch/csrc/perceive_stack.cu",
+              "routeformer_tpu/ops/fusion_stack.py:599", k3["K3b"],
+              results["k3b_max_abs_err"], None),
     ]}
 
 
@@ -421,7 +959,12 @@ def main() -> int:
     results = {}
     check_k2(results)
     check_k1(results)
-    launches = serve_flagship(results)
+    serve_flagship(results)
+    check_k3a(results)
+    check_k3b(results)
+    check_k12_grad(results)
+    launches = train_flagship(results)
+    train_parity(results)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -3,6 +3,11 @@
 factor 4, distil and the smart decoder; SwinV2-base (window 16 at 256 px,
 tanh gelu, bf16 compute); d128 Perceive stacks of 8 and 2 layers with bf16
 Linear layers; video and gaze, dense prediction, 5 Hz output.
+
+``build_flagship_training`` adds the JAX package's flagship optimizer (AdamW
+1e-5, weight decay 1e-4, backbone 1e-6, warmup 2 of 200 epochs, clip 2.5)
+and returns a train step. ``ROUTEFORMER_FUSION_KERNEL`` chooses the Perceive
+stacks' path (``models/cross_modal.py``).
 """
 
 import math
@@ -13,6 +18,9 @@ import torch.nn as nn
 from routeformer_torch.models import Routeformer, RouteformerConfig
 from routeformer_torch.models.gps_backbone import GPSBackboneConfig
 from routeformer_torch.models.video_backbone import TimmBackboneConfig
+from routeformer_torch.optimizers import build_optimizer
+from routeformer_torch.parallel import make_train_step
+from routeformer_torch.train import TrainingLosses, routeformer_training_loss
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -73,3 +81,24 @@ def build_flagship(seed: int = 0, device: DeviceLike = None) -> Routeformer:
     model = Routeformer(flagship_config())
     init_weights(model, seed)
     return model.to(dev).eval()
+
+
+def build_flagship_training(seed: int = 0, device: DeviceLike = None,
+                            steps_per_epoch: int = 1, start_step: int = 0):
+    """``(model, optimizer, step)`` for the flagship on ``device`` (CUDA by
+    default): ``step(input_batch, target_batch, epoch) -> metrics``.
+    ``start_step`` is the optimizer's update count to start from (a resumed
+    run's), which sets the learning rate of the first update."""
+    model = build_flagship(seed, device)
+    optimizer = build_optimizer(
+        model, learning_rate=1e-5, weight_decay=1e-4, video_backbone_lr=1e-6,
+        warmup_epochs=2, max_epochs=200, steps_per_epoch=steps_per_epoch,
+        gradient_clip_val=2.5,
+    )
+    optimizer.count = start_step
+    losses = TrainingLosses.from_config(model.configs)
+
+    def loss_fn(m, input_batch, target_batch, epoch):
+        return routeformer_training_loss(m, input_batch, target_batch, epoch, losses)
+
+    return model, optimizer, make_train_step(model, optimizer, loss_fn)

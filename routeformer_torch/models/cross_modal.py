@@ -2,13 +2,20 @@
 ``routeformer_tpu/models/cross_modal.py``).
 
 The JAX package scans its encoder layers; here they are a ``ModuleList``
-named ``stacked_layers`` (``convert.py`` unstacks the scanned weights). Its
-fused-stack kernel is opt-in there, so the plain stack is the default here
-too. With ``compute_dtype="bfloat16"`` the attention and FFN Linear layers
-compute in bf16; LayerNorms, the token embedding and the output projection
-stay f32.
+named ``stacked_layers`` (``convert.py`` unstacks the scanned weights).
+``ROUTEFORMER_FUSION_KERNEL`` selects the fused stack
+(``ops/fusion_stack.py``, K3a/K3b) with the JAX package's values: unset or
+``0`` the plain stack (the default); ``1``/``tpu``/``interpret`` the fused
+forward and backward; ``hybrid``/``hybrid-interpret`` the fused forward with
+a recompute backward. The fused stack runs its kernels on CUDA tensors and
+their plain versions on CPU tensors, and only replaces the masked
+ProbSparse formulation (``ROUTEFORMER_PROBSPARSE``). With
+``compute_dtype="bfloat16"`` the attention and FFN Linear layers compute in
+bf16; LayerNorms, the token embedding and the output projection stay f32.
 """
 
+import operator
+import os
 from typing import Optional
 
 import torch
@@ -25,6 +32,13 @@ from routeformer_torch.models.layers import (
     TokenEmbedding,
 )
 from routeformer_torch.models.layers.encdec import LN_EPS
+from routeformer_torch.ops.fusion_stack import (
+    StackWeights,
+    fused_perceive_stack,
+    make_dropout_masks,
+    prob_sparse_u,
+    sample_count_matrices,
+)
 
 
 def torch_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
@@ -43,6 +57,9 @@ class PerceiveEncoder(nn.Module):
         self.pred_len = out_len
         dt = torch_dtype(compute_dtype)
         d_ff = d_ff if d_ff is not None else 4 * d_model
+        self.d_model, self.n_heads = d_model, n_heads
+        self.dropout_rate, self.activation = dropout, activation
+        self.compute_bf16 = compute_dtype == "bfloat16"
         self.value_embedding = TokenEmbedding(in_channels, d_model, use_bias=True)
         self.position_embedding = PositionalEmbedding(d_model)
         self.stacked_layers = nn.ModuleList(
@@ -59,10 +76,65 @@ class PerceiveEncoder(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.projection = nn.Linear(d_model, out_channels)
 
+    def fused_kernel_mode(self) -> Optional[str]:
+        """"kernel", "hybrid", or None for the plain layer stack."""
+        if self.d_model % self.n_heads:
+            return None
+        mode = os.getenv("ROUTEFORMER_FUSION_KERNEL", "0")
+        if mode in ("0", "auto"):
+            return None
+        if os.getenv("ROUTEFORMER_PROBSPARSE", "masked") != "masked":
+            return None
+        return "hybrid" if mode in ("hybrid", "hybrid-interpret") else "kernel"
+
+    def stack_weights(self) -> StackWeights:
+        """The layers' parameters stacked over layers, (in, out) matrices."""
+        def stack(path):
+            ts = [operator.attrgetter(path)(layer) for layer in self.stacked_layers]
+            return torch.stack([t.t() if t.ndim == 2 else t for t in ts])
+
+        names = {"q": "attention.query_projection", "k": "attention.key_projection",
+                 "v": "attention.value_projection", "out": "attention.out_projection",
+                 "ff1": "ff1", "ff2": "ff2"}
+        return StackWeights(
+            **{f"w{k}": stack(f"{m}.weight") for k, m in names.items()},
+            **{f"b{k}": stack(f"{m}.bias") for k, m in names.items()},
+            ln1_scale=stack("norm1.weight"), ln1_bias=stack("norm1.bias"),
+            ln2_scale=stack("norm2.weight"), ln2_bias=stack("norm2.bias"),
+        )
+
+    def _run_fused_stack(self, x: torch.Tensor, backward: str) -> torch.Tensor:
+        """ProbSparse key samples as the plain layers draw them (the fixed
+        eval sample, fresh draws in training; the layers' own factor) and
+        dropout keep-masks in training, then the fused stack."""
+        n_layers = len(self.stacked_layers)
+        r, l, d = x.shape
+        factor = self.stacked_layers[0].attention.inner_attention.factor
+        u_part = prob_sparse_u(l, factor)
+        cnt = sample_count_matrices(n_layers, l, l, u_part, train=self.training,
+                                    device=x.device)
+        train_dropout = self.training and self.dropout_rate > 0.0
+        masks = (
+            make_dropout_masks(n_layers, r, l, d, self.stacked_layers[0].ff1.out_features,
+                               self.dropout_rate, device=x.device)
+            if train_dropout else None
+        )
+        return fused_perceive_stack(
+            x, self.stack_weights(), cnt, masks, heads=self.n_heads,
+            factor=factor,
+            dropout_rate=self.dropout_rate if train_dropout else 0.0,
+            activation=self.activation, compute_bf16=self.compute_bf16,
+            backward=backward,
+        )
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.value_embedding(x) + self.position_embedding(x)
-        for layer in self.stacked_layers:
-            h = layer(h)
+        mode = self.fused_kernel_mode()
+        if mode is not None:
+            h = self._run_fused_stack(h, mode)
+        else:
+            for layer in self.stacked_layers:
+                h = layer(h)
         h = self.projection(self.norm(h))
         return h[:, -self.pred_len:]
 
@@ -88,8 +160,8 @@ class PerceiveDecoder(nn.Module):
                 DecoderLayer(
                     AttentionLayer(ProbAttention(True, factor), d_model,
                                    n_heads, mix=mix, compute_dtype=dt),
-                    AttentionLayer(FullAttention(False), d_model, n_heads,
-                                   mix=False, compute_dtype=dt),
+                    AttentionLayer(FullAttention(False, attention_dropout=dropout),
+                                   d_model, n_heads, mix=False, compute_dtype=dt),
                     d_model, d_ff, dropout=dropout, activation=activation,
                     compute_dtype=dt,
                 )

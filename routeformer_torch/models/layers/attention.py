@@ -4,7 +4,9 @@
 ``AttentionLayer`` keeps the Informer ``mix`` quirk: with ``mix=True`` the
 per-head outputs merge from the head-major layout ``(B, H, L, D) ->
 (B, L, H*D)``. ``ProbAttention`` in eval mode draws its key sample as the
-JAX package does (``utils/prng.py``).
+JAX package does (``utils/prng.py``) and in training draws a fresh one from
+the device's default generator; it applies no dropout, as in the JAX
+package. ``FullAttention`` drops attention weights in training.
 """
 
 from typing import Optional
@@ -39,14 +41,18 @@ class Linear(nn.Linear):
 class FullAttention(nn.Module):
     """Dense softmax attention (causal when ``mask_flag``)."""
 
-    def __init__(self, mask_flag: bool = True, scale: Optional[float] = None):
+    def __init__(self, mask_flag: bool = True, scale: Optional[float] = None,
+                 attention_dropout: float = 0.0):
         super().__init__()
         self.mask_flag = mask_flag
         self.scale = scale
+        self.attention_dropout = attention_dropout
 
     def forward(self, q, k, v):
-        return dot_product_attention(q, k, v, causal=self.mask_flag,
-                                     scale=self.scale)
+        return dot_product_attention(
+            q, k, v, causal=self.mask_flag, scale=self.scale,
+            dropout_rate=self.attention_dropout if self.training else 0.0,
+        )
 
 
 class ProbAttention(nn.Module):
@@ -62,7 +68,7 @@ class ProbAttention(nn.Module):
     def forward(self, q, k, v):
         return prob_sparse_attention(
             q, k, v, factor=self.factor, causal=self.mask_flag,
-            scale=self.scale,
+            scale=self.scale, train=self.training,
         )
 
 

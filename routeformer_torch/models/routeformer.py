@@ -1,4 +1,4 @@
-"""Routeformer, eval forward (counterpart of
+"""Routeformer, eval and train forward (counterpart of
 ``routeformer_tpu/models/routeformer.py``).
 
 Motion features from GPS velocities, scene video (left/right views) and the
@@ -8,9 +8,14 @@ embeddings and output-query tokens into the video encoder, then the
 Informer and cumsum integration onto the last GPS fix, with the dense
 visual-feature split. Video is channel-last ``(B, T, H, W, C)``.
 
-This slice ports the eval path only: view, gaze and feature dropout, motion
-noise and the autoregressive decode (off in the flagship config) come with
-training.
+In training (``model.train()``): motion noise on the GPS, view dropout
+(one decision per batch and a coin for which view), gaze dropout (one
+decision per batch), and the feature dropout and fresh ProbSparse key
+samples of the layers. The decisions are drawn from the CPU's default
+generator, the noise and masks from the device's. The video backbone is
+frozen, as the JAX package's ``stop_gradient`` makes it: it runs without
+autograd unless its ``unfreeze`` attribute (or ``train_backbone``) is set.
+The autoregressive decode (off in the flagship config) is not ported.
 """
 
 import math
@@ -29,7 +34,9 @@ from routeformer_torch.utils.vector import estimate_angle_and_norm, rotate
 
 def fps_subsample_indices(length: int, relative_fps: int) -> np.ndarray:
     """Every ``relative_fps``-th frame counting back from the last."""
-    return np.ascontiguousarray(np.arange(length - 1, 0, -relative_fps)[::-1])
+    # A copy, not ascontiguousarray: a one-element reversed view counts as
+    # contiguous and keeps its negative stride, which torch cannot take.
+    return np.arange(length - 1, 0, -relative_fps)[::-1].copy()
 
 
 class Routeformer(nn.Module):
@@ -81,10 +88,6 @@ class Routeformer(nn.Module):
         Returns future GPS ``(B, pred_len, 2)``, or ``(gps, dense)`` with
         ``dense_prediction``.
         """
-        if self.training:
-            raise NotImplementedError(
-                "the training forward is not ported yet; call model.eval()"
-            )
         motion_dynamics, visual_features = self.preprocess_batch(batch)
         last_input_gps = batch["gps"][:, -1:, :]
         output = self._forward(motion_dynamics, visual_features)
@@ -119,9 +122,15 @@ class Routeformer(nn.Module):
                                 output[..., 2:]], dim=-1)
         return output
 
-    def preprocess_batch(self, batch: dict):
+    def preprocess_batch(self, batch: dict, training=None):
+        """``(motion_dynamics, visual_features)``; ``training`` (default: the
+        module's mode) switches motion noise and view and gaze dropout."""
         cfg = self.configs
+        if training is None:
+            training = self.training
         gps = batch["gps"].float()
+        if cfg.motion_noise > 0.0 and training:
+            gps = gps + torch.randn_like(gps) * cfg.motion_noise
         motion = gps[:, 1:] - gps[:, :-1]
         if cfg.normalize_motion:
             motion = (motion - cfg.motion_mean) / cfg.motion_std
@@ -132,9 +141,12 @@ class Routeformer(nn.Module):
         # Left, right and front frames ride one backbone pass and one
         # frame-encoder call.
         streams, meta = [], {}
+        drop_left = drop_right = False
         if self.with_scene:
             left = batch["left_video"]
             right = batch.get("right_video", left)
+            if training:
+                drop_left, drop_right = self._view_drops("right_video" in batch)
             idx = fps_subsample_indices(left.shape[1], cfg.output_fps // cfg.video_fps)
             meta["scene"] = (left.shape[0], left.shape[1], idx)
             t = torch.from_numpy(idx)
@@ -148,10 +160,15 @@ class Routeformer(nn.Module):
 
         visual = []
         if self.with_scene:
+            left_feats, right_feats = encoded[0], encoded[1]
+            if drop_left:
+                left_feats = torch.zeros_like(left_feats)
+            if drop_right:
+                right_feats = torch.zeros_like(right_feats)
             visual += [
-                self._scatter_timeline(encoded[0], *meta["scene"])
+                self._scatter_timeline(left_feats, *meta["scene"])
                 + self.left_video_embedding,
-                self._scatter_timeline(encoded[1], *meta["scene"])
+                self._scatter_timeline(right_feats, *meta["scene"])
                 + self.right_video_embedding,
             ]
         if self.with_gaze:
@@ -161,9 +178,20 @@ class Routeformer(nn.Module):
                                       cfg.gps_backbone_config.seq_len)
             gaze = self.gaze_encoder(gaze)
             gaze_features = self.gaze_video_decoder(gaze_video, gaze)[:, :in_len]
+            if cfg.gaze_dropout > 0.0 and training and torch.rand(()) < cfg.gaze_dropout:
+                gaze_features = torch.zeros_like(gaze_features)
             visual.append(gaze_features + self.gaze_video_embedding)
         visual.append(torch.zeros_like(visual[-1]) + self.video_output_embedding)
         return motion_dynamics, self.video_encoder(torch.cat(visual, dim=1))
+
+    def _view_drops(self, has_right: bool):
+        """View dropout: with probability ``view_dropout`` one view is
+        dropped, a fair coin says which; a missing right view is dropped."""
+        drop_one = self.configs.view_dropout > 0.0 and bool(
+            torch.rand(()) < self.configs.view_dropout)
+        drop_left = drop_one and bool(torch.rand(()) < 0.5)
+        drop_right = (drop_one and not drop_left) or not has_right
+        return drop_left, drop_right
 
     def postprocess_batch(self, last_input_gps, output):
         cfg = self.configs
@@ -179,9 +207,11 @@ class Routeformer(nn.Module):
     def _encode_frame_streams(self, streams):
         bb = self.video_backbone
         sizes = [s.shape[0] for s in streams]
-        feats = bb.encode_frames(
-            torch.cat([bb.preprocess_frames(s) for s in streams], dim=0)
-        )
+        trainable = bb.unfreeze or bb.configs.train_backbone
+        with torch.set_grad_enabled(torch.is_grad_enabled() and trainable):
+            feats = bb.encode_frames(
+                torch.cat([bb.preprocess_frames(s) for s in streams], dim=0)
+            )
         tokens = feats.reshape(feats.shape[0], -1, feats.shape[-1])
         tokens = torch.cat([tokens, -torch.ones_like(tokens[:, :1])], dim=1)
         encoded = self.frame_encoder(tokens).reshape(-1, self.configs.image_embedding_size)

@@ -315,6 +315,9 @@ class SwinV2Backbone(nn.Module):
                 hw //= 2
         self.final_norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.output_feature_shape = (hw, hw, dim)
+        # The trainer's epoch-10 flip: the model then differentiates
+        # through the backbone (K1/K2 carry gradients).
+        self.unfreeze = False
 
     def preprocess_frames(self, images: torch.Tensor) -> torch.Tensor:
         """uint8 -> f16, pad to square (bottom/right), resize to the native

@@ -38,14 +38,18 @@ def dot_product_attention(
     *,
     causal: bool = False,
     scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
 ) -> torch.Tensor:
-    """Dense softmax attention; scale defaults to ``1/sqrt(E)``."""
+    """Dense softmax attention; scale defaults to ``1/sqrt(E)``. With
+    ``dropout_rate`` the attention weights are dropped (training)."""
     l_q, l_k = q.shape[1], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     scores = torch.einsum("blhe,bshe->bhls", q, k).float()
     if causal:
         scores = scores.masked_fill(_causal_mask(l_q, l_k, q.device), _NEG_INF)
     weights = torch.softmax(scores * scale, dim=-1)
+    if dropout_rate > 0.0:
+        weights = torch.nn.functional.dropout(weights, dropout_rate)
     return torch.einsum("bhls,bshd->blhd", weights.to(v.dtype), v)
 
 
@@ -65,23 +69,24 @@ def prob_sparse_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     index_sample=None,
+    train: bool = False,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """ProbSparse attention; returns f32 ``(B, L_q, H, D)``.
 
     ``index_sample`` ``(L_q, U_part)`` picks the sampled keys. When it is
-    None, a ``generator`` draws it (training); without one, the eval draw
-    of the JAX package (``randint(PRNGKey(0), ...)``) is used.
+    None and ``train``, it is drawn from ``generator`` (the device's default
+    generator when None); otherwise the eval draw of the JAX package
+    (``randint(PRNGKey(0), ...)``) is used.
     """
     b, l_q, h, e = q.shape
     l_k = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(e)
     u, u_part = prob_sparse_sizes(l_q, l_k, factor)
     if index_sample is None:
-        if generator is not None:
+        if train:
             index_sample = torch.randint(
-                0, l_k, (l_q, u_part), generator=generator,
-                device=generator.device,
+                0, l_k, (l_q, u_part), generator=generator, device=q.device,
             )
         else:
             key = (l_q, u_part, l_k, q.device)

@@ -3,9 +3,10 @@
 
 The kernel is ``csrc/window_attention.cu`` (its header says what bounds it
 on the H100 and what the design does about it). ``flash_window_attention``
-runs it for CUDA tensors and the plain PyTorch version for CPU tensors;
-``flash_window_attention_plain`` is that plain version, callable on any
-device. ``launches`` counts kernel launches.
+runs it for CUDA tensors and the plain PyTorch version for CPU tensors,
+and differentiates through autograd over an f32 recompute of the plain
+version; ``flash_window_attention_plain`` is that plain version, callable
+on any device. ``launches`` counts kernel launches.
 """
 
 import ctypes
@@ -80,23 +81,47 @@ def _check_cuda(q, k, v, bias, scale):
         raise ValueError("scale must be contiguous f32 (H,)")
 
 
+class _WindowAttention(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
+    autograd over a recompute of the plain version in f32, cast to v's
+    dtype, as the JAX package's custom VJP differentiates
+    ``_reference_window_attention``."""
+
+    @staticmethod
+    def forward(ctx, cosine, q, k, v, bias, scale):
+        ctx.cosine = cosine
+        ctx.save_for_backward(q, k, v, bias, scale)
+        if q.device.type == "cpu":
+            return flash_window_attention_plain(q, k, v, bias, scale, cosine)
+        _check_cuda(q, k, v, bias, scale)
+        b, h, n, d = q.shape
+        out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+        sb, sh, sn, _ = q.stride()
+        if k.stride() != q.stride() or v.stride() != q.stride():
+            k, v, q = k.contiguous(), v.contiguous(), q.contiguous()
+            sb, sh, sn, _ = q.stride()
+        launch_window_attention(q, k, v, (sb, sh, sn), bias, scale, out,
+                                out.stride()[:3], b, h, n, d, cosine)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            q, k, v, bias, scale = inputs
+            out = flash_window_attention_plain(q.float(), k.float(), v.float(),
+                                               bias, scale, ctx.cosine).to(v.dtype)
+            grads = torch.autograd.grad(out, inputs, g, allow_unused=True)
+        return (None, *grads)
+
+
 def flash_window_attention(q, k, v, bias, scale=None, cosine=False):
-    """Biased multi-head window attention on ``(B, H, N, d)`` tensors.
+    """Biased multi-head window attention on ``(B, H, N, d)`` tensors,
+    differentiable in q, k, v, the bias and the scale.
 
     Batch row ``b`` uses ``bias[b % NB]``; ``cosine`` L2-normalises q and k
     and multiplies the scores by the per-head ``scale`` ``(H,)``.
     """
-    b, h, n, d = q.shape
     if scale is None:
-        scale = torch.ones(h, dtype=torch.float32, device=q.device)
-    if q.device.type == "cpu":
-        return flash_window_attention_plain(q, k, v, bias, scale, cosine)
-    _check_cuda(q, k, v, bias, scale)
-    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    sb, sh, sn, _ = q.stride()
-    if k.stride() != q.stride() or v.stride() != q.stride():
-        k, v, q = k.contiguous(), v.contiguous(), q.contiguous()
-        sb, sh, sn, _ = q.stride()
-    launch_window_attention(q, k, v, (sb, sh, sn), bias, scale, out,
-                            out.stride()[:3], b, h, n, d, cosine)
-    return out
+        scale = torch.ones(q.shape[1], dtype=torch.float32, device=q.device)
+    return _WindowAttention.apply(cosine, q, k, v, bias, scale)

@@ -1,0 +1,527 @@
+"""K3a/K3b: the fused Perceive-encoder stack (counterpart of
+``routeformer_tpu/ops/fusion_stack.py``).
+
+N identical d128 ProbSparse encoder layers over independent rows ``(R, L,
+D)``: QKV, the count-matrix sparsity measure, the rank-test top-u
+selection, f32 softmax and p.v (mean-V rows for the unselected queries),
+out-projection with dropout, LayerNorm, the FFN with the erf gelu, LayerNorm.
+
+- ``stack_reference`` / ``layer_forward`` are the plain forward, and
+  ``layer_backward`` the plain backward: an explicit mirror of the JAX
+  package's ``_layer_bwd`` (not autograd), the executable spec of K3b.
+- K3a (``csrc/perceive_stack.cu``, ``rf_perceive_layer_fwd``) runs one
+  layer forward over all rows; K3b (``rf_perceive_layer_bwd``) recomputes
+  one layer from its saved input and returns dx and the 16 weight grads
+  summed over all rows in f32. ``launches_fwd`` / ``launches_bwd`` count
+  one per layer.
+- ``fused_perceive_stack`` wires them under autograd: ``backward="kernel"``
+  runs K3b layer by layer in reverse from the per-layer inputs (the only
+  residual); ``"hybrid"`` runs autograd over the plain layer forward.
+
+Tensors on the CPU take the plain versions; CUDA tensors take the kernels
+(a build or launch failure raises). ``StackWeights`` are in the JAX layout,
+``(in, out)`` matrices stacked over layers. Numerics follow the JAX code:
+LayerNorm with the fast variance ``max(E[x^2] - mu^2, 0)`` and eps 1e-6;
+gelu through XLA's rational erf; the measure ``max - sum / L_k``; the rank
+test keeps ties; matmul operands in the compute dtype with f32
+accumulation, but p.v and the mean-V context f32 x f32.
+"""
+
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from routeformer_torch.ops import cuda_build
+from routeformer_torch.utils.prng import prob_sparse_index_sample
+
+_NEG_INF = -1e30
+_LN_EPS = 1e-6
+_ACT = {"gelu": 1, "relu": 2}
+
+launches_fwd = 0
+launches_bwd = 0
+
+
+class StackWeights(NamedTuple):
+    """Stacked per-layer parameters, leading axis = layer, (in, out) matrices."""
+
+    wq: torch.Tensor  # (N, D, D)
+    bq: torch.Tensor  # (N, D)
+    wk: torch.Tensor
+    bk: torch.Tensor
+    wv: torch.Tensor
+    bv: torch.Tensor
+    wout: torch.Tensor  # (N, D, D)
+    bout: torch.Tensor  # (N, D)
+    ln1_scale: torch.Tensor  # (N, D)
+    ln1_bias: torch.Tensor
+    wff1: torch.Tensor  # (N, D, F)
+    bff1: torch.Tensor  # (N, F)
+    wff2: torch.Tensor  # (N, F, D)
+    bff2: torch.Tensor  # (N, D)
+    ln2_scale: torch.Tensor
+    ln2_bias: torch.Tensor
+
+
+# ------------------------------------------------------------------ #
+# Random inputs: count matrices and dropout keep-masks
+# ------------------------------------------------------------------ #
+
+
+def count_matrices(index_sample: torch.Tensor, l_k: int) -> torch.Tensor:
+    """``(..., L_q, U)`` sampled key indices -> ``(..., L_q, L_k)`` f32 counts
+    (``cnt[q, k] = #{s : idx[q, s] = k}``, duplicates included)."""
+    idx = index_sample.long()
+    out = torch.zeros(*idx.shape[:-1], l_k, dtype=torch.float32, device=idx.device)
+    return out.scatter_add_(-1, idx, torch.ones_like(idx, dtype=torch.float32))
+
+
+_eval_cnt_cache = {}  # (l_q, l_k, u_part, device) -> (L_q, L_k) counts
+
+
+def sample_count_matrices(n_layers: int, l_q: int, l_k: int, u_part: int, *,
+                          train: bool = False,
+                          generator: Optional[torch.Generator] = None,
+                          device=None) -> torch.Tensor:
+    """Per-layer ProbSparse count matrices ``(N, L_q, L_k)`` f32.
+
+    Eval (``train=False``): every layer uses the JAX package's fixed
+    ``PRNGKey(0)`` draw, bit for bit (``utils/prng.py``). Train: fresh
+    per-layer draws from ``generator`` (the device's default generator
+    when None)."""
+    device = torch.device("cpu" if device is None else device)
+    if not train:
+        key = (l_q, l_k, u_part, device)
+        if key not in _eval_cnt_cache:
+            idx = torch.from_numpy(
+                prob_sparse_index_sample(l_q, u_part, l_k).astype(np.int64))
+            _eval_cnt_cache[key] = count_matrices(idx, l_k).to(device)
+        return _eval_cnt_cache[key].expand(n_layers, l_q, l_k)
+    idx = torch.randint(0, l_k, (n_layers, l_q, u_part), generator=generator,
+                        device=device)
+    return count_matrices(idx, l_k)
+
+
+def make_dropout_masks(n_layers, r, l, d, f, dropout_rate, *,
+                       generator: Optional[torch.Generator] = None, device=None):
+    """The three per-site int8 keep-masks ``(N, R, L, D)``, ``(N, R, L, F)``,
+    ``(N, R, L, D)``: attention output, FFN activation, FFN output."""
+    keep = 1.0 - dropout_rate
+
+    def draw(width):
+        u = torch.rand(n_layers, r, l, width, generator=generator, device=device)
+        return (u < keep).to(torch.int8)
+
+    return draw(d), draw(f), draw(d)
+
+
+# ------------------------------------------------------------------ #
+# Plain forward
+# ------------------------------------------------------------------ #
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, mm_dtype) -> torch.Tensor:
+    """``a @ b`` with both operands rounded to ``mm_dtype``, f32 accumulation."""
+    return a.to(mm_dtype).float() @ b.to(mm_dtype).float()
+
+
+def ln_fwd(x, scale, bias):
+    """f32 LayerNorm, nnx defaults: fast variance, eps 1e-6."""
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    xhat = (x - mu) * torch.rsqrt(var + _LN_EPS)
+    return xhat * scale.float() + bias.float()
+
+
+_ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
+              0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_BETA = (-1.1791602954361697e-7, 0.000023547966471313185,
+             0.0010179625278914885, 0.014070470171167667,
+             0.11098505178285362, 0.49746925110067538, 1.0)
+_SQRT2 = float(np.float32(np.sqrt(2.0)))
+_INV_SQRT_2PI = float(np.float32(1.0 / math.sqrt(2.0 * math.pi)))
+
+
+def erf_f32(x):
+    """XLA's rational f32 erf (x clamped to [-4, 4]), as the TPU kernel uses."""
+    x = torch.clamp(x, -4.0, 4.0)
+    x2 = x * x
+    p = torch.full_like(x, _ERF_ALPHA[0])
+    for a in _ERF_ALPHA[1:]:
+        p = p * x2 + a
+    q = torch.full_like(x, _ERF_BETA[0])
+    for b in _ERF_BETA[1:]:
+        q = q * x2 + b
+    return x * p / q
+
+
+def act_fwd(x, activation: str):
+    if activation == "relu":
+        return torch.clamp(x, min=0.0)
+    return x * 0.5 * (1.0 + erf_f32(x / _SQRT2))
+
+
+def act_grad(x, activation: str):
+    if activation == "relu":
+        return (x > 0.0).float()
+    phi = torch.exp(-0.5 * x * x) * _INV_SQRT_2PI
+    cdf = 0.5 * (1.0 + erf_f32(x / _SQRT2))
+    return cdf + x * phi
+
+
+def _heads(t, c, l, heads):  # (C*L, D) -> (C, H, L, Dh)
+    return t.reshape(c, l, heads, -1).permute(0, 2, 1, 3)
+
+
+def _merge(t):  # (C, H, L, Dh) -> (C*L, D)
+    c, h, l, dh = t.shape
+    return t.permute(0, 2, 1, 3).reshape(c * l, h * dh)
+
+
+def attention_core(x, wq, bq, wk, bk, wv, bv, cnt, *, heads, u, mm_dtype):
+    """Layer input ``(C, L, D)`` -> merged attention output ``(C*L, D)`` f32
+    and ``(q, k, v, p, selected)`` per head for the backward."""
+    c, l, d = x.shape
+    scale = float(np.float32(1.0 / math.sqrt(d // heads)))
+    xf = x.reshape(c * l, d)
+    q = _heads(_mm(xf, wq, mm_dtype) + bq.float(), c, l, heads)
+    k = _heads(_mm(xf, wk, mm_dtype) + bk.float(), c, l, heads)
+    v = _heads(_mm(xf, wv, mm_dtype) + bv.float(), c, l, heads)
+    qk = _mm(q, k.transpose(-1, -2), mm_dtype)  # (C, H, L, L) f32
+    cnt = cnt.float()
+    sampled_sum = (qk * cnt).sum(-1)
+    sampled_max = torch.where(cnt > 0.0, qk, torch.full_like(qk, _NEG_INF)).amax(-1)
+    m = sampled_max - sampled_sum / float(l)
+    rank = (m[..., :, None] < m[..., None, :]).float().sum(-1)
+    selected = (rank < float(u))[..., None]  # (C, H, L, 1)
+    p = torch.softmax(qk * scale, dim=-1)
+    upd = p @ v  # f32 x f32
+    ctx = v.mean(2, keepdim=True)
+    att = torch.where(selected, upd, ctx.expand_as(upd))
+    return _merge(att), (q, k, v, p, selected)
+
+
+def _dropout(t, mask, keep):
+    return t if mask is None else t * mask.float() * keep
+
+
+def layer_forward(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate, activation,
+                  mm_dtype, internals=False):
+    """One encoder layer (EncoderLayer semantics) on ``(C, L, D)`` f32.
+
+    ``masks_l`` is None or three int8 keep-masks of this layer; with
+    ``internals`` the recomputed intermediates are returned too."""
+    (wq, bq, wk, bk, wv, bv, wout, bout, g1, b1,
+     wff1, bff1, wff2, bff2, g2, b2) = wl
+    c, l, d = x.shape
+    keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if dropout_rate else None
+    m1, m2, m3 = masks_l if masks_l is not None else (None, None, None)
+    x = x.float()
+    att, saved = attention_core(x, wq, bq, wk, bk, wv, bv, cnt_l, heads=heads,
+                                u=u, mm_dtype=mm_dtype)
+    new_x = (_mm(att, wout, mm_dtype) + bout.float()).reshape(c, l, d)
+    x1 = x + _dropout(new_x, m1, keep)
+    xn1 = ln_fwd(x1, g1, b1)
+    f1 = _mm(xn1.reshape(c * l, d), wff1, mm_dtype) + bff1.float()
+    a1 = _dropout(act_fwd(f1, activation),
+                  None if m2 is None else m2.reshape(c * l, -1), keep)
+    f2 = (_mm(a1, wff2, mm_dtype) + bff2.float()).reshape(c, l, d)
+    z = xn1 + _dropout(f2, m3, keep)
+    y = ln_fwd(z, g2, b2)
+    if internals:
+        return y, dict(att=att, saved=saved, x1=x1, xn1=xn1, f1=f1, a1=a1, z=z)
+    return y
+
+
+def _layer_masks(masks, i):
+    return None if masks is None else tuple(m[i] for m in masks)
+
+
+def _layer_weights(weights, i):
+    return tuple(w[i] for w in weights)
+
+
+def stack_reference(x, weights: StackWeights, cnt, masks, *, heads, u,
+                    dropout_rate, activation="gelu", compute_bf16=True):
+    """Plain forward: ``(R, L, D)`` -> ``(R, L, D)`` f32 through all N layers."""
+    mm_dtype = torch.bfloat16 if compute_bf16 else torch.float32
+    x = x.float()
+    for i in range(weights.wq.shape[0]):
+        x = layer_forward(x, _layer_weights(weights, i), cnt[i],
+                          _layer_masks(masks, i), heads=heads, u=u,
+                          dropout_rate=dropout_rate, activation=activation,
+                          mm_dtype=mm_dtype)
+    return x
+
+
+# ------------------------------------------------------------------ #
+# Plain backward (mirror of the JAX package's _layer_bwd)
+# ------------------------------------------------------------------ #
+
+
+def ln_bwd(x, scale, g):
+    """Grad of ``ln_fwd``: ``(dx, g * xhat, g)`` with per-row weight grads."""
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    inv = torch.rsqrt(var + _LN_EPS)
+    xhat = (x - mu) * inv
+    gs = g * scale.float()
+    m1 = gs.mean(-1, keepdim=True)
+    m2 = (gs * xhat).mean(-1, keepdim=True)
+    return (gs - m1 - xhat * m2) * inv, g * xhat, g
+
+
+def layer_backward(x0, g, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
+                   activation, mm_dtype):
+    """Backward of one layer from its input: ``(dx0, 16 weight grads)``."""
+    (wq, bq, wk, bk, wv, bv, wout, bout, g1, b1,
+     wff1, bff1, wff2, bff2, g2, b2) = wl
+    c, l, d = x0.shape
+    f = wff1.shape[-1]
+    scale = float(np.float32(1.0 / math.sqrt(d // heads)))
+    keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if dropout_rate else None
+    m1, m2, m3 = masks_l if masks_l is not None else (None, None, None)
+    if m2 is not None:
+        m2 = m2.reshape(c * l, f)
+    _, it = layer_forward(x0, wl, cnt_l, masks_l, heads=heads, u=u,
+                          dropout_rate=dropout_rate, activation=activation,
+                          mm_dtype=mm_dtype, internals=True)
+    att, (q, k, v, p, selected) = it["att"], it["saved"]
+    xn1f = it["xn1"].reshape(c * l, d)
+
+    dz, dg2_rows, db2_rows = ln_bwd(it["z"], g2, g.float())
+    dg2 = dg2_rows.reshape(c * l, d).sum(0)
+    db2 = db2_rows.reshape(c * l, d).sum(0)
+    df2 = _dropout(dz, m3, keep).reshape(c * l, d)
+    dbff2 = df2.sum(0)
+    dwff2 = _mm(it["a1"].t(), df2, mm_dtype)  # (F, D)
+    da1 = _dropout(_mm(df2, wff2.t(), mm_dtype), m2, keep)
+    df1 = da1 * act_grad(it["f1"], activation)
+    dbff1 = df1.sum(0)
+    dwff1 = _mm(xn1f.t(), df1, mm_dtype)  # (D, F)
+    dxn1 = dz + _mm(df1, wff1.t(), mm_dtype).reshape(c, l, d)
+
+    dx1, dg1_rows, db1_rows = ln_bwd(it["x1"], g1, dxn1)
+    dg1 = dg1_rows.reshape(c * l, d).sum(0)
+    db1 = db1_rows.reshape(c * l, d).sum(0)
+    dnew = _dropout(dx1, m1, keep).reshape(c * l, d)
+    dbout = dnew.sum(0)
+    dwout = _mm(att.t(), dnew, mm_dtype)
+    datt = _heads(_mm(dnew, wout.t(), mm_dtype), c, l, heads)  # (C, H, L, Dh)
+
+    g_upd = torch.where(selected, datt, torch.zeros_like(datt))
+    g_ctx = torch.where(selected, torch.zeros_like(datt), datt)
+    dv = p.transpose(-1, -2) @ g_upd + torch.full_like(p, 1.0 / float(l)) @ g_ctx
+    dp = g_upd @ v.transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dqk = ds * scale
+    dq = _merge(_mm(dqk, k, mm_dtype))
+    dk = _merge(_mm(dqk.transpose(-1, -2), q, mm_dtype))
+    dv = _merge(dv)
+    x0f = x0.float().reshape(c * l, d)
+    dx0 = dx1 + (_mm(dq, wq.t(), mm_dtype) + _mm(dk, wk.t(), mm_dtype)
+                 + _mm(dv, wv.t(), mm_dtype)).reshape(c, l, d)
+    grads = (_mm(x0f.t(), dq, mm_dtype), dq.sum(0),
+             _mm(x0f.t(), dk, mm_dtype), dk.sum(0),
+             _mm(x0f.t(), dv, mm_dtype), dv.sum(0),
+             dwout, dbout, dg1, db1, dwff1, dbff1, dwff2, dbff2, dg2, db2)
+    return dx0, grads
+
+
+# ------------------------------------------------------------------ #
+# The CUDA kernels (csrc/perceive_stack.cu)
+# ------------------------------------------------------------------ #
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def _check_cuda(x, wl, cnt_l, masks_l, heads):
+    r, l, d = x.shape
+    f = wl[10].shape[-1]
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("the Perceive kernels take contiguous f32 (R, L, D) rows")
+    if d % heads or d // heads > 64:
+        raise ValueError(f"unsupported width D={d} with {heads} heads")
+    for w in wl:
+        if w.dtype != torch.float32 or not w.is_contiguous() or w.device != x.device:
+            raise ValueError("layer weights must be contiguous f32 on x's device")
+    if cnt_l.shape != (l, l) or cnt_l.dtype != torch.float32 or not cnt_l.is_contiguous():
+        raise ValueError(f"cnt must be contiguous f32 ({l}, {l})")
+    if masks_l is not None:
+        for m, width in zip(masks_l, (d, f, d)):
+            if m.dtype != torch.int8 or m.shape != (r, l, width) or not m.is_contiguous():
+                raise ValueError("masks must be contiguous int8 (R, L, D|F|D)")
+
+
+def _layer_args(x, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
+                compute_bf16):
+    r, l, d = x.shape
+    keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if masks_l is not None else 1.0
+    m = masks_l if masks_l is not None else (None, None, None)
+    return [cnt_l.data_ptr(), *[None if t is None else t.data_ptr() for t in m],
+            ctypes.c_float(keep), r, l, d, wl[10].shape[-1], heads, u,
+            _ACT[activation], int(compute_bf16)]
+
+
+def _workspace(lib, x, f):
+    r, l, d = x.shape
+    n = lib.rf_perceive_workspace_floats(r * l, d, f)
+    return torch.empty(n, dtype=torch.float32, device=x.device)
+
+
+def layer_forward_cuda(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
+                       activation, compute_bf16, selection=None):
+    """K3a: one layer forward over all rows on the card. ``selection``, if
+    given, is an int8 ``(R, H, L)`` tensor that receives the top-u picks."""
+    global launches_fwd
+    _check_cuda(x, wl, cnt_l, masks_l, heads)
+    if selection is not None and (selection.dtype != torch.int8
+                                  or selection.shape != (x.shape[0], heads, x.shape[1])
+                                  or not selection.is_contiguous()):
+        raise ValueError("selection must be contiguous int8 (R, H, L)")
+    lib = cuda_build.libraries()["perceive_stack"]
+    y = torch.empty_like(x)
+    ws = _workspace(lib, x, wl[10].shape[-1])
+    err = lib.rf_perceive_layer_fwd(
+        x.data_ptr(), y.data_ptr(), None if selection is None else selection.data_ptr(),
+        _pointers(wl),
+        *_layer_args(x, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
+                     compute_bf16),
+        ws.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    cuda_build.check(err, "perceive_layer_fwd")
+    launches_fwd += 1
+    return y
+
+
+def layer_backward_cuda(x0, g, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
+                        activation, compute_bf16):
+    """K3b: one layer backward from its saved input on the card."""
+    global launches_bwd
+    _check_cuda(x0, wl, cnt_l, masks_l, heads)
+    if g.shape != x0.shape or g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError("g must be contiguous f32 shaped like x")
+    lib = cuda_build.libraries()["perceive_stack"]
+    dx = torch.empty_like(x0)
+    grads = [torch.empty(w.shape, dtype=torch.float32, device=x0.device) for w in wl]
+    ws = _workspace(lib, x0, wl[10].shape[-1])
+    err = lib.rf_perceive_layer_bwd(
+        x0.data_ptr(), g.data_ptr(), dx.data_ptr(), _pointers(wl), _pointers(grads),
+        *_layer_args(x0, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
+                     compute_bf16),
+        ws.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(x0.device).cuda_stream),
+    )
+    cuda_build.check(err, "perceive_layer_bwd")
+    launches_bwd += 1
+    return dx, tuple(grads)
+
+
+# ------------------------------------------------------------------ #
+# Autograd wiring
+# ------------------------------------------------------------------ #
+
+
+def _run_layer_fwd(x, wl, cnt_l, masks_l, cfg):
+    heads, u, p, act, bf16 = cfg
+    if x.device.type == "cpu":
+        return layer_forward(x, wl, cnt_l, masks_l, heads=heads, u=u,
+                             dropout_rate=p, activation=act,
+                             mm_dtype=torch.bfloat16 if bf16 else torch.float32)
+    return layer_forward_cuda(x, wl, cnt_l, masks_l, heads=heads, u=u,
+                              dropout_rate=p, activation=act, compute_bf16=bf16)
+
+
+def _run_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg):
+    heads, u, p, act, bf16 = cfg
+    if x0.device.type == "cpu":
+        return layer_backward(x0, g, wl, cnt_l, masks_l, heads=heads, u=u,
+                              dropout_rate=p, activation=act,
+                              mm_dtype=torch.bfloat16 if bf16 else torch.float32)
+    return layer_backward_cuda(x0, g, wl, cnt_l, masks_l, heads=heads, u=u,
+                               dropout_rate=p, activation=act, compute_bf16=bf16)
+
+
+def _hybrid_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg):
+    """Autograd over the plain layer forward (the hybrid backward)."""
+    heads, u, p, act, bf16 = cfg
+    with torch.enable_grad():
+        xs = x0.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in wl]
+        y = layer_forward(xs, ws, cnt_l, masks_l, heads=heads, u=u,
+                          dropout_rate=p, activation=act,
+                          mm_dtype=torch.bfloat16 if bf16 else torch.float32)
+        out = torch.autograd.grad(y, [xs, *ws], g)
+    return out[0], tuple(out[1:])
+
+
+class _FusedStack(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, cfg, backward, cnt, masks, x, *weights):
+        weights = tuple(w.detach().float().contiguous() for w in weights)
+        x = x.detach().float().contiguous()
+        inputs = []
+        for i in range(weights[0].shape[0]):
+            inputs.append(x)
+            x = _run_layer_fwd(x, _layer_weights(weights, i), cnt[i].contiguous(),
+                               _layer_masks(masks, i), cfg)
+        ctx.cfg, ctx.backward, ctx.cnt, ctx.masks = cfg, backward, cnt, masks
+        ctx.inputs, ctx.weights = inputs, weights
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        run = _hybrid_layer_bwd if ctx.backward == "hybrid" else _run_layer_bwd
+        g = g.float().contiguous()
+        n_layers = len(ctx.inputs)
+        per_layer = [None] * n_layers
+        for i in range(n_layers - 1, -1, -1):
+            g, per_layer[i] = run(ctx.inputs[i], g, _layer_weights(ctx.weights, i),
+                                  ctx.cnt[i].contiguous(), _layer_masks(ctx.masks, i),
+                                  ctx.cfg)
+        dws = [torch.stack([per_layer[i][j] for i in range(n_layers)])
+               for j in range(len(ctx.weights))]
+        return (None, None, None, None, g, *dws)
+
+
+def prob_sparse_u(l: int, factor: int) -> int:
+    return min(int(factor * math.ceil(math.log(l))), l)
+
+
+def fused_perceive_stack(
+    x: torch.Tensor,
+    weights: StackWeights,
+    cnt: torch.Tensor,
+    masks: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    *,
+    heads: int,
+    factor: int = 5,
+    dropout_rate: float = 0.0,
+    activation: str = "gelu",
+    compute_bf16: bool = True,
+    backward: str = "kernel",
+) -> torch.Tensor:
+    """The N-layer ProbSparse encoder stack, differentiable in x and weights.
+
+    ``x`` ``(R, L, D)``; ``cnt`` ``(N, L, L)`` (``sample_count_matrices``);
+    ``masks`` None or three int8 keep-masks ``(N, R, L, D|F|D)``;
+    ``backward`` "kernel" (K3b per layer) or "hybrid" (autograd over the
+    plain layer forward). Returns ``(R, L, D)`` f32.
+    """
+    if backward not in ("kernel", "hybrid"):
+        raise ValueError(f"backward must be 'kernel' or 'hybrid', got {backward!r}")
+    if activation not in _ACT:
+        raise ValueError(f"unknown activation {activation!r}")
+    u = prob_sparse_u(x.shape[1], factor)
+    train = masks is not None and dropout_rate > 0.0
+    cfg = (heads, u, float(dropout_rate) if train else 0.0, activation,
+           bool(compute_bf16))
+    return _FusedStack.apply(cfg, backward, cnt.float(),
+                             tuple(masks) if train else None, x, *weights)

@@ -5,7 +5,8 @@ On Hopper the block is a pipeline of hand-written kernels over all windows
 at once (``csrc/swin_block.cu`` explains why and what bounds it): qkv GEMM,
 window attention (K2), proj GEMM, ``x + LN1``, fc1 GEMM with tanh gelu,
 fc2 GEMM, ``x + LN2``. ``fused_swin_block`` runs it for CUDA tensors and
-the plain PyTorch version for CPU tensors. ``launches`` counts pipeline
+the plain PyTorch version for CPU tensors; its gradient is autograd over
+a recompute of the f32 plain version. ``launches`` counts pipeline
 launches (one per block call).
 
 ``params`` holds the block's weights in torch layout (``(out, in)``):
@@ -153,14 +154,41 @@ def _fused_swin_block_cuda(x_windows, params, bias, n_heads):
     return out.reshape(b, n, c)
 
 
+PARAM_KEYS = ("wqkv", "bqkv", "wproj", "bproj", "ln1_scale", "ln1_bias", "wfc1",
+              "bfc1", "wfc2", "bfc2", "ln2_scale", "ln2_bias", "logit_scale")
+
+
+class _FusedBlock(torch.autograd.Function):
+    """Forward: the kernel pipeline (CUDA) or the plain version (CPU).
+    Backward: autograd over a recompute of the f32 plain version, as the
+    JAX package's custom VJP differentiates ``swin_block_reference``."""
+
+    @staticmethod
+    def forward(ctx, n_heads, compute_bf16, x_windows, bias, *params):
+        ctx.n_heads = n_heads
+        ctx.save_for_backward(x_windows, bias, *params)
+        p = dict(zip(PARAM_KEYS, params))
+        if x_windows.device.type == "cpu":
+            return fused_swin_block_plain(x_windows, p, bias, n_heads, compute_bf16)
+        return _fused_swin_block_cuda(x_windows, p, bias, n_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            y = fused_swin_block_plain(inputs[0], dict(zip(PARAM_KEYS, inputs[2:])),
+                                       inputs[1], ctx.n_heads, compute_bf16=False)
+            grads = torch.autograd.grad(y, inputs, g, allow_unused=True)
+        return (None, None, *grads)
+
+
 def fused_swin_block(x_windows, params, bias, n_heads, compute_bf16=True):
-    """One SwinV2 block (attention + MLP, res-post-norm) on window rows."""
-    if x_windows.device.type == "cpu":
-        return fused_swin_block_plain(x_windows, params, bias, n_heads,
-                                      compute_bf16)
-    if not compute_bf16:
+    """One SwinV2 block (attention + MLP, res-post-norm) on window rows,
+    differentiable in the rows, the bias and every parameter."""
+    if x_windows.device.type != "cpu" and not compute_bf16:
         raise ValueError(
             "the CUDA fused block computes with bf16 operands; "
             "compute_bf16=False runs only on the CPU"
         )
-    return _fused_swin_block_cuda(x_windows, params, bias, n_heads)
+    return _FusedBlock.apply(n_heads, compute_bf16, x_windows, bias,
+                             *(params[k] for k in PARAM_KEYS))

@@ -1,0 +1,16 @@
+"""Average and final displacement error (counterpart of
+``routeformer_tpu/score/error.py``)."""
+
+import torch
+
+
+def ade(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean L2 distance over all points of ``(..., 2)`` trajectories."""
+    assert pred.shape == target.shape, "trajectories must have the same shape"
+    return torch.linalg.vector_norm(pred - target, dim=-1).mean()
+
+
+def fde_per_sample(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``(B, T, D) -> (B,)`` L2 distance of the final points."""
+    assert pred.shape == target.shape, "trajectories must have the same shape"
+    return torch.linalg.vector_norm(pred[:, -1] - target[:, -1], dim=-1)

@@ -1,0 +1,64 @@
+"""Routeformer training loss (counterpart of
+``routeformer_tpu/train/losses.py``): future-discounted smooth-l1 on the
+GPS, and with ``dense_prediction`` the same loss on the predicted against
+the detached target visual features, weighted by the detached
+``ratio * traj / max(dense, 1e-6)`` from epoch 10 on (0 before)."""
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from routeformer_torch.losses import FutureDiscountedLoss
+from routeformer_torch.score.error import ade, fde_per_sample
+
+
+@dataclass
+class TrainingLosses:
+    trajectory_loss: FutureDiscountedLoss
+    dense_loss: FutureDiscountedLoss
+
+    @classmethod
+    def from_config(cls, config) -> "TrainingLosses":
+        return cls(
+            trajectory_loss=FutureDiscountedLoss(config.discount_factor, config.epsilon,
+                                                 loss_function="smooth_l1"),
+            dense_loss=FutureDiscountedLoss(config.discount_factor,
+                                            config.visual_epsilon,
+                                            loss_function="smooth_l1"),
+        )
+
+
+def routeformer_training_loss(model, input_batch: dict, target_batch: dict, epoch,
+                              losses: Optional[TrainingLosses] = None):
+    """``(total_loss, metrics)`` of one model on one batch.
+
+    The target pass runs without autograd but with the model still in
+    training mode, so its Perceive stacks drop out and sample keys as the
+    JAX package's does. The autoregressive decode is not ported."""
+    cfg = model.configs
+    if cfg.autoregressive:
+        raise NotImplementedError("the autoregressive decode is not ported")
+    losses = losses or TrainingLosses.from_config(cfg)
+    target_gps = target_batch["gps"].float()
+    metrics = {}
+    if cfg.dense_prediction:
+        future_gps, future_visual = model(input_batch)
+        with torch.no_grad():
+            _, target_visual = model.preprocess_batch(target_batch, training=False)
+        target_visual = target_visual[:, : future_visual.shape[1]]
+        traj = losses.trajectory_loss(future_gps, target_gps, epoch)
+        dense = losses.dense_loss(future_visual, target_visual, epoch)
+        weight = (cfg.dense_loss_ratio * traj / torch.clamp(dense, min=1e-6)).detach()
+        if epoch < 10:
+            weight = torch.zeros_like(weight)
+        metrics["dense_loss"] = dense.detach()
+        total = traj + weight * dense
+    else:
+        future_gps = model(input_batch)
+        traj = losses.trajectory_loss(future_gps, target_gps, epoch)
+        total = traj
+    metrics["loss"] = traj.detach()
+    metrics["ade"] = ade(future_gps, target_gps).detach()
+    metrics["fde"] = fde_per_sample(future_gps, target_gps).mean().detach()
+    return total, metrics

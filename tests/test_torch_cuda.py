@@ -1,4 +1,5 @@
-"""The CUDA kernels K1 and K2 against their plain versions on a card.
+"""The CUDA kernels K1, K2, K3a and K3b against their plain versions on a
+card.
 
 Marked ``cuda``: without a card every test skips. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from routeformer_torch.ops import flash_attention, swin_block_fusion
+from routeformer_torch.ops import flash_attention, fusion_stack, swin_block_fusion
 
 
 @pytest.fixture
@@ -89,3 +90,99 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="CPU"):
         swin_block_fusion.fused_swin_block(x, {}, torch.zeros(4, 16, 16), 4,
                                            compute_bf16=False)
+
+
+def _stack_inputs(gen, r, l, n=2, d=128, f=256, p=0.05):
+    w = fusion_stack.StackWeights(
+        *[_randn(gen, *shape, s=s) + base for shape, s, base in [
+            ((n, d, d), d ** -0.5, 0), ((n, d), 0.1, 0), ((n, d, d), d ** -0.5, 0),
+            ((n, d), 0.1, 0), ((n, d, d), d ** -0.5, 0), ((n, d), 0.1, 0),
+            ((n, d, d), d ** -0.5, 0), ((n, d), 0.1, 0), ((n, d), 0.05, 1), ((n, d), 0.05, 0),
+            ((n, d, f), d ** -0.5, 0), ((n, f), 0.1, 0), ((n, f, d), f ** -0.5, 0),
+            ((n, d), 0.1, 0), ((n, d), 0.05, 1), ((n, d), 0.05, 0)]])
+    x = _randn(gen, r, l, d)
+    masks = tuple((torch.rand(n, r, l, width, generator=gen) >= p).to(torch.int8)
+                  for width in (d, f, d))
+    cnt = fusion_stack.sample_count_matrices(n, l, l, fusion_stack.prob_sparse_u(l, 5))
+    return x, w, masks, cnt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,l", [(6, 65), (2, 160), (3, 40)])
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("backward", ["kernel", "hybrid"])
+def test_perceive_stack_kernels_match_plain(cuda_device, r, l, train, backward):
+    """K3a forward and K3b backward through ``fused_perceive_stack`` on the
+    card against the same call on the CPU (the plain versions), f32 with
+    exhaustive ProbSparse (so that no near-tie of the measure can flip a
+    selection): 1e-4 of the output's max (sums in another order), and
+    the gradients of x and of the 16 stacked weights against one global
+    scale; one K3a launch per layer forward, one K3b per layer backward
+    (none with the hybrid backward, autograd over the plain layer)."""
+    gen = torch.Generator().manual_seed(r * l)
+    x, w, masks, cnt = _stack_inputs(gen, r, l)
+    masks = masks if train else None
+    p = 0.05 if train else 0.0
+
+    def run(device):
+        xs = x.to(device).requires_grad_(True)
+        ws = [t.to(device).requires_grad_(True) for t in w]
+        y = fusion_stack.fused_perceive_stack(
+            xs, fusion_stack.StackWeights(*ws), cnt.to(device),
+            None if masks is None else tuple(m.to(device) for m in masks),
+            heads=8, factor=10 ** 6, dropout_rate=p, compute_bf16=False,
+            backward=backward)
+        torch.sin(y).sum().backward()
+        return y.detach().cpu(), xs.grad.cpu(), [t.grad.cpu() for t in ws]
+
+    before = (fusion_stack.launches_fwd, fusion_stack.launches_bwd)
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert (fusion_stack.launches_fwd, fusion_stack.launches_bwd) == (
+        before[0] + 2, before[1] + (2 if backward == "kernel" else 0))
+    want = run("cpu")
+    assert (got[0] - want[0]).abs().max() <= 1e-4 * want[0].abs().max()
+    assert (got[1] - want[1]).abs().max() <= 1e-4 * want[1].abs().max()
+    scale = max(g.abs().max() for g in want[2])
+    for a, b in zip(got[2], want[2]):
+        assert (a - b).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_perceive_layer_kernel_bf16_and_selection(cuda_device):
+    """bf16 operands with exhaustive u: within 2e-2 of the output's max (a
+    bf16 rounding may land on the other side); the selection the kernel
+    reports equals the plain version's at f32 with the real u."""
+    gen = torch.Generator().manual_seed(0)
+    x, w, masks, cnt = _stack_inputs(gen, 4, 65)
+    wl = tuple(t[0].to(cuda_device) for t in w)
+    ml = tuple(m[0].to(cuda_device) for m in masks)
+    xd, c = x.to(cuda_device), cnt[0].contiguous().to(cuda_device)
+    kw = dict(heads=8, dropout_rate=0.05, activation="gelu")
+    got = fusion_stack.layer_forward_cuda(xd, wl, c, ml, u=65, compute_bf16=True, **kw)
+    want = fusion_stack.layer_forward(xd, wl, c, ml, u=65, mm_dtype=torch.bfloat16, **kw)
+    assert (got - want).abs().max() <= 2e-2 * want.abs().max()
+    sel = torch.empty(4, 8, 65, dtype=torch.int8, device=cuda_device)
+    fusion_stack.layer_forward_cuda(xd, wl, c, ml, u=25, compute_bf16=False, selection=sel,
+                                    **kw)
+    _, inner = fusion_stack.layer_forward(xd, wl, c, ml, u=25, mm_dtype=torch.float32,
+                                          internals=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sel.bool(), inner["saved"][4][..., 0])
+    assert int(sel.sum(-1).min()) >= 25  # ties are kept
+
+
+@pytest.mark.cuda
+def test_perceive_kernels_reject_what_they_do_not_take(cuda_device):
+    gen = torch.Generator().manual_seed(1)
+    x, w, _, cnt = _stack_inputs(gen, 2, 40)
+    wl = tuple(t[0].to(cuda_device) for t in w)
+    c = cnt[0].contiguous().to(cuda_device)
+    kw = dict(heads=8, u=20, dropout_rate=0.0, activation="gelu", compute_bf16=True)
+    with pytest.raises(ValueError, match="f32"):
+        fusion_stack.layer_forward_cuda(x.to(cuda_device).bfloat16(), wl, c, None, **kw)
+    with pytest.raises(ValueError, match="cnt"):
+        fusion_stack.layer_forward_cuda(x.to(cuda_device), wl, c[:10], None, **kw)
+    with pytest.raises(ValueError, match="width"):
+        fusion_stack.layer_forward_cuda(x.to(cuda_device), wl, c, None,
+                                        **dict(kw, heads=7))

@@ -13,6 +13,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from routeformer_tpu.ops.flash_attention import flash_window_attention as jax_window
+from routeformer_tpu.ops.swin_block_fusion import fused_swin_block as jax_block
 from routeformer_tpu.ops.swin_block_fusion import fused_swin_block_forward
 from routeformer_torch.ops import flash_attention, swin_block_fusion
 from routeformer_torch.ops.flash_attention import (
@@ -133,3 +134,67 @@ def test_block_wrapper_uses_plain_version_on_cpu(rng):
     assert swin_block_fusion.launches == before
     torch.testing.assert_close(
         got, fused_swin_block_plain(torch.from_numpy(x), tp, torch.from_numpy(bias), 4, False))
+
+
+# ------------------------------------------------------ K1/K2 gradients --- #
+
+
+def _grads(fn, leaves, weight):
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = fn(*leaves)
+    return torch.autograd.grad((out.float() * weight).sum(), leaves)
+
+
+def test_window_gradient_matches_plain_autograd_and_jax(rng):
+    """K2's autograd Function on CPU tensors: its gradients (q, k, v, bias,
+    scale) equal autograd of the plain version, and match jax.grad through
+    the JAX package's custom VJP (a recompute of its f32 reference) at
+    1e-5 of the largest gradient."""
+    q, k, v, bias, scale = _window_inputs(rng, 6, 2, 20, 16, 3)
+    weight = rng.normal(size=q.shape).astype(np.float32)
+    leaves = [torch.from_numpy(a) for a in (q, k, v, bias, scale)]
+    w = torch.from_numpy(weight)
+    got = _grads(lambda *t: flash_window_attention(*t, cosine=True), leaves, w)
+    plain = _grads(lambda *t: flash_window_attention_plain(*t, cosine=True), leaves, w)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    def loss(*t):
+        return jnp.sum(jax_window(*t, cosine=True) * weight)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(loss, argnums=tuple(range(5)))(*map(jnp.asarray, (q, k, v, bias, scale)))
+    scale_g = max(float(np.abs(np.asarray(a)).max()) for a in want)
+    for a, b in zip(got, want):
+        assert np.abs(a.numpy() - np.asarray(b)).max() <= 1e-5 * scale_g
+
+
+@pytest.mark.parametrize("nw", [None, 2])
+def test_block_gradient_matches_plain_autograd_and_jax(rng, nw):
+    """K1's autograd Function on CPU tensors: the gradients of the rows, the
+    bias and all 13 parameters equal autograd of the f32 plain version, and
+    match jax.grad through the JAX package's custom VJP (over
+    ``swin_block_reference``) at 1e-5 of the largest gradient."""
+    x, p, bias = _block_inputs(rng, 4, 16, 64, 4, nw)
+    keys = swin_block_fusion.PARAM_KEYS
+    tp = _torch_params(p)
+    weight = rng.normal(size=x.shape).astype(np.float32)
+    leaves = [torch.from_numpy(x), torch.from_numpy(bias), *(tp[k] for k in keys)]
+    w = torch.from_numpy(weight)
+    got = _grads(lambda x_, b_, *ps: fused_swin_block(x_, dict(zip(keys, ps)), b_, 4, True),
+                 leaves, w)
+    plain = _grads(lambda x_, b_, *ps: fused_swin_block_plain(x_, dict(zip(keys, ps)), b_, 4,
+                                                              compute_bf16=False),
+                   leaves, w)
+    for a, b in zip(got, plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+    def loss(x_, b_, ps):
+        return jnp.sum(jax_block(x_, ps, b_, 4, True, True) * weight)
+
+    gx, gb, gp = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(bias), {k: jnp.asarray(v) for k, v in p.items()})
+    want = [gx, gb, *(np.asarray(gp[k]).T if k in _TORCH_LAYOUT else gp[k] for k in keys)]
+    scale_g = max(float(np.abs(np.asarray(a)).max()) for a in want)
+    for a, b in zip(got, want):
+        assert np.abs(a.numpy() - np.asarray(b)).max() <= 1e-5 * scale_g
