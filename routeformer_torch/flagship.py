@@ -83,19 +83,14 @@ def build_flagship(seed: int = 0, device: DeviceLike = None) -> Routeformer:
     return model.to(dev).eval()
 
 
-def build_flagship_training(seed: int = 0, device: DeviceLike = None,
-                            steps_per_epoch: int = 1, start_step: int = 0):
+def build_flagship_training(seed: int = 0, device: DeviceLike = None):
     """``(model, optimizer, step)`` for the flagship on ``device`` (CUDA by
-    default): ``step(input_batch, target_batch, epoch) -> metrics``.
-    ``start_step`` is the optimizer's update count to start from (a resumed
-    run's), which sets the learning rate of the first update."""
+    default): ``step(input_batch, target_batch, epoch) -> metrics``."""
     model = build_flagship(seed, device)
     optimizer = build_optimizer(
         model, learning_rate=1e-5, weight_decay=1e-4, video_backbone_lr=1e-6,
-        warmup_epochs=2, max_epochs=200, steps_per_epoch=steps_per_epoch,
-        gradient_clip_val=2.5,
+        warmup_epochs=2, max_epochs=200, gradient_clip_val=2.5,
     )
-    optimizer.count = start_step
     losses = TrainingLosses.from_config(model.configs)
 
     def loss_fn(m, input_batch, target_batch, epoch):
