@@ -19,6 +19,16 @@ Phases (any failure exits non-zero):
    exhaustive ProbSparse); time a request with CUDA events. Then one
    batch-1 request with the fused Perceive stack (K3a, 24 launches per
    forward) against the plain-stack request.
+5b. K4 (dense flash attention) against its plain version at the DinoV2
+   shape (288, 1369, 64) bf16, a causal ragged case, E 104 with E_v 64, and
+   f32 inputs; its gradient through its autograd Function against autograd
+   of the plain version.
+5c. DinoV2 serving: the flagship with the DinoV2 ViT-B/14 @518 backbone
+   (``build_dinov2``), through a bundle, three batch-1 and one batch-4
+   request; 12 K4 launches and no K1/K2/K3a launch per forward; the card's
+   forward against the CPU plain forward (exhaustive); request times, peak
+   memory and one profiled request; the fused Perceive stack refuses the
+   frame encoder's 1370 tokens before any launch.
 6. K3a (fused Perceive stack forward) against its plain version at every
    stack geometry of the flagship train step, eval and train (dropout
    masks at p = 0.05): bf16 with exhaustive ProbSparse and f32 with the
@@ -38,9 +48,10 @@ Phases (any failure exits non-zero):
    loss, gradients and the update, with the Perceive stacks in the
    flagship's bf16, with the plain layers rounding as the fused stack
    does, and in f32 (``STEP_TOLS``).
-8. Print a ``kernels`` JSON line: launches on the training path (two
-   steps, and per step) and per serving forward; K1/K2 times per batch-1
-   forward, K3a/K3b per train step; bound and library time.
+8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
+   the two train steps, K4 the four DinoV2 requests), per train step and
+   per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
+   step, K4 per batch-1 DinoV2 forward; bound and library time.
 9. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
@@ -90,6 +101,16 @@ K3B_TOL = 5e-2  # dx against its max, weight grads against one global scale
 # boundary (of max|measure|): an f32 near-tie.
 K3A_F32_CLEAN_TOL, K3A_F32_TIE = 1e-4, 1e-4
 K12_GRAD_TOL = 1e-2  # the Functions' gradients against autograd of the plain versions
+# K4 on the DinoV2 serving path at batch 1: 24 frames x 12 heads, 1369
+# tokens, head width 64, one launch per ViT block.
+K4_SHAPE = (288, 1369, 64)
+K4_PER_FORWARD = 12
+K4_TOL = 1e-2  # max|kernel - plain| / max|plain|, as K1/K2
+# (BH, L, E, E_v, causal, dtype): the main shape, a causal ragged length,
+# E not a multiple of 16 with a narrower E_v, and f32 inputs.
+K4_CASES = [(288, 1369, 64, 64, False, "bfloat16"), (6, 700, 64, 64, True, "bfloat16"),
+            (8, 600, 104, 64, False, "bfloat16"), (12, 577, 64, 64, True, "float32"),
+            (12, 577, 64, 64, False, "float32")]
 TRAIN_BATCH, TRAIN_EPOCH = 16, 12  # epoch >= 10: lr > 0, dense loss on
 # Launches per flagship train step: 24 SwinV2 blocks (K1, each with one K2)
 # in the input and in the target backbone pass; 3 Perceive stacks of 8
@@ -98,7 +119,7 @@ TRAIN_BATCH, TRAIN_EPOCH = 16, 12  # epoch >= 10: lr > 0, dense loss on
 # detached): all 3, or the frame and video encoders' when gaze dropout
 # zeroes the gaze features (one decision per batch, p = 0.2), which cuts
 # the gaze encoder out of the backward.
-PER_STEP = {"K1": (48,), "K2": (48,), "K3a": (48,), "K3b": (24, 16)}
+PER_STEP = {"K1": (48,), "K2": (48,), "K3a": (48,), "K3b": (24, 16), "K4": (0,)}
 STEP_LOSS_TOL = 1e-2  # kernel vs plain-stack step: relative loss
 STEP_GRAD_TOL = 5e-2  # kernel vs plain-stack step: gradients, of the global max
 # The gradient limit by how the Perceive stacks compute (``set_stacks``).
@@ -238,11 +259,9 @@ def set_exhaustive(model) -> None:
 
 
 def serve_flagship(results: dict) -> dict:
-    import numpy as np
     import torch
 
     import routeformer_torch as rt
-    from routeformer_torch.io.synthetic import synthetic_batch_numpy
     from routeformer_torch.ops import flash_attention, swin_block_fusion
 
     t0 = time.perf_counter()
@@ -257,14 +276,7 @@ def serve_flagship(results: dict) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
 
     g = cfg.gps_backbone_config
-
-    def request(seed, batch_size):
-        return synthetic_batch_numpy(
-            seed, batch_size, seq_len=g.seq_len, pred_len=g.pred_len,
-            fps=cfg.output_fps, with_video=True, with_gaze=True,
-            frame_hw=(54, 96))["train"]
-
-    requests = [request(1, 1), request(2, 1), request(3, 1), request(4, 4)]
+    requests = serving_requests(cfg)
 
     # The main path: counts set to 0 just before, read just after.
     swin_block_fusion.launches = 0
@@ -295,11 +307,25 @@ def serve_flagship(results: dict) -> dict:
         results[f"request_ms_b{b}"] = timing[b]
         results[f"peak_gib_b{b}"] = peak
 
-    profile_request(serving, requests[0], results)
+    results["profile"] = profile_request(serving, requests[0], results["request_ms_b1"])
+    results["card_vs_cpu"] = card_vs_cpu(serving, "final_norm", requests[0])
+    serve_fused(serving, requests[0], results)
+    return launches
 
-    # Card vs CPU (plain versions) from the same weights, exhaustive ProbSparse.
+
+def card_vs_cpu(serving, norm: str, batch) -> dict:
+    """The card's forward against a CPU run of the same weights (plain
+    kernel versions), exhaustive ProbSparse: max|diff|/max|cpu| of the
+    backbone features (the output of its final norm ``norm``), the
+    displacement and the dense features, held to FEATURE_TOL and PRED_TOL."""
+    import numpy as np
+    import torch
+
+    import routeformer_torch as rt
+
     torch.set_num_threads(os.cpu_count() or 1)
-    cpu_model = rt.models.Routeformer(cfg)
+    cpu_model = rt.models.Routeformer(serving.model.configs,
+                                      video_backbone=type(serving.model.video_backbone))
     cpu_model.load_state_dict(serving.model.state_dict())
     cpu_model.eval()
     set_exhaustive(cpu_model)
@@ -311,16 +337,16 @@ def serve_flagship(results: dict) -> dict:
             feats[key] = out.detach().float().cpu()
         return hook
 
-    h_gpu = serving.model.video_backbone.final_norm.register_forward_hook(capture("gpu"))
-    h_cpu = cpu_model.video_backbone.final_norm.register_forward_hook(capture("cpu"))
-    batch = requests[0]
+    hooks = [getattr(m.video_backbone, norm).register_forward_hook(capture(key))
+             for key, m in (("gpu", serving.model), ("cpu", cpu_model))]
     gps_gpu, dense_gpu = serving(batch)
     t0 = time.perf_counter()
     with torch.inference_mode():
         gps_cpu, dense_cpu = cpu_model({k: torch.from_numpy(v) for k, v in batch.items()})
-    log(f"CPU reference forward (batch 1): {time.perf_counter() - t0:.1f} s")
-    h_gpu.remove()
-    h_cpu.remove()
+    log(f"CPU reference forward (batch {batch['gps'].shape[0]}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for h in hooks:
+        h.remove()
     last = torch.from_numpy(batch["gps"][:, -1:])
     errs = {
         "features": rel_err(feats["gpu"], feats["cpu"]),
@@ -331,10 +357,8 @@ def serve_flagship(results: dict) -> dict:
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
     assert errs["features"] <= FEATURE_TOL, errs
     assert errs["displacement"] <= PRED_TOL and errs["dense"] <= PRED_TOL, errs
-    results["card_vs_cpu"] = errs
     assert np.isfinite(list(errs.values())).all()
-    serve_fused(serving, batch, results)
-    return launches
+    return errs
 
 
 def serve_fused(serving, batch, results: dict) -> None:
@@ -367,10 +391,11 @@ def serve_fused(serving, batch, results: dict) -> None:
                               "plain_stack_request_ms": plain_ms, **errs}
 
 
-def profile_request(serving, batch, results: dict) -> None:
-    """Device time by kernel over two batch-1 requests (torch.profiler),
-    and the device's idle share of the request time measured with CUDA
-    events (the profiler's own host overhead is left out of both)."""
+def profile_request(serving, batch, request_ms: float) -> dict:
+    """Device time by kernel over two requests (torch.profiler), each
+    kernel's share of it, and the device's idle share of the request time
+    ``request_ms`` measured with CUDA events (the profiler's own host
+    overhead is left out of both)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -389,12 +414,12 @@ def profile_request(serving, batch, results: dict) -> None:
         name = e.key
         for tag, label in (("gemm_bias_act", "K1 gemm_bias_act"),
                            ("residual_layernorm", "K1 residual_layernorm"),
-                           ("window_attention_kernel", "K2 window_attention")):
+                           ("window_attention_kernel", "K2 window_attention"),
+                           ("dense_attention", "K4 dense_attention")):
             if tag in name:
                 name = label
         groups[name] = groups.get(name, 0.0) + t / reps / 1e3
     busy = sum(groups.values())
-    request_ms = results["request_ms_b1"]
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:10]
     prof_line = {
         "device_busy_ms_per_request": busy,
@@ -403,10 +428,147 @@ def profile_request(serving, batch, results: dict) -> None:
         "kernels_per_request": sum(
             e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
         ) / reps,
+        "kernel_share_of_busy": {k.split()[0]: v / busy for k, v in groups.items()
+                                 if k.startswith("K") and busy},
         "top_device_ms_per_request": {k[:80]: v for k, v in top},
     }
-    results["profile"] = prof_line
     log("profile: " + json.dumps(prof_line))
+    return prof_line
+
+
+# --------------------------------------------------------------- phase 5b #
+
+
+def k4_inputs(bh, l, e, e_v, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k = (torch.randn(bh, l, e, device="cuda", generator=g).to(dt) for _ in range(2))
+    return q, k, torch.randn(bh, l, e_v, device="cuda", generator=g).to(dt)
+
+
+def check_k4(results: dict) -> None:
+    """K4 against its plain version (K4_CASES), then its gradient through
+    the autograd Function against autograd of the plain version."""
+    import torch
+
+    from routeformer_torch.ops import flash_attention as fa
+
+    worst = 0.0
+    for bh, l, e, e_v, causal, dtype in K4_CASES:
+        q, k, v = k4_inputs(bh, l, e, e_v, dtype, seed=l + e)
+        scale = 1.0 / math.sqrt(e)
+        before = fa.dense_launches
+        got = fa.flash_attention_bhle(q, k, v, causal, scale)
+        assert fa.dense_launches == before + 1, "K4 did not launch"
+        want = fa.attention_bhle_plain(q, k, v, causal, scale)
+        assert got.shape == want.shape and got.dtype == want.dtype
+        err = rel_err(got, want)
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        log(f"K4 {(bh, l, e, e_v)} causal={causal} {dtype}: "
+            f"max|kernel-plain|/max|plain| = {err:.3e}")
+        if not err <= K4_TOL:
+            raise AssertionError(f"K4 disagrees with its plain version: {err} > {K4_TOL}")
+        del q, k, v, got, want
+    results["k4_max_abs_err"] = worst
+
+    q, k, v = k4_inputs(24, 600, 64, 64, "bfloat16", seed=5)
+    weight = torch.randn(q.shape, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    before = fa.dense_launches
+    out = fa.flash_attention_bhle(*leaves, True, 0.125)
+    assert fa.dense_launches == before + 1, "K4 did not launch"
+    got = torch.autograd.grad((out.float() * weight).sum(), leaves)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = fa.attention_bhle_plain(*(t.float() for t in leaves), True, 0.125).to(q.dtype)
+    want = torch.autograd.grad((out.float() * weight).sum(), leaves)
+    scale = max(t.float().abs().max().item() for t in want)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+    log(f"K4 gradient, Function vs autograd of the plain version: "
+        f"max|diff|/global max = {err / scale:.3e}")
+    if not (scale > 0 and err <= K12_GRAD_TOL * scale):
+        raise AssertionError(f"K4 gradient disagrees: {err / scale} > {K12_GRAD_TOL}")
+
+
+# --------------------------------------------------------------- phase 5c #
+
+
+def serve_dinov2(results: dict) -> int:
+    """The DinoV2 serving path with the plain Perceive layers; returns its
+    K4 launches (counts set to 0 just before the four requests, read just
+    after)."""
+    import torch
+
+    import routeformer_torch as rt
+
+    set_fusion("0")
+    t0 = time.perf_counter()
+    model = rt.build_dinov2(seed=0)  # CUDA by default
+    n_params = sum(p.numel() for p in model.parameters())
+    rt.save_serving_bundle(BUNDLE_DIR, model)
+    cfg = model.configs
+    del model
+    serving = rt.load_serving_bundle(BUNDLE_DIR)
+    shutil.rmtree(BUNDLE_DIR)
+    assert type(serving.model.video_backbone).__name__ == "DinoV2"
+    log(f"DinoV2 model built, saved and reloaded: {n_params} parameters, "
+        f"{time.perf_counter() - t0:.1f} s")
+    requests = serving_requests(cfg)
+
+    reset_counts()  # the main path: counts set to 0 just before, read just after
+    expected = {"K1": 0, "K2": 0, "K3a": 0, "K3b": 0, "K4": K4_PER_FORWARD}
+    for batch in requests:
+        before = launch_counts()
+        gps, dense = serving(batch)
+        torch.cuda.synchronize()
+        b = batch["gps"].shape[0]
+        assert gps.shape == (b, cfg.gps_backbone_config.pred_len, 2), gps.shape
+        assert dense.shape == (b, cfg.gps_backbone_config.pred_len,
+                               cfg.image_embedding_size), dense.shape
+        assert torch.isfinite(gps).all() and torch.isfinite(dense).all()
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        assert per == expected, f"launches per DinoV2 forward {per}, expected {expected}"
+    launches = launch_counts()["K4"]
+    log(f"DinoV2 served 3 x batch 1 and 1 x batch 4: shapes ok, finite, "
+        f"{launches} K4 launches ({K4_PER_FORWARD} per forward), no K1/K2/K3a")
+    out = results["dinov2"] = {"launches_per_forward": per}
+
+    for b, batch in ((1, requests[0]), (4, requests[3])):
+        torch.cuda.reset_peak_memory_stats()
+        out[f"request_ms_b{b}"] = cuda_ms(lambda: serving(batch), iters=5, warmup=1)
+        out[f"peak_gib_b{b}"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"DinoV2 request batch {b}: {out[f'request_ms_b{b}']:.2f} ms, "
+            f"peak memory {out[f'peak_gib_b{b}']:.2f} GiB")
+    out["profile"] = profile_request(serving, requests[0], out["request_ms_b1"])
+    out["card_vs_cpu"] = card_vs_cpu(serving, "norm", requests[0])
+
+    # The fused Perceive stack takes at most 208 tokens: the frame encoder's
+    # 1370 are refused before any launch.
+    set_fusion("1")
+    before = launch_counts()
+    try:
+        serving(requests[0])
+    except ValueError as err:
+        assert "at most 208 tokens" in str(err), err
+        log(f"fused stack at 1370 tokens refused: {err}")
+    else:
+        raise AssertionError("the fused Perceive stack took 1370 tokens")
+    finally:
+        set_fusion("0")
+    assert launch_counts()["K3a"] == before["K3a"], "K3a launched at 1370 tokens"
+    return launches
+
+
+def serving_requests(cfg) -> list:
+    """Three batch-1 and one batch-4 synthetic GEM-geometry requests."""
+    from routeformer_torch.io.synthetic import synthetic_batch_numpy
+
+    g = cfg.gps_backbone_config
+    return [synthetic_batch_numpy(seed, b, seq_len=g.seq_len, pred_len=g.pred_len,
+                                  fps=cfg.output_fps, with_video=True, with_gaze=True,
+                                  frame_hw=(54, 96))["train"]
+            for seed, b in ((1, 1), (2, 1), (3, 1), (4, 4))]
 
 
 # ---------------------------------------------------------------- phase 6 #
@@ -645,7 +807,7 @@ def launch_counts() -> dict:
     from routeformer_torch.ops import swin_block_fusion as sbf
 
     return {"K1": sbf.launches, "K2": fa.launches, "K3a": fs.launches_fwd,
-            "K3b": fs.launches_bwd}
+            "K3b": fs.launches_bwd, "K4": fa.dense_launches}
 
 
 def reset_counts() -> None:
@@ -653,7 +815,7 @@ def reset_counts() -> None:
     from routeformer_torch.ops import fusion_stack as fs
     from routeformer_torch.ops import swin_block_fusion as sbf
 
-    sbf.launches = fa.launches = fs.launches_fwd = fs.launches_bwd = 0
+    sbf.launches = fa.launches = fs.launches_fwd = fs.launches_bwd = fa.dense_launches = 0
 
 
 def train_batches(seed: int):
@@ -1048,12 +1210,13 @@ def kernel_line(launches: dict, results: dict) -> dict:
         del x, params, bias, q, k, v, wb, scale, qn, kn, mask
         torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, acc, err, library_ms, ms_per):
+    def entry(name, source, replaces, acc, err, library_ms, ms_per,
+              per_forward=results["serve_launches_per_forward"]):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "launches_per_step": [c[name] for c in results["train_launches_per_step"]],
-            "launches_per_forward": results["serve_launches_per_forward"][name],
+            "launches_per_forward": per_forward[name],
             "max_abs_err": err, "ms_per": ms_per,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -1061,6 +1224,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
         }
 
     k3 = k3_times()
+    k4 = k4_times()
     per_forward, per_step = "batch-1 serving forward", f"batch-{TRAIN_BATCH} train step"
     return {"kernels": [
         entry("K1", "routeformer_torch/csrc/swin_block.cu",
@@ -1076,7 +1240,37 @@ def kernel_line(launches: dict, results: dict) -> dict:
         entry("K3b", "routeformer_torch/csrc/perceive_stack.cu",
               "routeformer_tpu/ops/fusion_stack.py:599", k3["K3b"],
               results["k3b_max_abs_err"], None, per_step),
+        entry("K4", "routeformer_torch/csrc/dense_attention.cu",
+              "routeformer_tpu/ops/flash_attention.py:36", k4, results["k4_max_abs_err"],
+              k4["library_ms"], "batch-1 DinoV2 serving forward",
+              per_forward=results["dinov2"]["launches_per_forward"]),
     ]}
+
+
+def k4_times() -> dict:
+    """K4 per batch-1 DinoV2 forward: one launch at K4_SHAPE (bf16, scale
+    1/8, non-causal) times K4_PER_FORWARD, beside the plain version and
+    SDPA on the same tensors. Bound: 4 BH L^2 E operations with bf16
+    operands against q, k, v read and the output written once."""
+    import torch.nn.functional as F
+
+    from routeformer_torch.ops import flash_attention as fa
+
+    bh, l, e = K4_SHAPE
+    q, k, v = k4_inputs(bh, l, e, e, "bfloat16", seed=11)
+    scale = 1.0 / math.sqrt(e)
+    t = cuda_ms(lambda: fa.flash_attention_bhle(q, k, v, False, scale))
+    tp = cuda_ms(lambda: fa.attention_bhle_plain(q, k, v, False, scale), iters=3, warmup=1)
+    heads = 12
+    q4, k4, v4 = (x.view(bh // heads, heads, l, e) for x in (q, k, v))
+    tl = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+    flops, nbytes = 4 * bh * l * l * e, 4 * bh * l * e * 2
+    bt, by = bound_ms(flops, nbytes)
+    n = K4_PER_FORWARD
+    log(f"K4 {K4_SHAPE}: {t:.3f} ms (plain {tp:.3f}, sdpa {tl:.3f}, bound {bt:.4f} by {by}) "
+        f"x {n}")
+    return {"ms": n * t, "plain_ms": n * tp, "library_ms": n * tl, "bound_ms": n * bt,
+            "ops_s": n * flops / PEAK_BF16, "bytes_s": n * nbytes / PEAK_BYTES}
 
 
 def main() -> int:
@@ -1109,10 +1303,13 @@ def main() -> int:
     check_k2(results)
     check_k1(results)
     serve_flagship(results)
+    check_k4(results)
+    k4_launches = serve_dinov2(results)
     check_k3a(results)
     check_k3b(results)
     check_k12_grad(results)
     launches = train_flagship(results)
+    launches["K4"] = k4_launches  # K4's path is DinoV2 serving
     train_parity(results)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")

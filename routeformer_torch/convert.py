@@ -12,8 +12,11 @@ after the flax paths:
 - LayerNorm/BatchNorm ``scale`` -> ``weight``; BatchNorm ``mean``/``var``
   -> ``running_mean``/``running_var``;
 - scanned layer axes are unstacked: ``stacked_layers.X`` (Perceive
-  encoders) -> ``stacked_layers.{i}.X`` and ``pairs.X`` (SwinV2 stages,
-  leading n_pairs axis) -> ``pairs.{i}.X``.
+  encoders) -> ``stacked_layers.{i}.X``, ``pairs.X`` (SwinV2 stages,
+  leading n_pairs axis) -> ``pairs.{i}.X`` and ``blocks.X`` (the ViT's
+  vmapped blocks, leading depth axis) -> ``blocks.{i}.X``. No other JAX
+  module has an attribute of these names;
+- other names pass through (the ViT's ``pos_embed``).
 
 Any parameter left unmatched, in either direction, raises.
 """
@@ -25,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-_SCANNED = re.compile(r"(^|\.)(stacked_layers|pairs)\.")
+_STACKED = "stacked_layers|pairs|blocks"
+_SCANNED = re.compile(rf"(^|\.)({_STACKED})\.")
 _RENAMES = {"kernel": "weight", "scale": "weight", "mean": "running_mean",
             "var": "running_var"}
 
@@ -50,7 +54,7 @@ def flax_to_torch_names(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         name, arr = pending.pop()
         arr = np.asarray(arr)
         m = _SCANNED.search(name)
-        if m and not re.search(r"(stacked_layers|pairs)\.\d+\.", name):
+        if m and not re.search(rf"({_STACKED})\.\d+\.", name):
             head, tail = name[: m.end()], name[m.end():]
             pending.extend((f"{head}{i}.{tail}", arr[i]) for i in range(arr.shape[0]))
             continue

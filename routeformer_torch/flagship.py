@@ -4,6 +4,12 @@ factor 4, distil and the smart decoder; SwinV2-base (window 16 at 256 px,
 tanh gelu, bf16 compute); d128 Perceive stacks of 8 and 2 layers with bf16
 Linear layers; video and gaze, dense prediction, 5 Hz output.
 
+``dinov2_config``/``build_dinov2`` are the same model with the DinoV2
+ViT-B/14 at 518 px (exact gelu, bf16 compute) as its video backbone, the
+JAX ``Routeformer(cfg, gps_backbone=Informer, video_backbone=DinoV2)``:
+its ViT reaches K4 (1369 tokens per frame), and its frame encoder sees
+1370 tokens.
+
 ``build_flagship_training`` adds the JAX package's flagship optimizer (AdamW
 1e-5, weight decay 1e-4, backbone 1e-6, warmup 2 of 200 epochs, clip 2.5)
 and returns a train step. ``ROUTEFORMER_FUSION_KERNEL`` chooses the Perceive
@@ -17,7 +23,7 @@ import torch.nn as nn
 
 from routeformer_torch.models import Routeformer, RouteformerConfig
 from routeformer_torch.models.gps_backbone import GPSBackboneConfig
-from routeformer_torch.models.video_backbone import TimmBackboneConfig
+from routeformer_torch.models.video_backbone import DinoV2, TimmBackboneConfig
 from routeformer_torch.optimizers import build_optimizer
 from routeformer_torch.parallel import make_train_step
 from routeformer_torch.train import TrainingLosses, routeformer_training_loss
@@ -52,16 +58,29 @@ def flagship_config() -> RouteformerConfig:
     )
 
 
+def dinov2_config() -> RouteformerConfig:
+    """``flagship_config`` with the DinoV2 ViT-B/14 @518 backbone."""
+    cfg = flagship_config()
+    cfg.video_backbone_config = TimmBackboneConfig(
+        model_type="vit_base_patch14_dinov2.lvd142m", gelu="exact",
+        compute_dtype="bfloat16", cache_enabled=False,
+    )
+    return cfg
+
+
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded initialisation, the same on every device: Linear/conv weights
     normal(0, 1/fan_in), biases 0, norms 1/0, the view embeddings
-    normal(0, 1), SwinV2 logit scales log(10)."""
+    normal(0, 1), the ViT's position embedding normal(0, 0.02) (its flax
+    initialiser), SwinV2 logit scales log(10)."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if name.endswith("_embedding") and p.ndim == 3 and p.shape[:2] == (1, 1):
                 value = torch.randn(p.shape, generator=gen)
+            elif leaf == "pos_embed":
+                value = 0.02 * torch.randn(p.shape, generator=gen)
             elif leaf == "logit_scale":
                 value = torch.full(p.shape, math.log(10.0))
             elif p.ndim >= 2:
@@ -79,6 +98,15 @@ def build_flagship(seed: int = 0, device: DeviceLike = None) -> Routeformer:
     (CUDA by default)."""
     dev = resolve_device(device)
     model = Routeformer(flagship_config())
+    init_weights(model, seed)
+    return model.to(dev).eval()
+
+
+def build_dinov2(seed: int = 0, device: DeviceLike = None) -> Routeformer:
+    """The DinoV2-backbone model with seeded weights, in eval mode, on
+    ``device`` (CUDA by default)."""
+    dev = resolve_device(device)
+    model = Routeformer(dinov2_config(), video_backbone=DinoV2)
     init_weights(model, seed)
     return model.to(dev).eval()
 

@@ -2,7 +2,9 @@
 ``routeformer_tpu/models/routeformer.py``).
 
 Motion features from GPS velocities, scene video (left/right views) and the
-front camera through one merged SwinV2 pass and the frame encoder, the gaze
+front camera through one merged backbone pass (the class given as
+``video_backbone``: SwinV2 by default, or a ViT such as ``DinoV2``) and
+the frame encoder, whose width is the backbone's feature width, the gaze
 path (median downsampling, gaze encoder, gaze-video decoder), view
 embeddings and output-query tokens into the video encoder, then the
 Informer and cumsum integration onto the last GPS fix, with the dense
@@ -40,7 +42,7 @@ def fps_subsample_indices(length: int, relative_fps: int) -> np.ndarray:
 
 
 class Routeformer(nn.Module):
-    def __init__(self, configs: RouteformerConfig):
+    def __init__(self, configs: RouteformerConfig, video_backbone: type = SwinV2Backbone):
         super().__init__()
         self.configs = cfg = configs.copy()
         if cfg.autoregressive:
@@ -54,7 +56,7 @@ class Routeformer(nn.Module):
             raise ValueError("with_video requires with_scene and/or with_gaze")
         seq_len = cfg.gps_backbone_config.seq_len
         if self.with_video:
-            self.video_backbone = SwinV2Backbone(cfg.video_backbone_config)
+            self.video_backbone = video_backbone(cfg.video_backbone_config)
             feat_c = self.video_backbone.output_feature_shape[-1]
             enc = dict(n_heads=cfg.encoder_heads, layers=cfg.encoder_layers,
                        d_ff=cfg.encoder_d_ff, dropout=cfg.feature_dropout,

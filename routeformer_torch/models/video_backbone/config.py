@@ -16,8 +16,9 @@ class TimmBackboneConfig(BaseConfig):
     model_type: Optional[str] = None
     # Encoder compute dtype; parameters stay float32.
     compute_dtype: str = "bfloat16"
-    # "exact" (erf) or "tanh". tanh blocks run the fused block kernel (K1);
-    # exact blocks run window attention (K2) with plain Linear/LayerNorm.
+    # "exact" (erf) or "tanh". SwinV2: tanh blocks run the fused block
+    # kernel (K1), exact blocks window attention (K2) with plain Linear and
+    # LayerNorm. ViT: the gelu of the blocks' MLP.
     gelu: str = "exact"
 
     def __post_init__(self):

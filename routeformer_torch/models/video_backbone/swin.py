@@ -27,11 +27,9 @@ import torch.nn.functional as F
 from routeformer_torch.models.layers.attention import Linear
 from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
 from routeformer_torch.ops.flash_attention import flash_window_attention
-from routeformer_torch.ops.image import to_float16
+from routeformer_torch.ops.image import condition_frames
 from routeformer_torch.ops.swin_block_fusion import fused_swin_block
 
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 LN_EPS = 1e-5  # timm/torch SwinV2 LayerNorm eps
 
 
@@ -280,15 +278,6 @@ def resolve_preset(model_type: Optional[str]) -> SwinPreset:
     return SWIN_PRESETS["swinv2_base"]
 
 
-def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
-    """``jax.image.resize(..., "bilinear")`` on (N, H, W, C): half-pixel
-    centres, antialiased when downsampling; computed in f32."""
-    x = images.float().permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=(size, size), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return x.permute(0, 2, 3, 1).to(images.dtype)
-
-
 class SwinV2Backbone(nn.Module):
     """Hierarchical SwinV2 encoder producing a (H/32, W/32, 8*embed) map."""
 
@@ -320,20 +309,10 @@ class SwinV2Backbone(nn.Module):
         self.unfreeze = False
 
     def preprocess_frames(self, images: torch.Tensor) -> torch.Tensor:
-        """uint8 -> f16, pad to square (bottom/right), resize to the native
-        size, ImageNet-normalise, cast to the compute dtype."""
-        if images.dtype == torch.uint8:
-            images = to_float16(images)
-        n, h, w, c = images.shape
-        if self.configs.pad_to_square and h != w:
-            side = max(h, w)
-            images = F.pad(images, (0, 0, 0, side - w, 0, side - h))
-        size = self.preset.img_size
-        if images.shape[1] != size or images.shape[2] != size:
-            images = resize_bilinear(images, size)
-        mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
-        std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
-        x = (images - mean) / std
+        """``condition_frames`` to the native size (ImageNet statistics),
+        then the compute dtype."""
+        x = condition_frames(images, self.preset.img_size,
+                             pad_to_square=self.configs.pad_to_square)
         return x.to(self.compute_dtype) if self.compute_dtype is not None else x
 
     def encode_frames(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Attention functions on ``(B, L, H, E)`` tensors (counterpart of
 ``routeformer_tpu/ops/attention.py``).
 
-- ``dot_product_attention``: dense softmax attention, the plain path of the
-  JAX package (its flash kernel is dispatched only when ``L_k >= 512``,
-  which the flagship never reaches).
+- ``dot_product_attention``: dense softmax attention. With the JAX
+  package's rule (``_use_flash``: ``L_k >= 512``, no dropout, no weights)
+  it takes the fused route, K4 (``ops/flash_attention.py``
+  ``flash_attention_bhle``); otherwise the plain einsum path. Only the
+  DinoV2 ViT at 518 px (1369 tokens) reaches the fused route.
 - ``prob_sparse_attention``: Informer's ProbSparse attention in the JAX
   package's default "masked" formulation: dense scores and softmax for all
   queries, and each row keeps the dense output when its sparsity measure
@@ -16,11 +18,13 @@ scores to the input dtype before the f32 softmax, as ``jnp.einsum`` does.
 """
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from routeformer_torch.ops.flash_attention import flash_attention_bhle
 from routeformer_torch.utils.prng import prob_sparse_index_sample
 
 _NEG_INF = -1e30
@@ -31,6 +35,22 @@ def _causal_mask(l_q: int, l_k: int, device) -> torch.Tensor:
     return torch.ones(l_q, l_k, dtype=torch.bool, device=device).triu(1)
 
 
+def _use_flash(q, k, dropout_rate, deterministic, need_weights) -> bool:
+    """The JAX package's dispatch rule for the fused kernel.
+    ``ROUTEFORMER_FLASH``: ``0`` never, ``1`` always, ``auto`` (default)
+    when ``L_k >= 512``; never with dropout in force or weights asked for.
+    JAX also requires a TPU backend; here the rule decides the route, and
+    the tensors' device decides kernel or plain version."""
+    if need_weights or (dropout_rate > 0.0 and not deterministic):
+        return False
+    mode = os.environ.get("ROUTEFORMER_FLASH", "auto")
+    if mode == "0":
+        return False
+    if mode == "1":
+        return True
+    return k.shape[1] >= 512
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -39,11 +59,27 @@ def dot_product_attention(
     causal: bool = False,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """Dense softmax attention; scale defaults to ``1/sqrt(E)``. With
-    ``dropout_rate`` the attention weights are dropped (training)."""
-    l_q, l_k = q.shape[1], k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    """Dense softmax attention on ``(B, L, H, E)``; scale defaults to
+    ``1/sqrt(E)``. With ``dropout_rate`` the attention weights are dropped
+    (training; callers pass 0 in eval). ``impl``: ``auto`` (the rule of
+    ``_use_flash``), ``flash`` (K4) or ``plain``. The JAX package's
+    additive bias, which keeps its plain path, has no caller here."""
+    if impl not in ("auto", "flash", "plain"):
+        raise ValueError(f"impl must be 'auto', 'flash' or 'plain', got {impl!r}")
+    b, l_q, h, e = q.shape
+    l_k, e_v = v.shape[1], v.shape[3]
+    scale = scale if scale is not None else 1.0 / math.sqrt(e)
+    if impl == "flash" or (
+        impl == "auto"
+        and _use_flash(q, k, dropout_rate, deterministic=False, need_weights=False)
+    ):
+        qf = q.transpose(1, 2).reshape(b * h, l_q, e)
+        kf = k.transpose(1, 2).reshape(b * h, l_k, e)
+        vf = v.transpose(1, 2).reshape(b * h, l_k, e_v)
+        out = flash_attention_bhle(qf, kf, vf, causal, scale)
+        return out.reshape(b, h, l_q, e_v).transpose(1, 2)
     scores = torch.einsum("blhe,bshe->bhls", q, k).float()
     if causal:
         scores = scores.masked_fill(_causal_mask(l_q, l_k, q.device), _NEG_INF)

@@ -39,6 +39,9 @@ SIGNATURES = {
         "rf_window_attention": [_P, _P, _P, _I, _LL, _LL, _LL, _P, _I, _P, _P,
                                 _LL, _LL, _LL, _I, _I, _I, _I, _I, _P],
     },
+    "dense_attention": {
+        "rf_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    },
     "swin_block": {
         "rf_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "rf_residual_layernorm": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P],

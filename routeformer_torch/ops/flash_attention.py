@@ -1,21 +1,29 @@
-"""K2: SwinV2 window attention (counterpart of
-``routeformer_tpu/ops/flash_attention.py::flash_window_attention``).
+"""The attention kernels of ``routeformer_tpu/ops/flash_attention.py``:
 
-The kernel is ``csrc/window_attention.cu`` (its header says what bounds it
-on the H100 and what the design does about it). ``flash_window_attention``
-runs it for CUDA tensors and the plain PyTorch version for CPU tensors,
-and differentiates through autograd over an f32 recompute of the plain
-version; ``flash_window_attention_plain`` is that plain version, callable
-on any device. ``launches`` counts kernel launches.
+- K2, SwinV2 window attention (``flash_window_attention``), kernel
+  ``csrc/window_attention.cu``; ``launches`` counts its launches.
+- K4, dense softmax attention on head-flattened ``(BH, L, E)`` tensors
+  (``flash_attention_bhle``), kernel ``csrc/dense_attention.cu``;
+  ``dense_launches`` counts its launches.
+
+Each kernel's header says what bounds it on the H100 and what the design
+does about it. The wrappers run the kernel for CUDA tensors and the plain
+PyTorch version for CPU tensors, and differentiate through autograd over an
+f32 recompute of the plain version, as the JAX custom VJPs do; the plain
+versions (``*_plain``) are callable on any device.
 """
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from routeformer_torch.ops import cuda_build
 
 launches = 0
+dense_launches = 0
+DENSE_MAX_E = 128  # widest E and E_v K4 takes (after padding to a multiple of 16)
+_NEG_INF = -1e30
 
 
 def _normalise(x: torch.Tensor) -> torch.Tensor:
@@ -125,3 +133,96 @@ def flash_window_attention(q, k, v, bias, scale=None, cosine=False):
     if scale is None:
         scale = torch.ones(q.shape[1], dtype=torch.float32, device=q.device)
     return _WindowAttention.apply(cosine, q, k, v, bias, scale)
+
+
+# ----------------------------------------------------------------- K4 --- #
+
+
+def attention_bhle_plain(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """Plain version (``_reference_attention_bhle``): f32 scores, keys with
+    col > row set to -1e30 when ``causal``, f32 softmax and p·v, output in
+    q's dtype."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    if causal:
+        l_q, l_k = q.shape[1], k.shape[1]
+        upper = torch.ones(l_q, l_k, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(upper, _NEG_INF)
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _pad16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, its last dimension padded with zeros to a multiple
+    of 16 (no copy when it is both already)."""
+    pad = -t.shape[-1] % 16
+    return (F.pad(t, (0, pad)) if pad else t).contiguous()
+
+
+def _check_dense(q, k, v):
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K4 takes q, k, v all bf16 or all f32, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
+        raise ValueError("K4 takes head-flattened (BH, L, E) tensors")
+    bh, l_q, e = q.shape
+    if k.shape[0] != bh or v.shape[0] != bh or k.shape[2] != e or v.shape[1] != k.shape[1]:
+        raise ValueError(f"K4 shapes do not agree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if e > DENSE_MAX_E or v.shape[2] > DENSE_MAX_E:
+        raise ValueError(f"K4 takes E and E_v up to {DENSE_MAX_E}, got {e}, {v.shape[2]}")
+    if not 1 <= bh <= 65535 or l_q < 1 or k.shape[1] < 1:
+        raise ValueError(f"K4 takes 1 <= BH <= 65535 and non-empty L, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+
+
+def launch_dense_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """K4 on CUDA tensors: pads E and E_v with zeros to a multiple of 16 (the
+    ragged L edge is masked in the kernel) and launches on the current
+    stream."""
+    global dense_launches
+    _check_dense(q, k, v)
+    bh, l_q, _ = q.shape
+    l_k, e_v = v.shape[1:]
+    qp, kp, vp = _pad16(q), _pad16(k), _pad16(v)
+    out = torch.empty(bh, l_q, e_v, dtype=q.dtype, device=q.device)
+    lib = cuda_build.libraries()["dense_attention"]
+    err = lib.rf_dense_attention(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        int(q.dtype == torch.bfloat16), bh, l_q, l_k, qp.shape[-1], vp.shape[-1], e_v,
+        ctypes.c_float(scale), int(causal),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
+    )
+    cuda_build.check(err, "dense_attention")
+    dense_launches += 1
+    return out
+
+
+class _DenseAttention(torch.autograd.Function):
+    """Forward: K4 (CUDA) or the plain version (CPU). Backward: autograd over
+    a recompute of the plain version in f32, cast to q's dtype, as the JAX
+    package's custom VJP differentiates ``_reference_attention_bhle``."""
+
+    @staticmethod
+    def forward(ctx, causal, scale, q, k, v):
+        if not q.device == k.device == v.device:
+            raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
+        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cpu":
+            return attention_bhle_plain(q, k, v, causal, scale)
+        return launch_dense_attention(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            q, k, v = inputs
+            out = attention_bhle_plain(q.float(), k.float(), v.float(), ctx.causal,
+                                       ctx.scale).to(q.dtype)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (None, None, *grads)
+
+
+def flash_attention_bhle(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """Dense softmax attention on head-flattened ``(BH, L, E)`` tensors
+    (``v`` ``(BH, L_k, E_v)``), differentiable in q, k and v."""
+    return _DenseAttention.apply(bool(causal), float(scale), q, k, v)

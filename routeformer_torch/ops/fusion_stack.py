@@ -343,6 +343,25 @@ def _pointers(tensors):
         *[None if t is None else t.data_ptr() for t in tensors])
 
 
+SMEM_BYTES = 232448  # shared memory one H100 block can have
+
+
+def attn_smem_bytes(l: int, dh: int) -> int:
+    """Shared memory of K3a/K3b's attention block (``perceive_stack.cu``
+    ``attn_smem_bytes`` with the backward's extra tile, which the kernels
+    check for both directions): q, k, v, g and the L x L f32 score tile."""
+    return 4 * (4 * l * (dh + 1) + l * (l + 1) + 2 * l)
+
+
+def max_tokens(dh: int) -> int:
+    """The largest L whose attention block fits shared memory (208 at the
+    d128 / 8-head width)."""
+    l = 1
+    while attn_smem_bytes(l + 1, dh) <= SMEM_BYTES:
+        l += 1
+    return l
+
+
 def _check_cuda(x, wl, cnt_l, masks_l, heads):
     r, l, d = x.shape
     f = wl[10].shape[-1]
@@ -350,6 +369,12 @@ def _check_cuda(x, wl, cnt_l, masks_l, heads):
         raise ValueError("the Perceive kernels take contiguous f32 (R, L, D) rows")
     if d % heads or d // heads > 64:
         raise ValueError(f"unsupported width D={d} with {heads} heads")
+    limit = max_tokens(d // heads)
+    if l > limit:
+        raise ValueError(
+            f"the Perceive kernels keep an L x L score tile in shared memory and take "
+            f"at most {limit} tokens at D={d} with {heads} heads, got L={l}: use the "
+            f"plain layers (ROUTEFORMER_FUSION_KERNEL=0)")
     for w in wl:
         if w.dtype != torch.float32 or not w.is_contiguous() or w.device != x.device:
             raise ValueError("layer weights must be contiguous f32 on x's device")

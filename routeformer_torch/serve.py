@@ -1,8 +1,9 @@
 """Serving bundles (counterpart of ``routeformer_tpu/serve.py``).
 
 A bundle is one ``torch.save`` file holding the model's config (as nested
-plain dicts) and its ``state_dict``. ``load_serving_bundle`` rebuilds the
-model in eval mode on a device (CUDA by default) and wraps it in a
+plain dicts), the name of its video backbone class and its ``state_dict``.
+``load_serving_bundle`` rebuilds the model, backbone class included, in
+eval mode on a device (CUDA by default) and wraps it in a
 ``ServingModel`` that answers ``(gps, dense_features)`` for a batch of
 numpy arrays or tensors. StableHLO export has no counterpart here.
 """
@@ -16,7 +17,7 @@ import torch
 
 from routeformer_torch.models import Routeformer, RouteformerConfig
 from routeformer_torch.models.gps_backbone import GPSBackboneConfig
-from routeformer_torch.models.video_backbone import TimmBackboneConfig
+from routeformer_torch.models.video_backbone import VIDEO_BACKBONES, TimmBackboneConfig
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 BUNDLE_FILE = "model.pt"
@@ -37,11 +38,14 @@ def config_from_dict(d: dict) -> RouteformerConfig:
 
 
 def save_serving_bundle(path, model: Routeformer) -> None:
-    """Write ``path/model.pt``: the config and the ``state_dict``."""
+    """Write ``path/model.pt``: the config, the video backbone's class name
+    and the ``state_dict``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"config": model.configs.to_dict(), "state_dict": state},
+    backbone = getattr(model, "video_backbone", None)
+    torch.save({"config": model.configs.to_dict(), "state_dict": state,
+                "video_backbone": None if backbone is None else type(backbone).__name__},
                path / BUNDLE_FILE)
 
 
@@ -67,6 +71,7 @@ def load_serving_bundle(path, device: DeviceLike = None) -> ServingModel:
     dev = resolve_device(device)
     payload = torch.load(Path(path) / BUNDLE_FILE, map_location="cpu",
                          weights_only=True)
-    model = Routeformer(config_from_dict(payload["config"]))
+    backbone = VIDEO_BACKBONES[payload.get("video_backbone") or "SwinV2Backbone"]
+    model = Routeformer(config_from_dict(payload["config"]), video_backbone=backbone)
     model.load_state_dict(payload["state_dict"])
     return ServingModel(model.to(dev), dev)

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3a and K3b against their plain versions on a
-card.
+"""The CUDA kernels K1, K2, K3a, K3b and K4 against their plain versions on
+a card.
 
 Marked ``cuda``: without a card every test skips. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -186,3 +186,77 @@ def test_perceive_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="width"):
         fusion_stack.layer_forward_cuda(x.to(cuda_device), wl, c, None,
                                         **dict(kw, heads=7))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,l_q,l_k,e,e_v", [(4, 64, 64, 64, 64), (3, 130, 130, 104, 104),
+                                              (2, 70, 200, 32, 48), (5, 600, 600, 64, 64)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dense_kernel_matches_plain(cuda_device, bh, l_q, l_k, e, e_v, causal, dtype):
+    """K4 at a small, a ragged (E 104, L 130), an L_q != L_k and a longer
+    shape: within 1e-2 of the output's max in bf16 (a bf16 rounding of the
+    output may land on the other side), 1e-5 in f32 (sums in another
+    order); one launch per call."""
+    g = torch.Generator().manual_seed(l_q * e)
+    q = _randn(g, bh, l_q, e).to(cuda_device, dtype)
+    k = _randn(g, bh, l_k, e).to(cuda_device, dtype)
+    v = _randn(g, bh, l_k, e_v).to(cuda_device, dtype)
+    before = flash_attention.dense_launches
+    got = flash_attention.flash_attention_bhle(q, k, v, causal, e ** -0.5)
+    assert flash_attention.dense_launches == before + 1
+    want = flash_attention.attention_bhle_plain(q, k, v, causal, e ** -0.5)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (bh, l_q, e_v)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+
+
+@pytest.mark.cuda
+def test_dense_kernel_gradient(cuda_device):
+    """K4's Function: the kernel forward carries a gradient, equal to
+    autograd of the plain version (its backward recomputes that)."""
+    g = torch.Generator().manual_seed(3)
+    leaves = [_randn(g, 6, 300, 64).to(cuda_device, torch.bfloat16) for _ in range(3)]
+    weight = _randn(g, 6, 300, 64).to(cuda_device)
+
+    def grads(fn):
+        xs = [t.detach().requires_grad_(True) for t in leaves]
+        return torch.autograd.grad((fn(*xs).float() * weight).sum(), xs)
+
+    before = flash_attention.dense_launches
+    got = grads(lambda q, k, v: flash_attention.flash_attention_bhle(q, k, v, True, 0.125))
+    assert flash_attention.dense_launches == before + 1
+    want = grads(lambda q, k, v: flash_attention.attention_bhle_plain(
+        q.float(), k.float(), v.float(), True, 0.125).to(q.dtype))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_dense_kernel_rejects_what_it_does_not_take(cuda_device):
+    q = torch.zeros(2, 16, 136, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 128"):
+        flash_attention.flash_attention_bhle(q, q, q, False, 1.0)
+    x = torch.zeros(2, 16, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="all bf16 or all f32"):
+        flash_attention.flash_attention_bhle(x, x.float(), x, False, 1.0)
+    with pytest.raises(ValueError, match="lie on"):
+        flash_attention.flash_attention_bhle(x, x.cpu(), x, False, 1.0)
+
+
+@pytest.mark.cuda
+def test_perceive_stack_refuses_too_many_tokens(cuda_device):
+    """K3a/K3b keep an L x L score tile in shared memory: at the DinoV2 frame
+    encoder's 1370 tokens the stack raises, naming the largest L, before
+    any launch."""
+    gen = torch.Generator().manual_seed(2)
+    _, w, _, _ = _stack_inputs(gen, 1, 40)
+    x = torch.zeros(2, 1370, 128)
+    cnt = fusion_stack.sample_count_matrices(2, 1370, 1370, 40)
+    before = fusion_stack.launches_fwd
+    with pytest.raises(ValueError, match="at most 208 tokens"):
+        fusion_stack.fused_perceive_stack(
+            x.to(cuda_device), fusion_stack.StackWeights(*[t.to(cuda_device) for t in w]),
+            cnt.to(cuda_device), None, heads=8)
+    assert fusion_stack.launches_fwd == before

@@ -207,6 +207,17 @@ def test_wrapper_rejects_unknown_modes():
                                 heads=HEADS, activation="swish")
 
 
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+def test_max_tokens_is_the_largest_l_that_fits(dh):
+    """The token limit the kernels' wrappers raise at is the largest L whose
+    attention block fits a block's shared memory (208 at the d128 / 8-head
+    width, below the DinoV2 frame encoder's 1370)."""
+    want = max(l for l in range(1, 400) if fs.attn_smem_bytes(l, dh) <= fs.SMEM_BYTES)
+    assert fs.max_tokens(dh) == want
+    if dh == 16:
+        assert want == 208
+
+
 def _encoder_pair(rng, compute_dtype):
     kw = dict(factor=1000, d_model=64, n_heads=HEADS, layers=2, d_ff=96, dropout=0.0,
               compute_dtype=compute_dtype)

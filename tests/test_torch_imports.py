@@ -63,6 +63,7 @@ def test_default_device_is_cuda():
         return
     for entry in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
                   lambda: routeformer_torch.build_flagship(),
+                  lambda: routeformer_torch.build_dinov2(),
                   lambda: routeformer_torch.build_flagship_training(),
                   lambda: routeformer_torch.synthetic_batch(0, 1),
                   lambda: routeformer_torch.load_serving_bundle("missing")):

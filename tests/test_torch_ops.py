@@ -20,7 +20,7 @@ from routeformer_tpu.utils.filter import median_downsampler as jax_median
 from routeformer_tpu.utils.vector import estimate_angle_and_norm as jax_angle_norm
 from routeformer_tpu.utils.vector import rotate as jax_rotate
 from routeformer_torch.io.synthetic import synthetic_batch_numpy
-from routeformer_torch.models.video_backbone.swin import resize_bilinear
+from routeformer_torch.ops.image import resize_bilinear
 from routeformer_torch.ops.attention import (
     dot_product_attention,
     prob_sparse_attention,
