@@ -7,8 +7,11 @@ Phases (any failure exits non-zero):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the kernels from ``routeformer_torch/csrc`` (nvcc, sm_90a).
-3. K2 (window attention) against its plain version on the card at the
-   flagship's stage-0 and stage-3 shapes and a ragged n = 144.
+3. K2 (window attention) against its plain version on the card: bf16
+   (B, H, n, d) through its wrapper at the flagship's stage-0 and stage-3
+   shapes, a ragged n = 144, d = 64 and n = 49 with d = 16; and as K1
+   feeds it, f32 strided views of one (B n, 3C) qkv buffer at stage 0's
+   shifted block (16 window kinds) and at stage 2.
 4. K1 (fused SwinV2 block) against its plain version at the four stage
    geometries, shifted where the model shifts.
 5. Flagship serving: build the full-width flagship from a seed on the card,
@@ -21,7 +24,10 @@ Phases (any failure exits non-zero):
    forward) against the plain-stack request.
 5b. K4 (dense flash attention) against its plain version at the DinoV2
    shape (288, 1369, 64) bf16, a causal ragged case, E 104 with E_v 64, and
-   f32 inputs; its gradient through its autograd Function against autograd
+   f32 inputs; on the ViT's strided (B, L, H, E) views of one qkv buffer
+   through ``dot_product_attention`` (one launch, no copy of q, k or v: the
+   call allocates its output only), at the DinoV2 shape and a causal
+   ragged one; its gradient through its autograd Function against autograd
    of the plain version.
 5c. DinoV2 serving: the flagship with the DinoV2 ViT-B/14 @518 backbone
    (``build_dinov2``), through a bundle, three batch-1 and one batch-4
@@ -51,7 +57,12 @@ Phases (any failure exits non-zero):
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
-   step, K4 per batch-1 DinoV2 forward; bound and library time.
+   step, K4 per batch-1 DinoV2 forward; bound and library time. K2's
+   ``ms`` is the path's variant (f32 strided views with each block's window
+   kinds) and ``bf16_ms`` the bf16 (B, H, n, d) wrapper's, both device time
+   (launches replayed from a CUDA graph: at stages 2-3 the wrapper's host
+   time exceeds the kernel's); ``bf16_eager_ms`` times back-to-back eager
+   calls, the host's launch time included.
 9. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
@@ -82,6 +93,15 @@ STAGES = [
     ("stage3", 24, 64, 1024, 32, 2, None),
 ]
 K2_TOL = 1e-2  # max |kernel - plain| / max(1, max |plain|), bf16 output
+# K2 through its wrapper, bf16 (windows, heads, tokens, head width, window
+# kinds): the flagship's stage-0 and stage-3 shapes, a ragged n = 144,
+# d = 64 and n = 49 with d = 16.
+K2_CASES = [(384, 4, 256, 32, 16), (24, 32, 64, 32, 1), (384, 4, 144, 32, 16),
+            (16, 4, 256, 64, 4), (32, 4, 49, 16, 2)]
+# K2 as K1 feeds it (windows, tokens, channels, heads, window kinds): f32
+# strided views of the qkv GEMM's output at stage 0's shifted block and at
+# stage 2.
+K2_PATH_CASES = [(384, 256, 128, 4, 16), (24, 256, 512, 16, 1)]
 K1_TOL = 1e-2  # max |kernel - plain| / max |plain|, bf16 output
 FEATURE_TOL = 5e-2  # backbone feature maps, card vs CPU, relative to max
 PRED_TOL = 5e-2  # displacement and dense features, card vs CPU, relative to max
@@ -111,6 +131,9 @@ K4_TOL = 1e-2  # max|kernel - plain| / max|plain|, as K1/K2
 K4_CASES = [(288, 1369, 64, 64, False, "bfloat16"), (6, 700, 64, 64, True, "bfloat16"),
             (8, 600, 104, 64, False, "bfloat16"), (12, 577, 64, 64, True, "float32"),
             (12, 577, 64, 64, False, "float32")]
+# (B, L, H, E, causal): K4 on the ViT's views of its qkv rows at the DinoV2
+# shape and a causal ragged one.
+K4_VIEW_CASES = [(24, 1369, 12, 64, False), (3, 700, 4, 64, True)]
 TRAIN_BATCH, TRAIN_EPOCH = 16, 12  # epoch >= 10: lr > 0, dense loss on
 # Launches per flagship train step: 24 SwinV2 blocks (K1, each with one K2)
 # in the input and in the target backbone pass; 3 Perceive stacks of 8
@@ -179,20 +202,69 @@ def k2_inputs(b, h, n, d, nb, seed):
     return q, k, v, bias.contiguous(), scale.contiguous()
 
 
+def k2_path_inputs(b, n, c, h, nb, seed):
+    """K2's inputs as K1 hands them over: one f32 (B n, 3C) qkv buffer, the
+    bias per window kind and the head scales."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b * n, 3 * c, device="cuda", generator=g)
+    bias = 16 * torch.sigmoid(torch.randn(nb, h, n, n, device="cuda", generator=g))
+    scale = torch.exp(torch.clamp(
+        torch.randn(h, device="cuda", generator=g) * 0.5 + 2.3, max=math.log(100.0)))
+    return qkv, bias.contiguous(), scale.contiguous()
+
+
+def k2_path(qkv, bias, scale, b, n, c, h, out):
+    """K2 launched as K1 launches it: q, k, v are strided views of the qkv
+    rows ((window, head, token) strides (3 n C, d, 3C)); ``out`` (B n, C)."""
+    from routeformer_torch.ops import flash_attention as fa
+
+    d = c // h
+    fa.launch_window_attention(qkv, qkv[:, c:], qkv[:, 2 * c:], (n * 3 * c, d, 3 * c), bias,
+                               scale, out, (n * c, d, c), b, h, n, d, True)
+    return out
+
+
+def k2_path_plain(qkv, bias, scale, b, n, c, h):
+    """The plain version on the same views. The kernel rounds the f32 q and
+    k to bf16 after normalising them and v as it reads it, as K1's plain
+    version does: a bf16 v selects those rounding points."""
+    from routeformer_torch.ops import flash_attention as fa
+
+    q, k, v = (qkv[:, i * c:(i + 1) * c].reshape(b, n, h, c // h).transpose(1, 2)
+               for i in range(3))
+    out = fa.flash_window_attention_plain(q, k, v.bfloat16(), bias, scale, cosine=True)
+    return out.transpose(1, 2).reshape(b * n, c)
+
+
 def check_k2(results: dict) -> float:
+    import torch
+
     from routeformer_torch.ops import flash_attention as fa
 
     worst = 0.0
-    for b, h, n, d, nb in [(384, 4, 256, 32, 16), (24, 32, 64, 32, 1),
-                           (384, 4, 144, 32, 16)]:
-        q, k, v, bias, scale = k2_inputs(b, h, n, d, nb, seed=n)
-        got = fa.flash_window_attention(q, k, v, bias, scale, cosine=True)
-        want = fa.flash_window_attention_plain(q, k, v, bias, scale, cosine=True)
+
+    def hold(label, got, want):
+        nonlocal worst
         err = rel_err(got, want, floor=1.0)
         worst = max(worst, (got.float() - want.float()).abs().max().item())
-        log(f"K2 {(b, h, n, d)} nb={nb}: max|kernel-plain|/max(1,|plain|) = {err:.3e}")
+        log(f"K2 {label}: max|kernel-plain|/max(1,|plain|) = {err:.3e}")
         if not err <= K2_TOL:
             raise AssertionError(f"K2 disagrees with its plain version: {err} > {K2_TOL}")
+
+    for b, h, n, d, nb in K2_CASES:
+        q, k, v, bias, scale = k2_inputs(b, h, n, d, nb, seed=n + d)
+        got = fa.flash_window_attention(q, k, v, bias, scale, cosine=True)
+        want = fa.flash_window_attention_plain(q, k, v, bias, scale, cosine=True)
+        hold(f"bf16 {(b, h, n, d)} nb={nb}", got, want)
+    for b, n, c, h, nb in K2_PATH_CASES:
+        qkv, bias, scale = k2_path_inputs(b, n, c, h, nb, seed=c)
+        out = torch.empty(b * n, c, dtype=torch.bfloat16, device="cuda")
+        got = k2_path(qkv, bias, scale, b, n, c, h, out)
+        hold(f"f32 strided {(b, h, n, c // h)} nb={nb}", got,
+             k2_path_plain(qkv, bias, scale, b, n, c, h))
+        del qkv, bias, out, got
     results["k2_max_abs_err"] = worst
     return worst
 
@@ -397,7 +469,6 @@ def profile_request(serving, batch, request_ms: float) -> dict:
     ``request_ms`` measured with CUDA events (the profiler's own host
     overhead is left out of both)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     reps = 2
@@ -406,34 +477,58 @@ def profile_request(serving, batch, request_ms: float) -> dict:
         for _ in range(reps):
             serving(batch)
         torch.cuda.synchronize()
-    groups = {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0) or 0
-        if e.device_type != DeviceType.CUDA or t <= 0:
-            continue  # device-side events only (CPU ops would count twice)
-        name = e.key
-        for tag, label in (("gemm_bias_act", "K1 gemm_bias_act"),
-                           ("residual_layernorm", "K1 residual_layernorm"),
-                           ("window_attention_kernel", "K2 window_attention"),
-                           ("dense_attention", "K4 dense_attention")):
-            if tag in name:
-                name = label
-        groups[name] = groups.get(name, 0.0) + t / reps / 1e3
+    groups, count = device_groups(prof, reps)
     busy = sum(groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:10]
     prof_line = {
         "device_busy_ms_per_request": busy,
         "request_ms": request_ms,
         "idle_share": 1 - busy / request_ms if busy else None,
-        "kernels_per_request": sum(
-            e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-        ) / reps,
-        "kernel_share_of_busy": {k.split()[0]: v / busy for k, v in groups.items()
-                                 if k.startswith("K") and busy},
+        "kernels_per_request": count,
+        **kernel_shares(groups),
         "top_device_ms_per_request": {k[:80]: v for k, v in top},
     }
     log("profile: " + json.dumps(prof_line))
     return prof_line
+
+
+# Device kernels of the port by name: (tag in the kernel's name, label).
+KERNEL_TAGS = (("gemm_bias_act", "K1 gemm_bias_act"),
+               ("residual_layernorm", "K1 residual_layernorm"),
+               ("window_attention_kernel", "K2 window_attention"),
+               ("dense_attention", "K4 dense_attention"))
+
+
+def device_groups(prof, reps: int):
+    """Device time (ms per rep) by kernel name from a torch.profiler run,
+    the port's kernels under their labels (KERNEL_TAGS); and the device
+    ops per rep. Annotations span ops counted already and are left out."""
+    from torch.autograd import DeviceType
+
+    groups, count = {}, 0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if (e.device_type != DeviceType.CUDA or t <= 0
+                or getattr(e, "is_user_annotation", False)):
+            continue  # device-side events only (CPU ops would count twice)
+        name = next((label for tag, label in KERNEL_TAGS if tag in e.key), e.key)
+        groups[name] = groups.get(name, 0.0) + t / reps / 1e3
+        count += e.count
+    return groups, count / reps
+
+
+def kernel_shares(groups: dict) -> dict:
+    """Each port kernel's share of device busy time, and the device time of
+    PyTorch's same-type copies (``direct_copy_kernel``: a strided tensor
+    made contiguous; type casts are other kernels)."""
+    busy = sum(groups.values())
+    shares = {}
+    for name, t in groups.items():
+        if name.startswith("K"):
+            key = name.split()[0]
+            shares[key] = shares.get(key, 0.0) + t / busy
+    return {"kernel_share_of_busy": shares, "layout_copy_ms": sum(
+        t for name, t in groups.items() if "direct_copy_kernel" in name)}
 
 
 # --------------------------------------------------------------- phase 5b #
@@ -471,6 +566,7 @@ def check_k4(results: dict) -> None:
         if not err <= K4_TOL:
             raise AssertionError(f"K4 disagrees with its plain version: {err} > {K4_TOL}")
         del q, k, v, got, want
+    worst = max(worst, check_k4_views())
     results["k4_max_abs_err"] = worst
 
     q, k, v = k4_inputs(24, 600, 64, 64, "bfloat16", seed=5)
@@ -489,6 +585,48 @@ def check_k4(results: dict) -> None:
         f"max|diff|/global max = {err / scale:.3e}")
     if not (scale > 0 and err <= K12_GRAD_TOL * scale):
         raise AssertionError(f"K4 gradient disagrees: {err / scale} > {K12_GRAD_TOL}")
+
+
+def k4_views(b, l, h, e, seed):
+    """q, k, v as the ViT hands them to ``dot_product_attention``: strided
+    (B, L, H, E) views of one bf16 (B, L, 3, H, E) qkv buffer."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, l, 3, h, e, device="cuda", generator=g).bfloat16()
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def check_k4_views() -> float:
+    """K4 on the ViT's views through ``dot_product_attention(impl="flash")``
+    (K4_VIEW_CASES): one launch, one allocation (the output: no copy of q,
+    k or v), and the plain version's result. Returns the worst max|diff|."""
+    import torch
+
+    from routeformer_torch.ops import attention
+    from routeformer_torch.ops import flash_attention as fa
+
+    worst = 0.0
+    for b, l, h, e, causal in K4_VIEW_CASES:
+        q, k, v = k4_views(b, l, h, e, seed=l)
+        torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+        before = fa.dense_launches
+        got = attention.dot_product_attention(q, k, v, causal=causal, impl="flash")
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - allocs
+        assert fa.dense_launches == before + 1, "K4 did not launch"
+        assert allocs == 1, f"K4 on views made {allocs} allocations, expected the output's only"
+        want = fa.attention_bhle_plain(*(t.transpose(1, 2) for t in (q, k, v)), causal,
+                                       e ** -0.5).transpose(1, 2)
+        assert got.shape == want.shape == (b, l, h, e)
+        err = rel_err(got, want)
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        log(f"K4 views {(b, l, h, e)} causal={causal}: one launch, one allocation; "
+            f"max|kernel-plain|/max|plain| = {err:.3e}")
+        if not err <= K4_TOL:
+            raise AssertionError(f"K4 on views disagrees with its plain version: {err} > {K4_TOL}")
+        del q, k, v, got, want
+    return worst
 
 
 # --------------------------------------------------------------- phase 5c #
@@ -890,21 +1028,13 @@ def profile_step(run, step_ms: float, results: dict) -> None:
     """Device time by kernel over one train step (torch.profiler) and the
     device's idle share of the step time measured with CUDA events."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    groups, count = {}, 0
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0) or 0
-        if (e.device_type != DeviceType.CUDA or t <= 0
-                or getattr(e, "is_user_annotation", False)):
-            continue  # device ops only (an annotation spans ops counted already)
-        groups[e.key] = groups.get(e.key, 0.0) + t / 1e3
-        count += e.count
+    groups, count = device_groups(prof, 1)
     busy = sum(groups.values())
     top = sorted(groups.items(), key=lambda kv: -kv[1])[:12]
     line = {
@@ -912,6 +1042,7 @@ def profile_step(run, step_ms: float, results: dict) -> None:
         "step_ms": step_ms,
         "idle_share": 1 - busy / step_ms if busy else None,
         "kernels_per_step": count,
+        **kernel_shares(groups),
         "top_device_ms_per_step": {k[:80]: v for k, v in top},
     }
     results["train_profile"] = line
@@ -1156,18 +1287,107 @@ def k3_times() -> dict:
     return acc
 
 
-def kernel_line(launches: dict, results: dict) -> dict:
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed back to back, so that the host's time to launch
+    them is not in it (``cuda_ms`` times eager calls, host included)."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    t = cuda_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return t
+
+
+def k2_times() -> dict:
+    """K2 per batch-1 flagship forward (STAGES). ``ms``: the path's variant,
+    f32 strided views of a qkv buffer as K1 launches it, with 1 window kind
+    in an unshifted block and nw in a shifted one, as device time
+    (``graph_ms``); its plain version on the same views. ``bf16_ms``: the
+    bf16 (B, H, n, d) wrapper at 1 window kind, device time, and
+    ``bf16_eager_ms`` the same as back-to-back eager calls. SDPA on
+    the bf16 case (q normalised and scaled, k normalised beforehand, the
+    bias as a bf16 mask), device time and eager. Bounds: 4 B H n^2 d bf16
+    operations against q, k, v read and the bf16 output written once, and
+    the bias once per window kind."""
     import torch
     import torch.nn.functional as F
 
     from routeformer_torch.ops import flash_attention as fa
+
+    keys = ("ms", "plain_ms", "bound_ms", "ops_s", "bytes_s", "bf16_ms", "bf16_eager_ms",
+            "bf16_bound_ms", "library_ms", "library_eager_ms")
+    acc = dict.fromkeys(keys, 0.0)
+    for name, b, n, c, h, count, nw in STAGES:
+        d = c // h
+        flops = 4 * b * h * n * n * d
+        for kinds in ([1, nw] if nw else [1]):
+            reps = count // 2 if nw else count
+            qkv, bias, scale = k2_path_inputs(b, n, c, h, kinds, seed=3)
+            out = torch.empty(b * n, c, dtype=torch.bfloat16, device="cuda")
+            t = graph_ms(lambda: k2_path(qkv, bias, scale, b, n, c, h, out))
+            tp = cuda_ms(lambda: k2_path_plain(qkv, bias, scale, b, n, c, h), iters=3, warmup=1)
+            nbytes = b * n * c * (3 * 4 + 2) + kinds * h * n * n * 4 + h * 4
+            bt, _ = bound_ms(flops, nbytes)
+            for key, val in (("ms", t), ("plain_ms", tp), ("bound_ms", bt),
+                             ("ops_s", flops / PEAK_BF16), ("bytes_s", nbytes / PEAK_BYTES)):
+                acc[key] += reps * val
+            log(f"K2 {name} f32 strided, {kinds} window kind(s): {t:.4f} ms (plain {tp:.3f}, "
+                f"bound {bt:.4f}) x {reps}")
+            if name == "stage2":  # every window its own bias: read from HBM, not L2
+                bias = bias.expand(b, h, n, n).contiguous()
+                log(f"K2 {name} f32 strided, a bias per window ({b} kinds, "
+                    f"{bias.numel() * 4 / 1e6:.1f} MB): "
+                    f"{graph_ms(lambda: k2_path(qkv, bias, scale, b, n, c, h, out)):.4f} ms")
+            del qkv, bias, out
+
+        q, k, v, wb, scale = k2_inputs(b, h, n, d, 1, seed=2)
+        qn = (fa._normalise(q.float()) * scale.view(1, h, 1, 1)).bfloat16()
+        kn = fa._normalise(k.float()).bfloat16()
+        mask = wb.bfloat16()
+
+        def kernel():
+            return fa.flash_window_attention(q, k, v, wb, scale, cosine=True)
+
+        def lib():
+            return F.scaled_dot_product_attention(qn, kn, v, attn_mask=mask, scale=1.0)
+
+        t, te, tl, tle = graph_ms(kernel), cuda_ms(kernel), graph_ms(lib), cuda_ms(lib)
+        bt, _ = bound_ms(flops, 4 * b * h * n * d * 2 + h * n * n * 4 + h * 4)
+        for key, val in (("bf16_ms", t), ("bf16_eager_ms", te), ("bf16_bound_ms", bt),
+                         ("library_ms", tl), ("library_eager_ms", tle)):
+            acc[key] += count * val
+        log(f"K2 {name} bf16: {t:.4f} ms (eager {te:.4f}; sdpa {tl:.4f}, eager {tle:.4f}; "
+            f"bound {bt:.4f}) x {count}")
+        del q, k, v, wb, scale, qn, kn, mask
+        torch.cuda.empty_cache()
+    log("K2 per batch-1 forward: " + json.dumps(acc))
+    return acc
+
+
+# Keys of a kernel's timing kept in its entry beside the contract's: K2's
+# bf16 wrapper timings (k2_times), K4's time on the ViT's views and with
+# the copies of a head-flattened route around it (k4_times).
+EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms",
+              "copy_route_ms")
+
+
+def kernel_line(launches: dict, results: dict) -> dict:
+    import torch
+
     from routeformer_torch.ops import swin_block_fusion as sbf
 
     k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-          "ops_s": 0.0, "bytes_s": 0.0}
     for name, b, n, c, h, count, nw in STAGES:
-        d = c // h
         # K1 at this geometry (the unshifted bias; a shifted block differs
         # only in its bias's window kinds).
         x, params, bias = k1_inputs(b, n, c, h, None, seed=1)
@@ -1183,31 +1403,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
         k1["ops_s"] += count * flops / PEAK_BF16
         k1["bytes_s"] += count * nbytes / PEAK_BYTES
         log(f"K1 {name}: {t:.3f} ms (plain {tp:.3f}, bound {bt:.4f}) x {count}")
-
-        # K2 at this geometry, bf16 (B, H, n, d) through its wrapper.
-        q, k, v, wb, scale = k2_inputs(b, h, n, d, 1, seed=2)
-        t = cuda_ms(lambda: fa.flash_window_attention(q, k, v, wb, scale, cosine=True))
-        tp = cuda_ms(lambda: fa.flash_window_attention_plain(q, k, v, wb, scale, cosine=True),
-                     iters=3, warmup=1)
-        qn = (fa._normalise(q.float()) * scale.view(1, h, 1, 1)).bfloat16()
-        kn = fa._normalise(k.float()).bfloat16()
-        mask = wb.bfloat16()
-
-        def lib():
-            return F.scaled_dot_product_attention(qn, kn, v, attn_mask=mask, scale=1.0)
-
-        tl = cuda_ms(lib)
-        flops = 4 * b * h * n * n * d
-        nbytes = 4 * b * h * n * d * 2 + h * n * n * 4 + h * 4
-        bt, _ = bound_ms(flops, nbytes)
-        k2["ms"] += count * t
-        k2["plain_ms"] += count * tp
-        k2["library_ms"] += count * tl
-        k2["bound_ms"] += count * bt
-        k2["ops_s"] += count * flops / PEAK_BF16
-        k2["bytes_s"] += count * nbytes / PEAK_BYTES
-        log(f"K2 {name}: {t:.3f} ms (plain {tp:.3f}, sdpa {tl:.3f}, bound {bt:.4f}) x {count}")
-        del x, params, bias, q, k, v, wb, scale, qn, kn, mask
+        del x, params, bias
         torch.cuda.empty_cache()
 
     def entry(name, source, replaces, acc, err, library_ms, ms_per,
@@ -1221,8 +1417,10 @@ def kernel_line(launches: dict, results: dict) -> dict:
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
             "library_ms": library_ms,
+            **{key: acc[key] for key in EXTRA_KEYS if key in acc},
         }
 
+    k2 = k2_times()
     k3 = k3_times()
     k4 = k4_times()
     per_forward, per_step = "batch-1 serving forward", f"batch-{TRAIN_BATCH} train step"
@@ -1250,10 +1448,14 @@ def kernel_line(launches: dict, results: dict) -> dict:
 def k4_times() -> dict:
     """K4 per batch-1 DinoV2 forward: one launch at K4_SHAPE (bf16, scale
     1/8, non-causal) times K4_PER_FORWARD, beside the plain version and
-    SDPA on the same tensors. Bound: 4 BH L^2 E operations with bf16
-    operands against q, k, v read and the output written once."""
+    SDPA on the same tensors; ``views_ms``: the same work on the ViT's
+    (B, L, H, E) views of a qkv buffer through ``dot_product_attention``,
+    the path's variant; ``copy_route_ms``: K4 with the copies a
+    head-flattened route makes around it. Bound: 4 BH L^2 E operations
+    with bf16 operands against q, k, v read and the output written once."""
     import torch.nn.functional as F
 
+    from routeformer_torch.ops import attention
     from routeformer_torch.ops import flash_attention as fa
 
     bh, l, e = K4_SHAPE
@@ -1264,13 +1466,27 @@ def k4_times() -> dict:
     heads = 12
     q4, k4, v4 = (x.view(bh // heads, heads, l, e) for x in (q, k, v))
     tl = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+    del q, k, v, q4, k4, v4
+    b = bh // heads
+    qv, kv, vv = k4_views(b, l, heads, e, seed=12)
+
+    def views():  # the ViT's call: K4 on the views, the output reshaped in place
+        return attention.dot_product_attention(qv, kv, vv, impl="flash").reshape(b, l, -1)
+
+    def copy_route():  # head-flattened: (BH, L, E) copies in, K4, a (B, L, H E) copy out
+        out = fa.flash_attention_bhle(*(t.transpose(1, 2).reshape(bh, l, e)
+                                        for t in (qv, kv, vv)), False, scale)
+        return out.reshape(b, heads, l, e).transpose(1, 2).reshape(b, l, -1)
+
+    tv, tr = cuda_ms(views), cuda_ms(copy_route)
     flops, nbytes = 4 * bh * l * l * e, 4 * bh * l * e * 2
     bt, by = bound_ms(flops, nbytes)
     n = K4_PER_FORWARD
-    log(f"K4 {K4_SHAPE}: {t:.3f} ms (plain {tp:.3f}, sdpa {tl:.3f}, bound {bt:.4f} by {by}) "
-        f"x {n}")
+    log(f"K4 {K4_SHAPE}: {t:.3f} ms (on the ViT's views {tv:.3f}, with copies "
+        f"{tr:.3f}; plain {tp:.3f}, sdpa {tl:.3f}, bound {bt:.4f} by {by}) x {n}")
     return {"ms": n * t, "plain_ms": n * tp, "library_ms": n * tl, "bound_ms": n * bt,
-            "ops_s": n * flops / PEAK_BF16, "bytes_s": n * nbytes / PEAK_BYTES}
+            "ops_s": n * flops / PEAK_BF16, "bytes_s": n * nbytes / PEAK_BYTES,
+            "views_ms": n * tv, "copy_route_ms": n * tr}
 
 
 def main() -> int:

@@ -3,8 +3,11 @@
 
 - ``dot_product_attention``: dense softmax attention. With the JAX
   package's rule (``_use_flash``: ``L_k >= 512``, no dropout, no weights)
-  it takes the fused route, K4 (``ops/flash_attention.py``
-  ``flash_attention_bhle``); otherwise the plain einsum path. Only the
+  it takes the fused route, K4 (``ops/flash_attention.py``); otherwise the
+  plain einsum path. On the card K4 reads the strided ``(B, L, H, E)``
+  views (the ViT's views of its qkv rows) in place and writes
+  ``(B, L, H, E_v)``; on the CPU its plain version runs on head-flattened
+  rows through ``flash_attention_bhle``, as the JAX route does. Only the
   DinoV2 ViT at 518 px (1369 tokens) reaches the fused route.
 - ``prob_sparse_attention``: Informer's ProbSparse attention in the JAX
   package's default "masked" formulation: dense scores and softmax for all
@@ -24,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from routeformer_torch.ops.flash_attention import flash_attention_bhle
+from routeformer_torch.ops.flash_attention import dense_attention_blhe, flash_attention_bhle
 from routeformer_torch.utils.prng import prob_sparse_index_sample
 
 _NEG_INF = -1e30
@@ -75,6 +78,10 @@ def dot_product_attention(
         impl == "auto"
         and _use_flash(q, k, dropout_rate, deterministic=False, need_weights=False)
     ):
+        if q.device.type != "cpu":
+            # K4 reads the (B, L, H, E) views in place and writes (B, L, H, E_v).
+            return dense_attention_blhe(q, k, v, causal, scale)
+        # The plain version on head-flattened rows, as the JAX route calls it.
         qf = q.transpose(1, 2).reshape(b * h, l_q, e)
         kf = k.transpose(1, 2).reshape(b * h, l_k, e)
         vf = v.transpose(1, 2).reshape(b * h, l_k, e_v)

@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, all sources in parallel, at first use, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``). The
-library name carries a hash of the source, so an edited source is rebuilt.
+library name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt.
 The libraries are loaded with ctypes; pointers and the stream travel as
 ``c_void_p``. Nothing here runs when a module is imported.
 """
@@ -40,7 +41,8 @@ SIGNATURES = {
                                 _LL, _LL, _LL, _I, _I, _I, _I, _I, _P],
     },
     "dense_attention": {
-        "rf_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+        "rf_dense_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, *[_LL] * 12,
+                               _F, _I, _P],
     },
     "swin_block": {
         "rf_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -61,10 +63,14 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of ``<name>.cu``, named by a hash of the source, every
+    shared header (``*.cuh``) and the flags: an edited header rebuilds every
+    library."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build() -> dict:

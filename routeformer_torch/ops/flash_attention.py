@@ -1,16 +1,34 @@
 """The attention kernels of ``routeformer_tpu/ops/flash_attention.py``:
 
-- K2, SwinV2 window attention (``flash_window_attention``), kernel
-  ``csrc/window_attention.cu``; ``launches`` counts its launches.
-- K4, dense softmax attention on head-flattened ``(BH, L, E)`` tensors
-  (``flash_attention_bhle``), kernel ``csrc/dense_attention.cu``;
+- K2, SwinV2 window attention (``flash_window_attention``, kernel
+  ``_flash_window_kernel``), kernel ``csrc/window_attention.cu``;
+  ``launches`` counts its launches.
+- K4, dense softmax attention (``flash_attention_bhle``, kernel
+  ``_flash_kernel``), kernel ``csrc/dense_attention.cu``;
   ``dense_launches`` counts its launches.
 
-Each kernel's header says what bounds it on the H100 and what the design
-does about it. The wrappers run the kernel for CUDA tensors and the plain
-PyTorch version for CPU tensors, and differentiate through autograd over an
-f32 recompute of the plain version, as the JAX custom VJPs do; the plain
-versions (``*_plain``) are callable on any device.
+Both are softmax attention with f32 scores that never leave the chip, and
+both keep S, P and the output accumulator in registers on the tensor cores
+(the shared helpers are ``csrc/attention_frag.cuh``). K4 does 684 FLOP per
+byte at the DinoV2 shape, so operations bound it: q·kᵀ on ``wgmma``, an
+online softmax on the accumulator registers, and p·v as two register-A
+``wgmma`` products (p = p_hi + p_lo in bf16, so p keeps f32 precision as on
+the TPU), K and V streaming through a two-stage shared-memory ring. K2 does
+128 FLOP per byte at n = 256, d = 32, so bytes bound it: ``mma.sync`` with
+``ldmatrix``, K and V of a (window, head) loaded and normalised once per
+CTA with 16-byte loads, each warp holding the scores of all keys of its 16
+rows in registers, so that P is normalised in f32 before its bf16 rounding
+as the TPU does. Each kernel's header gives the arithmetic and where it
+still falls short of its bound.
+
+The wrappers run the kernel for CUDA tensors and the plain PyTorch version
+for CPU tensors, and differentiate through autograd over an f32 recompute
+of the plain version, as the JAX custom VJPs do; the plain versions
+(``*_plain``) are callable on any device. K4 reads (batch, head, token)
+strided views in place (``dense_attention_blhe`` takes the ViT's
+``(B, L, H, E)`` views of its qkv rows and writes ``(B, L, H, E_v)``); it
+copies an operand only when E is not a multiple of 8 (zero-padding it) or a
+bf16 row does not start on a 16-byte boundary.
 """
 
 import ctypes
@@ -22,7 +40,7 @@ from routeformer_torch.ops import cuda_build
 
 launches = 0
 dense_launches = 0
-DENSE_MAX_E = 128  # widest E and E_v K4 takes (after padding to a multiple of 16)
+DENSE_MAX_E = 128  # widest E and E_v K4 takes
 _NEG_INF = -1e30
 
 
@@ -53,8 +71,19 @@ def flash_window_attention_plain(q, k, v, bias, scale=None, cosine=False):
 
 def launch_window_attention(q, k, v, q_strides, bias, scale, out, out_strides,
                             batch, heads, n, d, cosine):
-    """Launch the kernel on raw views; q/k/v share ``q_strides``
-    ``(batch, head, token)`` in elements, unit stride along d."""
+    """Launch the kernel on raw views; q/k/v (bf16 or f32) share
+    ``q_strides`` ``(batch, head, token)`` in elements, unit stride along d,
+    rows on 16-byte boundaries; ``out`` is bf16."""
+    if not all(_rows16(t, q_strides) for t in (q, k, v)) or not _rows16(out, out_strides):
+        raise ValueError("window kernel: q, k, v and out rows must start on 16-byte boundaries")
+    _launch_window(q, k, v, q_strides, bias, scale, out, out_strides, batch, heads, n, d,
+                   cosine)
+
+
+def _launch_window(q, k, v, q_strides, bias, scale, out, out_strides, batch, heads, n, d,
+                   cosine):
+    """``launch_window_attention`` without its alignment check, for callers
+    that made sure of it."""
     global launches
     lib = cuda_build.libraries()["window_attention"]
     err = lib.rf_window_attention(
@@ -66,6 +95,13 @@ def launch_window_attention(q, k, v, q_strides, bias, scale, out, out_strides,
     )
     cuda_build.check(err, "window_attention")
     launches += 1
+
+
+def _rows16(t: torch.Tensor, strides) -> bool:
+    """Every row of ``t`` (element strides ``strides``) starts on a 16-byte
+    boundary."""
+    per16 = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and all(st % per16 == 0 for st in strides)
 
 
 def _check_cuda(q, k, v, bias, scale):
@@ -89,28 +125,35 @@ def _check_cuda(q, k, v, bias, scale):
         raise ValueError("scale must be contiguous f32 (H,)")
 
 
+def _window_forward(cosine, q, k, v, bias, scale):
+    """The kernel for CUDA tensors, the plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return flash_window_attention_plain(q, k, v, bias, scale, cosine)
+    _check_cuda(q, k, v, bias, scale)
+    b, h, n, d = q.shape
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    sb, sh, sn, _ = q.stride()
+    if (k.stride() != q.stride() or v.stride() != q.stride()
+            or not all(_rows16(t, (sb, sh, sn)) for t in (q, k, v))):
+        k, v, q = k.contiguous(), v.contiguous(), q.contiguous()
+        sb, sh, sn, _ = q.stride()
+    # Rows are aligned now: contiguous bf16 rows of d in (16, 32, 64), and a
+    # fresh contiguous output.
+    _launch_window(q, k, v, (sb, sh, sn), bias, scale, out, out.stride()[:3], b, h, n, d,
+                   cosine)
+    return out
+
+
 class _WindowAttention(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
-    autograd over a recompute of the plain version in f32, cast to v's
-    dtype, as the JAX package's custom VJP differentiates
-    ``_reference_window_attention``."""
+    """Forward: ``_window_forward``. Backward: autograd over a recompute of
+    the plain version in f32, cast to v's dtype, as the JAX package's custom
+    VJP differentiates ``_reference_window_attention``."""
 
     @staticmethod
     def forward(ctx, cosine, q, k, v, bias, scale):
         ctx.cosine = cosine
         ctx.save_for_backward(q, k, v, bias, scale)
-        if q.device.type == "cpu":
-            return flash_window_attention_plain(q, k, v, bias, scale, cosine)
-        _check_cuda(q, k, v, bias, scale)
-        b, h, n, d = q.shape
-        out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-        sb, sh, sn, _ = q.stride()
-        if k.stride() != q.stride() or v.stride() != q.stride():
-            k, v, q = k.contiguous(), v.contiguous(), q.contiguous()
-            sb, sh, sn, _ = q.stride()
-        launch_window_attention(q, k, v, (sb, sh, sn), bias, scale, out,
-                                out.stride()[:3], b, h, n, d, cosine)
-        return out
+        return _window_forward(cosine, q, k, v, bias, scale)
 
     @staticmethod
     def backward(ctx, g):
@@ -128,11 +171,16 @@ def flash_window_attention(q, k, v, bias, scale=None, cosine=False):
     differentiable in q, k, v, the bias and the scale.
 
     Batch row ``b`` uses ``bias[b % NB]``; ``cosine`` L2-normalises q and k
-    and multiplies the scores by the per-head ``scale`` ``(H,)``.
+    and multiplies the scores by the per-head ``scale`` ``(H,)``. With
+    nothing to differentiate (the frozen backbone's eval and train passes)
+    it skips the autograd Function's bookkeeping, a host cost per call of
+    the order of the kernel's own time at the small stages.
     """
     if scale is None:
         scale = torch.ones(q.shape[1], dtype=torch.float32, device=q.device)
-    return _WindowAttention.apply(cosine, q, k, v, bias, scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias, scale)):
+        return _WindowAttention.apply(cosine, q, k, v, bias, scale)
+    return _window_forward(cosine, q, k, v, bias, scale)
 
 
 # ----------------------------------------------------------------- K4 --- #
@@ -141,75 +189,92 @@ def flash_window_attention(q, k, v, bias, scale=None, cosine=False):
 def attention_bhle_plain(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """Plain version (``_reference_attention_bhle``): f32 scores, keys with
     col > row set to -1e30 when ``causal``, f32 softmax and p·v, output in
-    q's dtype."""
+    q's dtype. Any leading dimensions: ``(..., L, E)``."""
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     if causal:
-        l_q, l_k = q.shape[1], k.shape[1]
+        l_q, l_k = q.shape[-2], k.shape[-2]
         upper = torch.ones(l_q, l_k, dtype=torch.bool, device=q.device).triu(1)
         s = s.masked_fill(upper, _NEG_INF)
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
-
-
-def _pad16(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous, its last dimension padded with zeros to a multiple
-    of 16 (no copy when it is both already)."""
-    pad = -t.shape[-1] % 16
-    return (F.pad(t, (0, pad)) if pad else t).contiguous()
 
 
 def _check_dense(q, k, v):
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"K4 takes q, k, v all bf16 or all f32, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if q.ndim != 3 or k.ndim != 3 or v.ndim != 3:
-        raise ValueError("K4 takes head-flattened (BH, L, E) tensors")
-    bh, l_q, e = q.shape
-    if k.shape[0] != bh or v.shape[0] != bh or k.shape[2] != e or v.shape[1] != k.shape[1]:
+    if not q.ndim == k.ndim == v.ndim == 4:
+        raise ValueError("K4 takes (BH, L, E) or (B, H, L, E) tensors")
+    b, h, l_q, e = q.shape
+    if (k.shape[:2] != (b, h) or v.shape[:2] != (b, h) or k.shape[3] != e
+            or v.shape[2] != k.shape[2]):
         raise ValueError(f"K4 shapes do not agree: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if e > DENSE_MAX_E or v.shape[2] > DENSE_MAX_E:
-        raise ValueError(f"K4 takes E and E_v up to {DENSE_MAX_E}, got {e}, {v.shape[2]}")
-    if not 1 <= bh <= 65535 or l_q < 1 or k.shape[1] < 1:
-        raise ValueError(f"K4 takes 1 <= BH <= 65535 and non-empty L, got {tuple(q.shape)}, "
+    if e > DENSE_MAX_E or v.shape[3] > DENSE_MAX_E:
+        raise ValueError(f"K4 takes E and E_v up to {DENSE_MAX_E}, got {e}, {v.shape[3]}")
+    if not (1 <= b <= 65535 and 1 <= h <= 65535) or l_q < 1 or k.shape[2] < 1:
+        raise ValueError(f"K4 takes 1 <= B, H <= 65535 and non-empty L, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
 
 
-def launch_dense_attention(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """K4 on CUDA tensors: pads E and E_v with zeros to a multiple of 16 (the
-    ragged L edge is masked in the kernel) and launches on the current
-    stream."""
+def _dense_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as K4 reads it in place: unit stride along E and, in bf16, E a
+    multiple of 8 and every row on a 16-byte boundary. Otherwise a
+    contiguous copy, with E zero-padded to a multiple of 8 in bf16."""
+    if t.dtype == torch.float32:
+        return t if t.stride(-1) == 1 else t.contiguous()
+    if t.stride(-1) == 1 and t.shape[-1] % 8 == 0 and _rows16(t, t.stride()[:-1]):
+        return t
+    return F.pad(t, (0, -t.shape[-1] % 8)).contiguous()
+
+
+def launch_dense_attention(q, k, v, causal: bool, scale: float,
+                           heads_inner: bool = False) -> torch.Tensor:
+    """K4 on CUDA ``(B, H, L, E)`` tensors of any (batch, head, token)
+    strides, on the current stream: returns ``(B, H, L_q, E_v)``, whose
+    memory is ``(B, L_q, H, E_v)`` with ``heads_inner``. An operand is
+    copied only as ``_dense_operand`` says; an E_v padded there is cut off
+    the output as a view."""
     global dense_launches
     _check_dense(q, k, v)
-    bh, l_q, _ = q.shape
-    l_k, e_v = v.shape[1:]
-    qp, kp, vp = _pad16(q), _pad16(k), _pad16(v)
-    out = torch.empty(bh, l_q, e_v, dtype=q.dtype, device=q.device)
+    b, h, l_q, _ = q.shape
+    l_k, e_v = v.shape[2:]
+    qp, kp, vp = _dense_operand(q), _dense_operand(k), _dense_operand(v)
+    if heads_inner:
+        out = torch.empty(b, l_q, h, vp.shape[-1], dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty(b, h, l_q, vp.shape[-1], dtype=q.dtype, device=q.device)
     lib = cuda_build.libraries()["dense_attention"]
     err = lib.rf_dense_attention(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), bh, l_q, l_k, qp.shape[-1], vp.shape[-1], e_v,
+        int(q.dtype == torch.bfloat16), b, h, l_q, l_k, qp.shape[-1], vp.shape[-1],
+        *qp.stride()[:3], *kp.stride()[:3], *vp.stride()[:3], *out.stride()[:3],
         ctypes.c_float(scale), int(causal),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream),
     )
     cuda_build.check(err, "dense_attention")
     dense_launches += 1
-    return out
+    return out[..., :e_v]
 
 
 class _DenseAttention(torch.autograd.Function):
-    """Forward: K4 (CUDA) or the plain version (CPU). Backward: autograd over
-    a recompute of the plain version in f32, cast to q's dtype, as the JAX
-    package's custom VJP differentiates ``_reference_attention_bhle``."""
+    """Forward: K4 (CUDA) or the plain version (CPU) on ``(BH, L, E)`` or
+    ``(B, H, L, E)`` tensors; with ``heads_inner`` the CUDA output lives in
+    ``(B, L_q, H, E_v)`` memory. Backward: autograd over a recompute of the
+    plain version in f32, cast to q's dtype, as the JAX package's custom VJP
+    differentiates ``_reference_attention_bhle``."""
 
     @staticmethod
-    def forward(ctx, causal, scale, q, k, v):
+    def forward(ctx, causal, scale, heads_inner, q, k, v):
         if not q.device == k.device == v.device:
             raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
         ctx.causal, ctx.scale = causal, scale
         ctx.save_for_backward(q, k, v)
         if q.device.type == "cpu":
             return attention_bhle_plain(q, k, v, causal, scale)
-        return launch_dense_attention(q, k, v, causal, scale)
+        if q.ndim == 3:  # (BH, L, E): one batch row of BH heads
+            return launch_dense_attention(q[None], k[None], v[None], causal, scale)[0]
+        return launch_dense_attention(q, k, v, causal, scale, heads_inner)
 
     @staticmethod
     def backward(ctx, g):
@@ -219,10 +284,19 @@ class _DenseAttention(torch.autograd.Function):
             out = attention_bhle_plain(q.float(), k.float(), v.float(), ctx.causal,
                                        ctx.scale).to(q.dtype)
             grads = torch.autograd.grad(out, inputs, g)
-        return (None, None, *grads)
+        return (None, None, None, *grads)
 
 
 def flash_attention_bhle(q, k, v, causal: bool, scale: float) -> torch.Tensor:
     """Dense softmax attention on head-flattened ``(BH, L, E)`` tensors
     (``v`` ``(BH, L_k, E_v)``), differentiable in q, k and v."""
-    return _DenseAttention.apply(bool(causal), float(scale), q, k, v)
+    return _DenseAttention.apply(bool(causal), float(scale), False, q, k, v)
+
+
+def dense_attention_blhe(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """Dense softmax attention on ``(B, L, H, E)`` tensors of any strides
+    (``v`` ``(B, L_k, H, E_v)``), differentiable in q, k and v. On the card
+    K4 reads the views in place and writes ``(B, L_q, H, E_v)`` memory."""
+    out = _DenseAttention.apply(bool(causal), float(scale), True, q.transpose(1, 2),
+                                k.transpose(1, 2), v.transpose(1, 2))
+    return out.transpose(1, 2)

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from routeformer_torch.ops import flash_attention, fusion_stack, swin_block_fusion
+from routeformer_torch.ops import attention, flash_attention, fusion_stack, swin_block_fusion
 
 
 @pytest.fixture
@@ -28,22 +28,41 @@ def _randn(gen, *shape, s=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,nb,d", [(256, 16, 32), (64, 1, 32), (144, 4, 32), (49, 2, 16)])
-def test_window_kernel_matches_plain(cuda_device, n, nb, d):
-    """bf16 output: within 1e-2 of the O(1) values (one bf16 ulp is 2**-8)."""
+@pytest.mark.parametrize("n,nb,d", [(256, 16, 32), (64, 1, 32), (144, 4, 32), (49, 2, 16),
+                                    (256, 4, 64)])
+@pytest.mark.parametrize("layout", ["bf16", "f32 strided"])
+def test_window_kernel_matches_plain(cuda_device, n, nb, d, layout):
+    """bf16 output: within 1e-2 of the O(1) values (one bf16 ulp is 2**-8).
+    "bf16": (B, H, n, d) tensors through the wrapper. "f32 strided": f32
+    views of one (B n, 3C) qkv buffer, as K1 launches the kernel, against
+    the plain version at the kernel's rounding points (q and k normalised
+    in f32, then rounded to bf16 with v, which a bf16 v selects)."""
     g = torch.Generator().manual_seed(n)
-    h = 4
-    q, k, v = (_randn(g, 2 * nb, h, n, d).to(cuda_device).bfloat16() for _ in range(3))
+    h, b = 4, 2 * nb
     bias = (16 * torch.sigmoid(_randn(g, nb, h, n, n))).to(cuda_device)
     scale = torch.exp(torch.clamp(_randn(g, h, s=0.5) + 2.3, max=math.log(100.0)))
     scale = scale.to(cuda_device)
     before = flash_attention.launches
-    got = flash_attention.flash_window_attention(q, k, v, bias, scale, cosine=True)
+    if layout == "bf16":
+        q, k, v = (_randn(g, b, h, n, d).to(cuda_device).bfloat16() for _ in range(3))
+        got = flash_attention.flash_window_attention(q, k, v, bias, scale, cosine=True)
+    else:
+        c = h * d
+        qkv = _randn(g, b * n, 3 * c).to(cuda_device)
+        q, k, v = (qkv[:, i * c:(i + 1) * c].reshape(b, n, h, d).transpose(1, 2)
+                   for i in range(3))
+        out = torch.empty(b * n, c, dtype=torch.bfloat16, device=cuda_device)
+        flash_attention.launch_window_attention(
+            qkv, qkv[:, c:], qkv[:, 2 * c:], (n * 3 * c, d, 3 * c), bias, scale, out,
+            (n * c, d, c), b, h, n, d, True)
+        got = out.reshape(b, n, h, d).transpose(1, 2)
+        v = v.bfloat16()
     assert flash_attention.launches == before + 1
     want = flash_attention.flash_window_attention_plain(q, k, v, bias, scale, cosine=True)
     torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16 and got.shape == q.shape
-    assert (got.float() - want.float()).abs().max().item() <= 1e-2
+    assert got.dtype == torch.bfloat16 and got.shape == (b, h, n, d)
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * max(
+        1.0, want.float().abs().max().item())
 
 
 @pytest.mark.cuda
@@ -90,6 +109,12 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="CPU"):
         swin_block_fusion.fused_swin_block(x, {}, torch.zeros(4, 16, 16), 4,
                                            compute_bf16=False)
+    rows = torch.zeros(32 * 64 + 1, device=cuda_device)[1:].view(32, 64)  # off 16 bytes
+    out = torch.empty(32, 32, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention.launch_window_attention(
+            rows, rows, rows, (16 * 64, 16, 64), bias, torch.ones(2, device=cuda_device),
+            out, (16 * 32, 16, 32), 2, 2, 16, 16, True)
 
 
 def _stack_inputs(gen, r, l, n=2, d=128, f=256, p=0.05):
@@ -188,28 +213,68 @@ def test_perceive_kernels_reject_what_they_do_not_take(cuda_device):
                                         **dict(kw, heads=7))
 
 
+def _dense_views(g, b, l, h, widths, device, dtype):
+    """Strided (B, L, H, w) views of one (B, L, H, sum(widths)) buffer, one
+    per width, as the ViT's q, k, v are views of its qkv rows."""
+    buf = _randn(g, b, l, h, sum(widths)).to(device, dtype)
+    starts = np.cumsum([0, *widths])
+    return [buf[..., s:s + w] for s, w in zip(starts, widths)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,l_q,l_k,e,e_v", [(4, 64, 64, 64, 64), (3, 130, 130, 104, 104),
                                               (2, 70, 200, 32, 48), (5, 600, 600, 64, 64)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_dense_kernel_matches_plain(cuda_device, bh, l_q, l_k, e, e_v, causal, dtype):
+@pytest.mark.parametrize("layout", ["bhle", "views"])
+def test_dense_kernel_matches_plain(cuda_device, bh, l_q, l_k, e, e_v, causal, dtype, layout):
     """K4 at a small, a ragged (E 104, L 130), an L_q != L_k and a longer
     shape: within 1e-2 of the output's max in bf16 (a bf16 rounding of the
     output may land on the other side), 1e-5 in f32 (sums in another
-    order); one launch per call."""
+    order); one launch per call. "bhle": contiguous (BH, L, E) tensors;
+    "views": strided (B, L, H, E) views (H 2, B = BH) through
+    ``dense_attention_blhe``, the output in (B, L, H, E_v) memory."""
     g = torch.Generator().manual_seed(l_q * e)
-    q = _randn(g, bh, l_q, e).to(cuda_device, dtype)
-    k = _randn(g, bh, l_k, e).to(cuda_device, dtype)
-    v = _randn(g, bh, l_k, e_v).to(cuda_device, dtype)
     before = flash_attention.dense_launches
-    got = flash_attention.flash_attention_bhle(q, k, v, causal, e ** -0.5)
+    if layout == "bhle":
+        q = _randn(g, bh, l_q, e).to(cuda_device, dtype)
+        k = _randn(g, bh, l_k, e).to(cuda_device, dtype)
+        v = _randn(g, bh, l_k, e_v).to(cuda_device, dtype)
+        got = flash_attention.flash_attention_bhle(q, k, v, causal, e ** -0.5)
+    else:
+        (q,) = _dense_views(g, bh, l_q, 2, [e], cuda_device, dtype)
+        k, v = _dense_views(g, bh, l_k, 2, [e, e_v], cuda_device, dtype)
+        got = flash_attention.dense_attention_blhe(q, k, v, causal, e ** -0.5)
+        assert got.shape == (bh, l_q, 2, e_v) and got.is_contiguous()
+        got, q, k, v = (t.transpose(1, 2) for t in (got, q, k, v))
     assert flash_attention.dense_launches == before + 1
     want = flash_attention.attention_bhle_plain(q, k, v, causal, e ** -0.5)
     torch.cuda.synchronize()
-    assert got.dtype == dtype and got.shape == (bh, l_q, e_v)
+    assert got.dtype == dtype and got.shape == want.shape == (*q.shape[:-2], l_q, e_v)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
     assert (got.float() - want.float()).abs().max() <= tol * want.float().abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_dot_product_attention_flash_reads_views_in_place(cuda_device, causal):
+    """``dot_product_attention(impl="flash")`` on the card: one K4 launch
+    per call on the ViT's views of its qkv rows (E % 16 == 0), one
+    allocation (the output: no contiguous copy of q, k or v), and the plain
+    version's result within 1e-2 of its max."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v = _dense_views(g, 2, 600, 4, [64, 64, 64], cuda_device, torch.bfloat16)
+    torch.cuda.synchronize()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"]
+    before = flash_attention.dense_launches
+    got = attention.dot_product_attention(q, k, v, causal=causal, impl="flash")
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] - allocs == 1
+    assert flash_attention.dense_launches == before + 1
+    want = flash_attention.attention_bhle_plain(*(t.transpose(1, 2) for t in (q, k, v)),
+                                                causal, 64 ** -0.5).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2, 600, 4, 64)
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
 
 
 @pytest.mark.cuda

@@ -133,3 +133,45 @@ def test_dot_product_attention_routes_long_keys_to_k4(rng, monkeypatch, causal):
     assert len(calls) == 1
     with pytest.raises(ValueError, match="impl"):
         attention.dot_product_attention(*map(torch.from_numpy, (q, k, v)), impl="jax")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_dense_views_route_matches_jax_and_bhle(rng, causal):
+    """``dense_attention_blhe``, the card's route of ``dot_product_attention``,
+    on strided (B, L, H, E) views of one qkv buffer: on the CPU it is the
+    plain version, equal to the head-flattened route bit for bit, within
+    2e-5 of JAX's ``impl="flash"`` (interpret mode), and differentiable."""
+    qkv = torch.from_numpy(rng.normal(size=(2, 520, 3, 2, 16)).astype(np.float32))
+    qkv.requires_grad_(True)
+    q, k, v = qkv.unbind(2)
+    got = flash_attention.dense_attention_blhe(q, k, v, causal, 0.25)
+    flat = [t.transpose(1, 2).reshape(4, 520, 16) for t in (q, k, v)]
+    want = flash_attention_bhle(*flat, causal, 0.25).reshape(2, 2, 520, 16).transpose(1, 2)
+    assert got.shape == (2, 520, 2, 16)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pltpu.force_tpu_interpret_mode():
+        jax_out, _ = jax_attention.dot_product_attention(
+            *(jnp.asarray(t.detach().numpy()) for t in (q, k, v)), causal=causal,
+            scale=0.25, impl="flash")
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(jax_out), atol=2e-5)
+    got.sum().backward()
+    assert qkv.grad is not None and torch.isfinite(qkv.grad).all()
+
+
+@pytest.mark.parametrize("case", ["bf16 views", "f32 views", "bf16 E 12", "bf16 off 16 bytes"])
+def test_dense_operand_copies_only_what_k4_cannot_read(case):
+    """K4 reads an operand in place when E has unit stride and, in bf16, E
+    is a multiple of 8 and every row starts on 16 bytes; otherwise the
+    wrapper copies it, zero-padding a bf16 E to a multiple of 8."""
+    dtype = torch.float32 if case.startswith("f32") else torch.bfloat16
+    e = 12 if case == "bf16 E 12" else 64
+    buf = torch.arange(2 * 9 * 3 * 4 * e + 1, dtype=torch.float32).to(dtype)
+    start = 1 if case == "bf16 off 16 bytes" else 0
+    t = buf[start:start + 2 * 9 * 3 * 4 * e].view(2, 9, 3, 4, e)[:, :, 1].transpose(1, 2)
+    got = flash_attention._dense_operand(t)
+    if case in ("bf16 views", "f32 views"):
+        assert got is t
+        return
+    assert got.is_contiguous() and got.shape[-1] == -(-e // 8) * 8
+    torch.testing.assert_close(got[..., :e], t, rtol=0, atol=0)
+    assert (got[..., e:] == 0).all()
