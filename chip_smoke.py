@@ -57,12 +57,15 @@ Phases (any failure exits non-zero):
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
-   step, K4 per batch-1 DinoV2 forward; bound and library time. K2's
-   ``ms`` is the path's variant (f32 strided views with each block's window
-   kinds) and ``bf16_ms`` the bf16 (B, H, n, d) wrapper's, both device time
-   (launches replayed from a CUDA graph: at stages 2-3 the wrapper's host
-   time exceeds the kernel's); ``bf16_eager_ms`` times back-to-back eager
-   calls, the host's launch time included.
+   step, K4 per batch-1 DinoV2 forward; bound and library time.
+   ``ms_timing`` says how each ``ms`` was taken: ``eager`` (back-to-back
+   calls, the host's launch time included where it exceeds the kernel's)
+   or ``graph`` (device time, the launches replayed from a CUDA graph).
+   K2's ``ms`` is the path's variant (f32 strided views with each block's
+   window kinds) as graph time, because at stages 2-3 the wrapper's host
+   time exceeds the kernel's; ``bf16_ms`` is the bf16 (B, H, n, d)
+   wrapper's graph time and ``bf16_eager_ms`` its eager time, through its
+   autograd Function as the serving path calls it.
 9. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
@@ -1314,7 +1317,8 @@ def k2_times() -> dict:
     in an unshifted block and nw in a shifted one, as device time
     (``graph_ms``); its plain version on the same views. ``bf16_ms``: the
     bf16 (B, H, n, d) wrapper at 1 window kind, device time, and
-    ``bf16_eager_ms`` the same as back-to-back eager calls. SDPA on
+    ``bf16_eager_ms`` the same as back-to-back eager calls through its
+    autograd Function, the host's time included. SDPA on
     the bf16 case (q normalised and scaled, k normalised beforehand, the
     bias as a bf16 mask), device time and eager. Bounds: 4 B H n^2 d bf16
     operations against q, k, v read and the bf16 output written once, and
@@ -1343,11 +1347,6 @@ def k2_times() -> dict:
                 acc[key] += reps * val
             log(f"K2 {name} f32 strided, {kinds} window kind(s): {t:.4f} ms (plain {tp:.3f}, "
                 f"bound {bt:.4f}) x {reps}")
-            if name == "stage2":  # every window its own bias: read from HBM, not L2
-                bias = bias.expand(b, h, n, n).contiguous()
-                log(f"K2 {name} f32 strided, a bias per window ({b} kinds, "
-                    f"{bias.numel() * 4 / 1e6:.1f} MB): "
-                    f"{graph_ms(lambda: k2_path(qkv, bias, scale, b, n, c, h, out)):.4f} ms")
             del qkv, bias, out
 
         q, k, v, wb, scale = k2_inputs(b, h, n, d, 1, seed=2)
@@ -1375,10 +1374,8 @@ def k2_times() -> dict:
 
 
 # Keys of a kernel's timing kept in its entry beside the contract's: K2's
-# bf16 wrapper timings (k2_times), K4's time on the ViT's views and with
-# the copies of a head-flattened route around it (k4_times).
-EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms",
-              "copy_route_ms")
+# bf16 wrapper timings (k2_times), K4's time on the ViT's views (k4_times).
+EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms")
 
 
 def kernel_line(launches: dict, results: dict) -> dict:
@@ -1407,13 +1404,13 @@ def kernel_line(launches: dict, results: dict) -> dict:
         torch.cuda.empty_cache()
 
     def entry(name, source, replaces, acc, err, library_ms, ms_per,
-              per_forward=results["serve_launches_per_forward"]):
+              per_forward=results["serve_launches_per_forward"], ms_timing="eager"):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name],
             "launches_per_step": [c[name] for c in results["train_launches_per_step"]],
             "launches_per_forward": per_forward[name],
-            "max_abs_err": err, "ms_per": ms_per,
+            "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
             "library_ms": library_ms,
@@ -1430,7 +1427,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
               results["k1_max_abs_err"], None, per_forward),
         entry("K2", "routeformer_torch/csrc/window_attention.cu",
               "routeformer_tpu/ops/flash_attention.py:120", k2,
-              results["k2_max_abs_err"], k2["library_ms"], per_forward),
+              results["k2_max_abs_err"], k2["library_ms"], per_forward, ms_timing="graph"),
         # No single PyTorch call computes a ProbSparse encoder layer.
         entry("K3a", "routeformer_torch/csrc/perceive_stack.cu",
               "routeformer_tpu/ops/fusion_stack.py:357", k3["K3a"],
@@ -1450,8 +1447,7 @@ def k4_times() -> dict:
     1/8, non-causal) times K4_PER_FORWARD, beside the plain version and
     SDPA on the same tensors; ``views_ms``: the same work on the ViT's
     (B, L, H, E) views of a qkv buffer through ``dot_product_attention``,
-    the path's variant; ``copy_route_ms``: K4 with the copies a
-    head-flattened route makes around it. Bound: 4 BH L^2 E operations
+    the path's variant. Bound: 4 BH L^2 E operations
     with bf16 operands against q, k, v read and the output written once."""
     import torch.nn.functional as F
 
@@ -1473,20 +1469,15 @@ def k4_times() -> dict:
     def views():  # the ViT's call: K4 on the views, the output reshaped in place
         return attention.dot_product_attention(qv, kv, vv, impl="flash").reshape(b, l, -1)
 
-    def copy_route():  # head-flattened: (BH, L, E) copies in, K4, a (B, L, H E) copy out
-        out = fa.flash_attention_bhle(*(t.transpose(1, 2).reshape(bh, l, e)
-                                        for t in (qv, kv, vv)), False, scale)
-        return out.reshape(b, heads, l, e).transpose(1, 2).reshape(b, l, -1)
-
-    tv, tr = cuda_ms(views), cuda_ms(copy_route)
+    tv = cuda_ms(views)
     flops, nbytes = 4 * bh * l * l * e, 4 * bh * l * e * 2
     bt, by = bound_ms(flops, nbytes)
     n = K4_PER_FORWARD
-    log(f"K4 {K4_SHAPE}: {t:.3f} ms (on the ViT's views {tv:.3f}, with copies "
-        f"{tr:.3f}; plain {tp:.3f}, sdpa {tl:.3f}, bound {bt:.4f} by {by}) x {n}")
+    log(f"K4 {K4_SHAPE}: {t:.3f} ms (on the ViT's views {tv:.3f}; plain {tp:.3f}, "
+        f"sdpa {tl:.3f}, bound {bt:.4f} by {by}) x {n}")
     return {"ms": n * t, "plain_ms": n * tp, "library_ms": n * tl, "bound_ms": n * bt,
             "ops_s": n * flops / PEAK_BF16, "bytes_s": n * nbytes / PEAK_BYTES,
-            "views_ms": n * tv, "copy_route_ms": n * tr}
+            "views_ms": n * tv}
 
 
 def main() -> int:

@@ -72,19 +72,12 @@ def flash_window_attention_plain(q, k, v, bias, scale=None, cosine=False):
 def launch_window_attention(q, k, v, q_strides, bias, scale, out, out_strides,
                             batch, heads, n, d, cosine):
     """Launch the kernel on raw views; q/k/v (bf16 or f32) share
-    ``q_strides`` ``(batch, head, token)`` in elements, unit stride along d,
-    rows on 16-byte boundaries; ``out`` is bf16."""
-    if not all(_rows16(t, q_strides) for t in (q, k, v)) or not _rows16(out, out_strides):
-        raise ValueError("window kernel: q, k, v and out rows must start on 16-byte boundaries")
-    _launch_window(q, k, v, q_strides, bias, scale, out, out_strides, batch, heads, n, d,
-                   cosine)
-
-
-def _launch_window(q, k, v, q_strides, bias, scale, out, out_strides, batch, heads, n, d,
-                   cosine):
-    """``launch_window_attention`` without its alignment check, for callers
-    that made sure of it."""
+    ``q_strides`` ``(batch, head, token)`` in elements, unit stride along d;
+    ``out`` is bf16. Every row of q, k, v and out must start on a 16-byte
+    boundary."""
     global launches
+    if not (_rows16((q, k, v), q_strides) and _rows16((out,), out_strides)):
+        raise ValueError("window kernel: q, k, v and out rows must start on 16-byte boundaries")
     lib = cuda_build.libraries()["window_attention"]
     err = lib.rf_window_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -97,11 +90,11 @@ def _launch_window(q, k, v, q_strides, bias, scale, out, out_strides, batch, hea
     launches += 1
 
 
-def _rows16(t: torch.Tensor, strides) -> bool:
-    """Every row of ``t`` (element strides ``strides``) starts on a 16-byte
-    boundary."""
-    per16 = 16 // t.element_size()
-    return t.data_ptr() % 16 == 0 and all(st % per16 == 0 for st in strides)
+def _rows16(tensors, strides) -> bool:
+    """Every row of each of ``tensors`` (one dtype, element strides
+    ``strides``) starts on a 16-byte boundary."""
+    per16 = 16 // tensors[0].element_size()
+    return all(t.data_ptr() % 16 == 0 for t in tensors) and all(s % per16 == 0 for s in strides)
 
 
 def _check_cuda(q, k, v, bias, scale):
@@ -125,35 +118,31 @@ def _check_cuda(q, k, v, bias, scale):
         raise ValueError("scale must be contiguous f32 (H,)")
 
 
-def _window_forward(cosine, q, k, v, bias, scale):
-    """The kernel for CUDA tensors, the plain version for CPU ones."""
-    if q.device.type == "cpu":
-        return flash_window_attention_plain(q, k, v, bias, scale, cosine)
-    _check_cuda(q, k, v, bias, scale)
-    b, h, n, d = q.shape
-    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    sb, sh, sn, _ = q.stride()
-    if (k.stride() != q.stride() or v.stride() != q.stride()
-            or not all(_rows16(t, (sb, sh, sn)) for t in (q, k, v))):
-        k, v, q = k.contiguous(), v.contiguous(), q.contiguous()
-        sb, sh, sn, _ = q.stride()
-    # Rows are aligned now: contiguous bf16 rows of d in (16, 32, 64), and a
-    # fresh contiguous output.
-    _launch_window(q, k, v, (sb, sh, sn), bias, scale, out, out.stride()[:3], b, h, n, d,
-                   cosine)
-    return out
-
-
 class _WindowAttention(torch.autograd.Function):
-    """Forward: ``_window_forward``. Backward: autograd over a recompute of
-    the plain version in f32, cast to v's dtype, as the JAX package's custom
-    VJP differentiates ``_reference_window_attention``."""
+    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
+    autograd over a recompute of the plain version in f32, cast to v's
+    dtype, as the JAX package's custom VJP differentiates
+    ``_reference_window_attention``."""
 
     @staticmethod
     def forward(ctx, cosine, q, k, v, bias, scale):
         ctx.cosine = cosine
         ctx.save_for_backward(q, k, v, bias, scale)
-        return _window_forward(cosine, q, k, v, bias, scale)
+        if q.device.type == "cpu":
+            return flash_window_attention_plain(q, k, v, bias, scale, cosine)
+        _check_cuda(q, k, v, bias, scale)
+        b, h, n, d = q.shape
+        out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+        sb, sh, sn, _ = q.stride()
+        if (k.stride() != q.stride() or v.stride() != q.stride()
+                or not _rows16((q, k, v), (sb, sh, sn))):
+            # Fresh contiguous copies: bf16 rows of d in (16, 32, 64) from
+            # the allocator start on 16-byte boundaries.
+            q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
+            sb, sh, sn, _ = q.stride()
+        launch_window_attention(q, k, v, (sb, sh, sn), bias, scale, out,
+                                out.stride()[:3], b, h, n, d, cosine)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -171,16 +160,11 @@ def flash_window_attention(q, k, v, bias, scale=None, cosine=False):
     differentiable in q, k, v, the bias and the scale.
 
     Batch row ``b`` uses ``bias[b % NB]``; ``cosine`` L2-normalises q and k
-    and multiplies the scores by the per-head ``scale`` ``(H,)``. With
-    nothing to differentiate (the frozen backbone's eval and train passes)
-    it skips the autograd Function's bookkeeping, a host cost per call of
-    the order of the kernel's own time at the small stages.
+    and multiplies the scores by the per-head ``scale`` ``(H,)``.
     """
     if scale is None:
         scale = torch.ones(q.shape[1], dtype=torch.float32, device=q.device)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias, scale)):
-        return _WindowAttention.apply(cosine, q, k, v, bias, scale)
-    return _window_forward(cosine, q, k, v, bias, scale)
+    return _WindowAttention.apply(cosine, q, k, v, bias, scale)
 
 
 # ----------------------------------------------------------------- K4 --- #
@@ -222,7 +206,7 @@ def _dense_operand(t: torch.Tensor) -> torch.Tensor:
     contiguous copy, with E zero-padded to a multiple of 8 in bf16."""
     if t.dtype == torch.float32:
         return t if t.stride(-1) == 1 else t.contiguous()
-    if t.stride(-1) == 1 and t.shape[-1] % 8 == 0 and _rows16(t, t.stride()[:-1]):
+    if t.stride(-1) == 1 and t.shape[-1] % 8 == 0 and _rows16((t,), t.stride()[:-1]):
         return t
     return F.pad(t, (0, -t.shape[-1] % 8)).contiguous()
 

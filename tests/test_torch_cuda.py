@@ -32,11 +32,13 @@ def _randn(gen, *shape, s=1.0):
                                     (256, 4, 64)])
 @pytest.mark.parametrize("layout", ["bf16", "f32 strided"])
 def test_window_kernel_matches_plain(cuda_device, n, nb, d, layout):
-    """bf16 output: within 1e-2 of the O(1) values (one bf16 ulp is 2**-8).
-    "bf16": (B, H, n, d) tensors through the wrapper. "f32 strided": f32
-    views of one (B n, 3C) qkv buffer, as K1 launches the kernel, against
-    the plain version at the kernel's rounding points (q and k normalised
-    in f32, then rounded to bf16 with v, which a bf16 v selects)."""
+    """bf16 output. "bf16": (B, H, n, d) tensors through the wrapper,
+    within 1e-2 of the O(1) values (one bf16 ulp is 2**-8). "f32 strided":
+    f32 views of one (B n, 3C) qkv buffer, as K1 launches the kernel,
+    against the plain version at the kernel's rounding points (q and k
+    normalised in f32, then rounded to bf16 with v, which a bf16 v
+    selects), within 1e-2 of max(1, max|plain|), as ``chip_smoke.py``'s
+    ``K2_TOL``: outputs up to ~4 put a bf16 rounding of 2**-6 in reach."""
     g = torch.Generator().manual_seed(n)
     h, b = 4, 2 * nb
     bias = (16 * torch.sigmoid(_randn(g, nb, h, n, n))).to(cuda_device)
@@ -61,8 +63,8 @@ def test_window_kernel_matches_plain(cuda_device, n, nb, d, layout):
     want = flash_attention.flash_window_attention_plain(q, k, v, bias, scale, cosine=True)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == (b, h, n, d)
-    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * max(
-        1.0, want.float().abs().max().item())
+    of = 1.0 if layout == "bf16" else max(1.0, want.float().abs().max().item())
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * of
 
 
 @pytest.mark.cuda

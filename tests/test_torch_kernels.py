@@ -95,19 +95,6 @@ def test_window_wrapper_uses_plain_version_on_cpu(rng):
         got, flash_window_attention_plain(q, k, v, bias, scale, cosine=True))
 
 
-@pytest.mark.parametrize("grad", [False, True])
-def test_window_wrapper_differentiates_only_when_asked(rng, grad):
-    """With nothing to differentiate the wrapper skips the autograd
-    Function (no ``grad_fn``); with an input that needs a gradient it goes
-    through it. The values are the plain version's either way."""
-    q, k, v, bias, scale = map(torch.from_numpy, _window_inputs(rng, 4, 2, 16, 16, 2))
-    q.requires_grad_(grad)
-    got = flash_window_attention(q, k, v, bias, scale, cosine=True)
-    assert (got.grad_fn is not None) == grad
-    torch.testing.assert_close(
-        got, flash_window_attention_plain(q, k, v, bias, scale, cosine=True), rtol=0, atol=0)
-
-
 # ----------------------------------------------------------------- K1 --- #
 
 
