@@ -14,6 +14,12 @@ Phases (any failure exits non-zero):
    shifted block (16 window kinds) and at stage 2.
 4. K1 (fused SwinV2 block) against its plain version at the four stage
    geometries, shifted where the model shifts.
+4b. The Hopper GEMM core that K1 and K3 share (``csrc/gemm_sm90.cuh``)
+   against ``torch.matmul`` of the same bf16-rounded operands in f32: with
+   its TMA producer at the four GEMMs of a SwinV2 block at every stage
+   (``K1_GEMMS``), with its converting producer at the Perceive layers' X W,
+   dY W^T and row-split X^T dY (with B's column sums) at the frame, video
+   and gaze stacks' rows (``K3_GEMMS``).
 5. Flagship serving: build the full-width flagship from a seed on the card,
    save it as a serving bundle, load it back and answer three batch-1 and
    one batch-4 request of synthetic GEM-geometry clips; check shapes,
@@ -42,8 +48,9 @@ Phases (any failure exits non-zero):
    differ (layer by layer and along the stack), how near each was to a
    tie, and the error where none differs; in f32 a selection may differ
    only at a near-tie. K3b (per-layer backward) against the plain backward
-   at the same geometries. K1/K2 gradients through their autograd
-   Functions against autograd of the plain versions.
+   at the same geometries, and run twice on the same inputs: the same
+   bits in dx and every weight grad. K1/K2 gradients through their
+   autograd Functions against autograd of the plain versions.
 7. Flagship training with ``ROUTEFORMER_FUSION_KERNEL=1``: two steps at
    batch 16 on synthetic GEM clips at epoch 12; finite metrics, the
    non-backbone parameters move and the frozen backbone does not, and the
@@ -65,7 +72,14 @@ Phases (any failure exits non-zero):
    window kinds) as graph time, because at stages 2-3 the wrapper's host
    time exceeds the kernel's; ``bf16_ms`` is the bf16 (B, H, n, d)
    wrapper's graph time and ``bf16_eager_ms`` its eager time, through its
-   autograd Function as the serving path calls it.
+   autograd Function as the serving path calls it. K1's ``gemm_ms`` is the
+   core's time for the block's four GEMMs per forward and
+   ``gemm_library_ms`` the same four through ``F.linear`` (cuBLAS, bf16; a
+   yardstick the port never calls), eager, and ``gemm_graph_ms`` /
+   ``gemm_library_graph_ms`` as device time; ``gemm_stage_ms`` per stage. K3a's
+   and K3b's ``attention_ms``, ``gemm_ms`` and ``rows_ms`` split their device
+   time (torch.profiler) into the attention core, the GEMMs and the row
+   kernels (LayerNorms, the fixed-order reduction).
 9. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
@@ -106,6 +120,30 @@ K2_CASES = [(384, 4, 256, 32, 16), (24, 32, 64, 32, 1), (384, 4, 144, 32, 16),
 # stage 2.
 K2_PATH_CASES = [(384, 256, 128, 4, 16), (24, 256, 512, 16, 1)]
 K1_TOL = 1e-2  # max |kernel - plain| / max |plain|, bf16 output
+# The GEMM core against torch.matmul of the same bf16 values in f32, of the
+# output's max: f32 outputs differ by sums in another order, bf16 ones by a
+# rounding of the output.
+GEMM_TOL_F32, GEMM_TOL_BF16 = 1e-4, 1e-2
+# B's column sums of a row-split X^T dY, of the largest column's sum of |B|.
+COLSUM_TOL = 1e-5
+# The Perceive layers' GEMMs at every stack geometry: (name, M, N, K, A
+# given transposed, B given transposed, split over K): X W, dY W^T, and the
+# weight grads X^T dY split over the M rows (M, N, K as the product's).
+K3_GEMMS = [("x W", "M", "D", "D", False, False, False),
+            ("x Wff1", "M", "F", "D", False, False, False),
+            ("a1 Wff2", "M", "D", "F", False, False, False),
+            ("df2 Wff2^T", "M", "F", "D", False, True, False),
+            ("df1 Wff1^T", "M", "D", "F", False, True, False),
+            ("x0^T dqkv", "D", "3D", "M", True, False, True),
+            ("a1^T df2", "F", "D", "M", True, False, True),
+            ("xn1^T df1", "D", "F", "M", True, False, True)]
+
+
+def k1_gemms(c: int) -> list:
+    """A SwinV2 block's four GEMMs for C channels, (N, K, act, output
+    dtype): qkv, proj, fc1 (tanh gelu), fc2."""
+    return [(3 * c, c, 0, "float32"), (c, c, 0, "float32"),
+            (4 * c, c, 1, "bfloat16"), (c, 4 * c, 0, "float32")]
 FEATURE_TOL = 5e-2  # backbone feature maps, card vs CPU, relative to max
 PRED_TOL = 5e-2  # displacement and dense features, card vs CPU, relative to max
 
@@ -320,6 +358,76 @@ def check_k1(results: dict) -> float:
     return worst
 
 
+# --------------------------------------------------------------- phase 4b #
+
+
+def k1_gemm_inputs(m, n, k, dtype, seed):
+    """Operands of one K1 GEMM: bf16 a (M, K), bf16 w (N, K), f32 bias, and
+    the output buffer of the pipeline's type."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(m, k, device="cuda", generator=g).bfloat16()
+    w = (torch.randn(n, k, device="cuda", generator=g) * k ** -0.5).bfloat16()
+    bias = torch.randn(n, device="cuda", generator=g) * 0.1
+    return a, w, bias, torch.empty(m, n, dtype=getattr(torch, dtype), device="cuda")
+
+
+def check_gemm_core(results: dict) -> None:
+    """The GEMM core against ``torch.matmul`` of the same bf16 values in f32:
+    the TMA producer at every K1 GEMM of the four stages (batch-1 rows), the
+    converting producer at the Perceive GEMMs of every stack geometry."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+    from routeformer_torch.ops import swin_block_fusion as sbf
+
+    worst = {"k1_f32": 0.0, "k1_bf16": 0.0, "k3": 0.0, "k3_colsum": 0.0}
+    for name, b, n_tok, c, _, _, _ in STAGES:
+        m = b * n_tok
+        for n, k, act, dtype in k1_gemms(c):
+            a, w, bias, out = k1_gemm_inputs(m, n, k, dtype, seed=n + k)
+            got = sbf.gemm_bias_act(a, w, bias, out, act)
+            err = rel_err(got, sbf.gemm_bias_act_plain(a, w, bias, act))
+            key, tol = (("k1_bf16", GEMM_TOL_BF16) if dtype == "bfloat16"
+                        else ("k1_f32", GEMM_TOL_F32))
+            worst[key] = max(worst[key], err)
+            log(f"GEMM core, TMA, K1 {name} (M {m}, N {n}, K {k}) act={act} {dtype}: "
+                f"max|core-matmul|/max|matmul| = {err:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"the GEMM core disagrees with matmul: {err} > {tol}")
+            del a, w, bias, out, got
+    sizes = {"D": K3_D, "F": K3_F, "3D": 3 * K3_D}
+    for geom, r, l, _ in K3_GEOMS:
+        sizes["M"] = r * l
+        g = torch.Generator(device="cuda").manual_seed(r * l)
+        for label, ms, ns, ks, a_t, b_t, split in K3_GEMMS:
+            m, n, k = sizes[ms], sizes[ns], sizes[ks]
+            a = torch.randn(*((k, m) if a_t else (m, k)), device="cuda", generator=g)
+            bt = torch.randn(*((n, k) if b_t else (k, n)), device="cuda", generator=g)
+            am, bm = (a.t() if a_t else a), (bt.t() if b_t else bt)
+            want, _ = fs.gemm_core_plain(am, bm)
+            rows = fs.split_rows(k) if split else None
+            if split:
+                got, colsum = fs.gemm_core(a, bt, a_t=a_t, b_t=b_t, split=rows)
+                cerr = ((colsum - bm.sum(0)).abs().max() / bm.abs().sum(0).max()).item()
+                worst["k3_colsum"] = max(worst["k3_colsum"], cerr)
+                if not cerr <= COLSUM_TOL:
+                    raise AssertionError(f"the core's column sums disagree: {cerr}")
+            else:
+                got = fs.gemm_core(a, bt, a_t=a_t, b_t=b_t)
+            err = rel_err(got, want)
+            worst["k3"] = max(worst["k3"], err)
+            log(f"GEMM core, converting, K3 {geom} {label} (M {m}, N {n}, K {k}"
+                f"{f', {rows} rows a split' if split else ''}): "
+                f"max|core-matmul|/max|matmul| = {err:.3e}")
+            if not err <= GEMM_TOL_F32:
+                raise AssertionError(f"the GEMM core disagrees with matmul: {err} > "
+                                     f"{GEMM_TOL_F32}")
+            del a, bt, got, want
+    results["gemm_core_max_rel_err"] = worst
+
+
 # ---------------------------------------------------------------- phase 5 #
 
 
@@ -495,11 +603,19 @@ def profile_request(serving, batch, request_ms: float) -> dict:
     return prof_line
 
 
-# Device kernels of the port by name: (tag in the kernel's name, label).
-KERNEL_TAGS = (("gemm_bias_act", "K1 gemm_bias_act"),
+# Device kernels of the port by name: (tag in the kernel's name, label);
+# the first tag found names a kernel.
+KERNEL_TAGS = (("BiasActEpi", "K1 gemm"),
                ("residual_layernorm", "K1 residual_layernorm"),
                ("window_attention_kernel", "K2 window_attention"),
-               ("dense_attention", "K4 dense_attention"))
+               ("dense_attention", "K4 dense_attention"),
+               ("gemm_kernel<(anonymous namespace)::Epi", "K3 gemm"),
+               ("gemm_f32_kernel", "K3 gemm"),
+               ("attn_fwd_kernel", "K3 attention"),
+               ("attn_bwd_kernel", "K3 attention"),
+               ("layernorm_bwd_kernel", "K3 rows"),
+               ("::layernorm_kernel(", "K3 rows"),
+               ("ReduceJobs", "K3 rows"))
 
 
 def device_groups(prof, reps: int):
@@ -892,6 +1008,32 @@ def check_k3b(results: dict) -> None:
     results["k3b_max_abs_err"] = worst
 
 
+def check_k3b_determinism(results: dict) -> None:
+    """K3b twice on the same inputs at every backward geometry: the same
+    bits in dx and in all 16 weight grads (fixed-order sums, no atomics)."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    for name, r, l, _ in K3_GEOMS:
+        if name not in K3_BACKWARD:
+            continue
+        x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 9, train=True)
+        g = torch.randn(x.shape, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(l))
+        kw = dict(heads=K3_H, u=fs.prob_sparse_u(l, K3_FACTOR), dropout_rate=K3_P,
+                  activation="gelu", compute_bf16=True)
+        args = (x, g, layer_of(w, 0), cnt[0].contiguous(), layer_of(masks, 0))
+        dx1, dw1 = fs.layer_backward_cuda(*args, **kw)
+        dx2, dw2 = fs.layer_backward_cuda(*args, **kw)
+        same = torch.equal(dx1, dx2) and all(torch.equal(a, b) for a, b in zip(dw1, dw2))
+        log(f"K3b {name} ({r}, {l}) twice on the same inputs: "
+            f"{'bit-identical' if same else 'DIFFERENT'} dx and weight grads")
+        if not same:
+            raise AssertionError(f"K3b is not deterministic at {name}")
+    results["k3b_deterministic"] = True
+
+
 def check_k12_grad(results: dict) -> None:
     """At the stage-3 geometry: gradients through the K1/K2 autograd
     Functions (kernel forward) against autograd of the plain versions
@@ -1247,6 +1389,23 @@ def k3_cost(r, l, u, backward):
     return 3 * gemm + qk + 2 * sel, 3 * sel, nbytes + 4 * m * d + weights
 
 
+def device_parts(run, reps: int = 3) -> dict:
+    """Device time of one call of ``run`` (torch.profiler over ``reps``),
+    split into K3's attention core, its GEMMs and its row kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    groups, _ = device_groups(prof, reps)
+    return {"attention_ms": groups.get("K3 attention", 0.0),
+            "gemm_ms": groups.get("K3 gemm", 0.0), "rows_ms": groups.get("K3 rows", 0.0)}
+
+
 def k3_times() -> dict:
     """K3a and K3b per flagship train step: kernel and plain times of one
     layer at each geometry, times the layer calls per step."""
@@ -1254,7 +1413,8 @@ def k3_times() -> dict:
 
     from routeformer_torch.ops import fusion_stack as fs
 
-    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
+    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0,
+               "attention_ms": 0.0, "gemm_ms": 0.0, "rows_ms": 0.0}
            for k in ("K3a", "K3b")}
     for name, r, l, calls in K3_GEOMS:
         u = fs.prob_sparse_u(l, K3_FACTOR)
@@ -1273,6 +1433,7 @@ def k3_times() -> dict:
         for kernel, (run, plain, n_calls) in runs.items():
             t = cuda_ms(run)
             tp = cuda_ms(plain, iters=3, warmup=1)
+            parts = device_parts(run)
             bf, f32, nbytes = k3_cost(r, l, u, kernel == "K3b")
             ops_s = bf / PEAK_BF16 + f32 / PEAK_F32
             bytes_s = nbytes / PEAK_BYTES
@@ -1283,8 +1444,11 @@ def k3_times() -> dict:
             a["bound_ms"] += times * 1e3 * max(ops_s, bytes_s)
             a["ops_s"] += times * ops_s
             a["bytes_s"] += times * bytes_s
+            for key, val in parts.items():
+                a[key] += times * val
             log(f"{kernel} {name} ({r}, {l}, u={u}): {t:.3f} ms per layer (plain {tp:.3f}, "
-                f"bound {1e3 * max(ops_s, bytes_s):.4f}) x {times}")
+                f"bound {1e3 * max(ops_s, bytes_s):.4f}; device: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f") x {times}")
         del x, w, masks, cnt, g
         torch.cuda.empty_cache()
     return acc
@@ -1374,8 +1538,50 @@ def k2_times() -> dict:
 
 
 # Keys of a kernel's timing kept in its entry beside the contract's: K2's
-# bf16 wrapper timings (k2_times), K4's time on the ViT's views (k4_times).
-EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms")
+# bf16 wrapper timings (k2_times), K4's time on the ViT's views (k4_times),
+# K1's GEMMs against cuBLAS (k1_gemm_times), K3's device time by part
+# (k3_times).
+EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms",
+              "gemm_ms", "gemm_library_ms", "gemm_graph_ms", "gemm_library_graph_ms",
+              "gemm_stage_ms", "attention_ms", "rows_ms")
+
+
+def k1_gemm_times() -> dict:
+    """The block's four GEMMs per batch-1 flagship forward: on the GEMM core
+    as K1's pipeline calls them (``gemm_ms``), and through ``F.linear`` on
+    the same bf16 operands (cuBLAS, bf16 output, gelu left out: the
+    yardstick, ``gemm_library_ms``), eager; ``gemm_graph_ms`` and
+    ``gemm_library_graph_ms`` the same as device time (``graph_ms``); per
+    stage and block in ``gemm_stage_ms``."""
+    import torch.nn.functional as F
+
+    from routeformer_torch.ops import swin_block_fusion as sbf
+
+    out = {"gemm_ms": 0.0, "gemm_library_ms": 0.0, "gemm_graph_ms": 0.0,
+           "gemm_library_graph_ms": 0.0, "gemm_stage_ms": {}}
+    for name, b, n_tok, c, _, count, _ in STAGES:
+        ops = [k1_gemm_inputs(b * n_tok, n, k, dtype, seed=k) + (act,)
+               for n, k, act, dtype in k1_gemms(c)]
+
+        def core():
+            for a, w, bias, o, act in ops:
+                sbf.gemm_bias_act(a, w, bias, o, act)
+
+        def library():
+            for a, w, bias, _, _ in ops:
+                F.linear(a, w, bias.bfloat16())
+
+        t, tl, tg, tlg = cuda_ms(core), cuda_ms(library), graph_ms(core), graph_ms(library)
+        out["gemm_ms"] += count * t
+        out["gemm_library_ms"] += count * tl
+        out["gemm_graph_ms"] += count * tg
+        out["gemm_library_graph_ms"] += count * tlg
+        out["gemm_stage_ms"][name] = {"core": t, "library": tl, "core_graph": tg,
+                                      "library_graph": tlg}
+        log(f"K1 {name} four GEMMs: core {t:.4f} ms, F.linear {tl:.4f} ms ({t / tl:.2f}x); "
+            f"device: core {tg:.4f}, F.linear {tlg:.4f} ({tg / tlg:.2f}x) x {count}")
+        del ops
+    return out
 
 
 def kernel_line(launches: dict, results: dict) -> dict:
@@ -1402,6 +1608,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
         log(f"K1 {name}: {t:.3f} ms (plain {tp:.3f}, bound {bt:.4f}) x {count}")
         del x, params, bias
         torch.cuda.empty_cache()
+    k1.update(k1_gemm_times())
 
     def entry(name, source, replaces, acc, err, library_ms, ms_per,
               per_forward=results["serve_launches_per_forward"], ms_timing="eager"):
@@ -1503,17 +1710,19 @@ def main() -> int:
     log(f"kernels built in {cuda_build.build_info['seconds']:.1f} s")
     for name, text in cuda_build.build_info["ptxas"].items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "Performance")):
                 log(f"ptxas {name}: {line.strip()}")
 
     results = {}
     check_k2(results)
     check_k1(results)
+    check_gemm_core(results)
     serve_flagship(results)
     check_k4(results)
     k4_launches = serve_dinov2(results)
     check_k3a(results)
     check_k3b(results)
+    check_k3b_determinism(results)
     check_k12_grad(results)
     launches = train_flagship(results)
     launches["K4"] = k4_launches  # K4's path is DinoV2 serving

@@ -18,142 +18,54 @@
 // inside the block, one rounding of the output.
 //
 // What bounds it: the four GEMMs carry 24 C^2 FLOPs per token (plus the
-// attention's 4 n C), so at the flagship shapes the block is bound by
-// tensor-core work; the intermediates (qkv, a, y, y2) make a round trip
-// through device memory, which the TPU kernel avoided and a later fused
-// design can remove. This first version is a tiled GEMM on bf16 tensor
-// cores (WMMA 16x16x16, f32 accumulate) fed by a two-stage cp.async ring,
-// with the bias, activation and output cast in its epilogue.
+// attention's 4 n C), so at stages 2-3 the block is bound by tensor-core
+// work; at stages 0-1 (C 128, 256) the intermediates' round trips through
+// device memory (qkv f32, a, x1, y, y2: ~78 C bytes a token) outweigh it.
+// The GEMMs run on the Hopper core of gemm_sm90.cuh: wgmma m64n128k16 fed by
+// a TMA producer warp through a five-stage ring of 128-byte-swizzled tiles,
+// persistent CTAs whose epilogue (bias, tanh gelu, the f32 or bf16 store)
+// works on the accumulator registers while the next tile's loads are in
+// flight. The wrapper caches the bf16 weights, so no cast runs per call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "gemm_sm90.cuh"
+
 typedef __nv_bfloat16 bf16;
 
 namespace {
-
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int GEMM_THREADS = 128;  // 4 warps, 2 x 2, each 32 x 32
-constexpr int LDA_S = BK + 8;      // bf16 row stride of the staged tiles
-constexpr int LDC_S = BN + 4;      // f32 row stride of the epilogue tile
-constexpr int STAGE_ELEMS = (BM + BN) * LDA_S;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_size = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_size));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float c = 0.7978845608028654f;  // sqrt(2 / pi)
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
-// Stage one BM x BK tile of A and one BN x BK tile of W (both K-contiguous).
-__device__ __forceinline__ void load_stage(bf16* st, const bf16* __restrict__ A,
-                                           const bf16* __restrict__ W, int M,
-                                           int N, int K, int m0, int n0,
-                                           int k0) {
-  bf16* as = st;
-  bf16* ws = st + BM * LDA_S;
-  // 8 bf16 (16 bytes) per copy; BM * BK / 8 = 256 copies per operand.
-  for (int idx = threadIdx.x; idx < BM * BK / 8; idx += GEMM_THREADS) {
-    int r = idx / (BK / 8), c = (idx % (BK / 8)) * 8;
-    int gk = k0 + c;
-    int gm = m0 + r;
-    bool pa = gm < M && gk < K;
-    cp_async16(as + r * LDA_S + c, pa ? A + (long long)gm * K + gk : A, pa);
-    int gn = n0 + r;
-    bool pw = gn < N && gk < K;
-    cp_async16(ws + r * LDA_S + c, pw ? W + (long long)gn * K + gk : W, pw);
+// The GEMMs' epilogue: C[row, col..col+1] = act(v + bias), f32 or bf16.
+struct BiasActEpi {
+  const float* bias;
+  void* c;
+  int ldc, act, c_bf16;
+  typedef float2 In;
+  static constexpr int GROUP = 8;  // bias pairs fetched ahead of the stores
+  __device__ __forceinline__ In fetch(int, int col) const {
+    return *reinterpret_cast<const float2*>(bias + col);
   }
-}
-
-// C[M, N] = act(A[M, K] W[N, K]^T + bias[N]); C is f32 or bf16, row-major.
-template <typename TOUT, int ACT>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                     const float* __restrict__ bias, TOUT* __restrict__ C,
-                     int M, int N, int K) {
-  __shared__ __align__(128) unsigned char smem[2 * STAGE_ELEMS * sizeof(bf16)];
-  bf16* stages = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int kt_total = (K + BK - 1) / BK;
-  load_stage(stages, A, W, M, N, K, m0, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < kt_total; ++kt) {
-    if (kt + 1 < kt_total) {
-      load_stage(stages + ((kt + 1) & 1) * STAGE_ELEMS, A, W, M, N, K, m0, n0,
-                 (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  __device__ __forceinline__ void store(int row, int col, float v0, float v1, In b) const {
+    v0 += b.x;
+    v1 += b.y;
+    if (act) {
+      v0 = gelu_tanh(v0);
+      v1 = gelu_tanh(v1);
     }
-    __syncthreads();
-    const bf16* as = stages + (kt & 1) * STAGE_ELEMS;
-    const bf16* ws = as + BM * LDA_S;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm + 16 * i) * LDA_S + kk, LDA_S);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], ws + (wn + 16 * j) * LDA_S + kk, LDA_S);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
+    const long long o = (long long)row * ldc + col;
+    if (c_bf16)
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(c) + o) = __floats2bfloat162_rn(v0, v1);
+    else
+      *reinterpret_cast<float2*>(static_cast<float*>(c) + o) = make_float2(v0, v1);
   }
-
-  // Epilogue through shared memory (the staging ring is free now).
-  float* cs = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm + 16 * i) * LDC_S + wn + 16 * j,
-                              acc[i][j], LDC_S, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < BM * BN; idx += GEMM_THREADS) {
-    int r = idx / BN, c = idx % BN;
-    int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N) {
-      float v = cs[r * LDC_S + c] + bias[gn];
-      if (ACT == 1) v = gelu_tanh(v);
-      if constexpr (sizeof(TOUT) == 2)
-        C[(long long)gm * N + gn] = __float2bfloat16(v);
-      else
-        C[(long long)gm * N + gn] = v;
-    }
-  }
-}
+};
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const bf16* p) {
@@ -196,47 +108,80 @@ __global__ void residual_layernorm_kernel(
 
 }  // namespace
 
-// C = act(A W^T + bias). A: (M, K) bf16, W: (N, K) bf16, bias: (N,) f32,
-// C: (M, N) f32 (c_bf16 = 0) or bf16. act: 0 none, 1 tanh gelu.
-// K must be a multiple of 8. Returns cudaGetLastError().
+// C = act(A W^T + bias). A: (M, K) bf16, W: (N, K) bf16, bias: (N,) f32
+// on 8 bytes, C: (M, N) f32 (c_bf16 = 0) or bf16. act: 0 none, 1 tanh
+// gelu. K must be a multiple of 8, N even, A and W on 16-byte boundaries.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int rf_gemm_bias_act(const void* A, const void* W, const float* bias,
                                 void* C, int c_bf16, int M, int N, int K,
                                 int act, void* stream) {
-  if (K % 8 != 0 || M < 1 || N < 1 || act < 0 || act > 1)
+  if (K % 8 != 0 || M < 1 || N < 1 || N % 2 || act < 0 || act > 1 ||
+      reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(W) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 8)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* a = static_cast<const bf16*>(A);
-  const bf16* w = static_cast<const bf16*>(W);
-  if (c_bf16) {
-    bf16* c = static_cast<bf16*>(C);
-    if (act) gemm_bias_act_kernel<bf16, 1><<<grid, GEMM_THREADS, 0, st>>>(a, w, bias, c, M, N, K);
-    else gemm_bias_act_kernel<bf16, 0><<<grid, GEMM_THREADS, 0, st>>>(a, w, bias, c, M, N, K);
-  } else {
-    float* c = static_cast<float*>(C);
-    if (act) gemm_bias_act_kernel<float, 1><<<grid, GEMM_THREADS, 0, st>>>(a, w, bias, c, M, N, K);
-    else gemm_bias_act_kernel<float, 0><<<grid, GEMM_THREADS, 0, st>>>(a, w, bias, c, M, N, K);
-  }
-  return (int)cudaGetLastError();
+  CUtensorMap ma, mb;
+  cudaError_t err = gemm90::tensor_map(&ma, A, K, M, K);
+  if (err == cudaSuccess) err = gemm90::tensor_map(&mb, W, K, N, K);
+  if (err != cudaSuccess) return (int)err;
+  const BiasActEpi epi{bias, C, N, act, c_bf16};
+  const gemm90::Operand oa{A, K}, ob{W, K};
+  return (int)gemm90::launch<BiasActEpi, true, true, true>(
+      ma, mb, oa, ob, gemm90::problem(M, N, K, 0, nullptr, nullptr), epi,
+      static_cast<cudaStream_t>(stream));
 }
 
-// out = res + LN(a). a: (M, C) f32; res: (M, C) f32 or bf16 (res_bf16);
-// out_f32 / out_bf16 may each be null. Returns cudaGetLastError().
-extern "C" int rf_residual_layernorm(const float* a, const void* res,
-                                     int res_bf16, const float* gamma,
-                                     const float* beta, float* out_f32,
-                                     void* out_bf16, int M, int C, float eps,
-                                     void* stream) {
-  if (M < 1 || C < 1) return (int)cudaErrorInvalidValue;
+namespace {
+
+cudaError_t gemm_bias_act(const void* A, const void* W, const float* bias, void* C, int c_bf16,
+                          int M, int N, int K, int act, cudaStream_t st) {
+  return (cudaError_t)rf_gemm_bias_act(A, W, bias, C, c_bf16, M, N, K, act, st);
+}
+
+cudaError_t residual_layernorm(const float* a, const void* res, int res_bf16, const float* gamma,
+                               const float* beta, float* out_f32, bf16* out_bf16, int M, int C,
+                               float eps, cudaStream_t st) {
   constexpr int ROWS = 8;
   dim3 grid((M + ROWS - 1) / ROWS);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* ob = static_cast<bf16*>(out_bf16);
   if (res_bf16)
     residual_layernorm_kernel<bf16><<<grid, ROWS * 32, 0, st>>>(
-        a, static_cast<const bf16*>(res), gamma, beta, out_f32, ob, M, C, eps);
+        a, static_cast<const bf16*>(res), gamma, beta, out_f32, out_bf16, M, C, eps);
   else
     residual_layernorm_kernel<float><<<grid, ROWS * 32, 0, st>>>(
-        a, static_cast<const float*>(res), gamma, beta, out_f32, ob, M, C, eps);
-  return (int)cudaGetLastError();
+        a, static_cast<const float*>(res), gamma, beta, out_f32, out_bf16, M, C, eps);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The block after its attention, steps 3-7, in one call: a = attn
+// W_proj^T + b_proj, x1 = x + LN1(a) (f32 and bf16), y = gelu(x1 W_fc1^T +
+// b_fc1) (bf16), y2 = y W_fc2^T + b_fc2, out = x1 + LN2(y2). x: (M, C) bf16
+// (x_bf16) or f32; attn: (M, C) bf16; the weights bf16 (out, in), the rest
+// f32; out: (M, C) bf16 (out_bf16) or f32. ws: 11 M C / 2 floats on 16
+// bytes (a, x1, x1 in bf16, y, y2); C a multiple of 8. Returns the first
+// CUDA error (0 on success).
+extern "C" int rf_swin_block_tail(const void* x, int x_bf16, const void* attn,
+                                  const void* wproj, const float* bproj, const float* g1,
+                                  const float* b1, const void* wfc1, const float* bfc1,
+                                  const void* wfc2, const float* bfc2, const float* g2,
+                                  const float* b2, void* out, int out_bf16, float* ws, int M,
+                                  int C, float eps, void* stream) {
+  if (M < 1 || C < 8 || C % 8 || reinterpret_cast<uintptr_t>(ws) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long mc = (long long)M * C;
+  float* a = ws;
+  float* x1 = a + mc;
+  bf16* x1b = reinterpret_cast<bf16*>(x1 + mc);
+  bf16* y = x1b + mc;
+  float* y2 = reinterpret_cast<float*>(y + 4 * mc);
+  cudaError_t err = gemm_bias_act(attn, wproj, bproj, a, 0, M, C, C, 0, st);
+  if (err == cudaSuccess)
+    err = residual_layernorm(a, x, x_bf16, g1, b1, x1, x1b, M, C, eps, st);
+  if (err == cudaSuccess) err = gemm_bias_act(x1b, wfc1, bfc1, y, 1, M, 4 * C, C, 1, st);
+  if (err == cudaSuccess) err = gemm_bias_act(y, wfc2, bfc2, y2, 0, M, C, 4 * C, 0, st);
+  if (err == cudaSuccess)
+    err = residual_layernorm(y2, x1, 0, g2, b2, out_bf16 ? nullptr : static_cast<float*>(out),
+                             out_bf16 ? static_cast<bf16*>(out) : nullptr, M, C, eps, st);
+  return (int)err;
 }

@@ -28,7 +28,7 @@ from routeformer_torch.models.layers.attention import Linear
 from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
 from routeformer_torch.ops.flash_attention import flash_window_attention
 from routeformer_torch.ops.image import condition_frames
-from routeformer_torch.ops.swin_block_fusion import fused_swin_block
+from routeformer_torch.ops.swin_block_fusion import derived, fused_swin_block
 
 LN_EPS = 1e-5  # timm/torch SwinV2 LayerNorm eps
 
@@ -168,24 +168,42 @@ class SwinBlock(nn.Module):
         return x
 
     def fused_params(self) -> dict:
+        """The fused block's parameters; the qkv bias and the logit scale
+        are derived once and reused until their sources change
+        (``derived``)."""
         a = self.attn
         return {
-            "wqkv": a.qkv.weight, "bqkv": a.qkv_bias(),
+            "wqkv": a.qkv.weight,
+            "bqkv": derived("qkv_bias", lambda *_: a.qkv_bias(), a.q_bias, a.v_bias),
             "wproj": a.proj.weight, "bproj": a.proj.bias,
             "ln1_scale": self.norm1.weight, "ln1_bias": self.norm1.bias,
             "wfc1": self.fc1.weight, "bfc1": self.fc1.bias,
             "wfc2": self.fc2.weight, "bfc2": self.fc2.bias,
             "ln2_scale": self.norm2.weight, "ln2_bias": self.norm2.bias,
-            "logit_scale": a.scale(),
+            "logit_scale": derived("logit_scale", lambda _: a.scale(), a.logit_scale),
         }
+
+    def fused_bias(self) -> torch.Tensor:
+        """The CPB position bias, plus the shift mask per window kind in a
+        shifted block (``derived``, as ``fused_params``)."""
+        a = self.attn
+
+        def make(*_):
+            bias = a.get_bias()
+            if self.attn_mask is not None:
+                bias = bias[None] + self.attn_mask[:, None]
+            return bias.contiguous()
+
+        sources = (a.cpb_fc1.weight, a.cpb_fc1.bias, a.cpb_fc2.weight)
+        if self.attn_mask is not None:
+            sources += (self.attn_mask,)
+        return derived("swin_bias", make, *sources)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, C)."""
         n, h, w, c = x.shape
         if self.gelu_approximate:
-            bias = self.attn.get_bias()
-            if self.attn_mask is not None:
-                bias = bias[None] + self.attn_mask[:, None]
+            bias = self.fused_bias()
             out = fused_swin_block(
                 self._partition(x), self.fused_params(), bias,
                 self.attn.n_heads, self.compute_dtype == torch.bfloat16,

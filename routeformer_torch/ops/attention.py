@@ -4,11 +4,11 @@
 - ``dot_product_attention``: dense softmax attention. With the JAX
   package's rule (``_use_flash``: ``L_k >= 512``, no dropout, no weights)
   it takes the fused route, K4 (``ops/flash_attention.py``); otherwise the
-  plain einsum path. On the card K4 reads the strided ``(B, L, H, E)``
-  views (the ViT's views of its qkv rows) in place and writes
-  ``(B, L, H, E_v)``; on the CPU its plain version runs on head-flattened
-  rows through ``flash_attention_bhle``, as the JAX route does. Only the
-  DinoV2 ViT at 518 px (1369 tokens) reaches the fused route.
+  plain einsum path. The fused route is ``dense_attention_blhe`` on both
+  devices: on the card K4 reads the strided ``(B, L, H, E)`` views (the
+  ViT's views of its qkv rows) in place and writes ``(B, L, H, E_v)``; on
+  the CPU its plain version runs on the same views. Only the DinoV2 ViT at
+  518 px (1369 tokens) reaches the fused route.
 - ``prob_sparse_attention``: Informer's ProbSparse attention in the JAX
   package's default "masked" formulation: dense scores and softmax for all
   queries, and each row keeps the dense output when its sparsity measure
@@ -27,7 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from routeformer_torch.ops.flash_attention import dense_attention_blhe, flash_attention_bhle
+from routeformer_torch.ops.flash_attention import dense_attention_blhe
 from routeformer_torch.utils.prng import prob_sparse_index_sample
 
 _NEG_INF = -1e30
@@ -71,22 +71,14 @@ def dot_product_attention(
     additive bias, which keeps its plain path, has no caller here."""
     if impl not in ("auto", "flash", "plain"):
         raise ValueError(f"impl must be 'auto', 'flash' or 'plain', got {impl!r}")
-    b, l_q, h, e = q.shape
-    l_k, e_v = v.shape[1], v.shape[3]
+    l_q, e, l_k = q.shape[1], q.shape[3], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(e)
     if impl == "flash" or (
         impl == "auto"
         and _use_flash(q, k, dropout_rate, deterministic=False, need_weights=False)
     ):
-        if q.device.type != "cpu":
-            # K4 reads the (B, L, H, E) views in place and writes (B, L, H, E_v).
-            return dense_attention_blhe(q, k, v, causal, scale)
-        # The plain version on head-flattened rows, as the JAX route calls it.
-        qf = q.transpose(1, 2).reshape(b * h, l_q, e)
-        kf = k.transpose(1, 2).reshape(b * h, l_k, e)
-        vf = v.transpose(1, 2).reshape(b * h, l_k, e_v)
-        out = flash_attention_bhle(qf, kf, vf, causal, scale)
-        return out.reshape(b, h, l_q, e_v).transpose(1, 2)
+        # K4 (its plain version on the CPU) on the (B, L, H, E) views.
+        return dense_attention_blhe(q, k, v, causal, scale)
     scores = torch.einsum("blhe,bshe->bhls", q, k).float()
     if causal:
         scores = scores.masked_fill(_causal_mask(l_q, l_k, q.device), _NEG_INF)

@@ -26,15 +26,15 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_PERCEIVE_ARGS = [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P]
-# C signatures of the entries in each source (all return an int CUDA error
-# code, except where RESTYPES says otherwise).
-RESTYPES = {"rf_perceive_workspace_floats": _LL}
+_PERCEIVE_ARGS = [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I]
+# C signatures of the entries in each source (each returns an int CUDA
+# error code).
 SIGNATURES = {
     "perceive_stack": {
-        "rf_perceive_workspace_floats": [_LL, _I, _I],
-        "rf_perceive_layer_fwd": [_P, _P, _P, _P, *_PERCEIVE_ARGS],
-        "rf_perceive_layer_bwd": [_P, _P, _P, _P, _P, *_PERCEIVE_ARGS],
+        "rf_perceive_layer_fwd": [_P, _P, _P, _P, *_PERCEIVE_ARGS, _P, _LL, _P],
+        "rf_perceive_layer_bwd": [_P, _P, _P, _P, _P, *_PERCEIVE_ARGS, _I, _P, _LL, _P],
+        "rf_perceive_gemm": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _P, _P, _I, _P, _F,
+                             _P, _I, _P, _I, _P, _P, _I, _P],
     },
     "window_attention": {
         "rf_window_attention": [_P, _P, _P, _I, _LL, _LL, _LL, _P, _I, _P, _P,
@@ -46,7 +46,7 @@ SIGNATURES = {
     },
     "swin_block": {
         "rf_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "rf_residual_layernorm": [_P, _P, _I, _P, _P, _P, _P, _I, _I, _F, _P],
+        "rf_swin_block_tail": [_P, _I, *[_P] * 12, _I, _P, _I, _I, _F, _P],
     },
 }
 
@@ -110,7 +110,7 @@ def libraries() -> dict:
                 lib = ctypes.CDLL(str(path))
                 for fn, argtypes in SIGNATURES[name].items():
                     getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
+                    getattr(lib, fn).restype = ctypes.c_int
                 libs[name] = lib
             _libs = libs
     return _libs

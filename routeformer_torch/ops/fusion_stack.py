@@ -12,8 +12,12 @@ out-projection with dropout, LayerNorm, the FFN with the erf gelu, LayerNorm.
 - K3a (``csrc/perceive_stack.cu``, ``rf_perceive_layer_fwd``) runs one
   layer forward over all rows; K3b (``rf_perceive_layer_bwd``) recomputes
   one layer from its saved input and returns dx and the 16 weight grads
-  summed over all rows in f32. ``launches_fwd`` / ``launches_bwd`` count
-  one per layer.
+  summed over all rows in f32, in a fixed order (two runs give the same
+  bits). Their GEMMs run on the Hopper GEMM core (``csrc/gemm_sm90.cuh``,
+  converting producer); ``split_rows`` and ``workspace_floats`` plan the
+  weight-gradient products' splits and the workspace, and ``gemm_core``
+  runs the layer's GEMM on its own. ``launches_fwd`` / ``launches_bwd``
+  count one per layer.
 - ``fused_perceive_stack`` wires them under autograd: ``backward="kernel"``
   runs K3b layer by layer in reverse from the per-layer inputs (the only
   residual); ``"hybrid"`` runs autograd over the plain layer forward.
@@ -28,6 +32,7 @@ accumulation, but p.v and the mean-V context f32 x f32.
 """
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -353,6 +358,7 @@ def attn_smem_bytes(l: int, dh: int) -> int:
     return 4 * (4 * l * (dh + 1) + l * (l + 1) + 2 * l)
 
 
+@functools.lru_cache(maxsize=None)
 def max_tokens(dh: int) -> int:
     """The largest L whose attention block fits shared memory (208 at the
     d128 / 8-head width)."""
@@ -396,10 +402,28 @@ def _layer_args(x, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
             _ACT[activation], int(compute_bf16)]
 
 
-def _workspace(lib, x, f):
-    r, l, d = x.shape
-    n = lib.rf_perceive_workspace_floats(r * l, d, f)
-    return torch.empty(n, dtype=torch.float32, device=x.device)
+SPLITS = 128  # about one split of a weight-gradient product per SM
+LN_BLOCKS = 128  # ``perceive_stack.cu``: partial sums of the LayerNorm backward
+
+
+def split_rows(m: int) -> int:
+    """Rows per split of K3b's weight-gradient products (X^T dY over ``m``
+    rows): a multiple of the GEMM core's 64-row k-step giving at most
+    ``SPLITS`` splits."""
+    return max(64, -(-(-(-m // SPLITS)) // 64) * 64)
+
+
+def workspace_floats(m: int, d: int, f: int, splits: int = 0) -> int:
+    """f32 workspace of one K3a (``splits`` 0) or K3b layer call over ``m``
+    rows: the intermediates, and for K3b each split's partial products and
+    column sums and the LayerNorm backward's partial sums
+    (``perceive_stack.cu`` ``carve``, which checks the size)."""
+    partials = splits * (4 * d * d + 2 * d * f + 5 * d + f)
+    return m * (16 * d + 3 * f) + partials + (4 * LN_BLOCKS * d if splits else 0)
+
+
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def layer_forward_cuda(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
@@ -414,13 +438,14 @@ def layer_forward_cuda(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
         raise ValueError("selection must be contiguous int8 (R, H, L)")
     lib = cuda_build.libraries()["perceive_stack"]
     y = torch.empty_like(x)
-    ws = _workspace(lib, x, wl[10].shape[-1])
+    n = workspace_floats(x.shape[0] * x.shape[1], x.shape[2], wl[10].shape[-1])
+    ws = torch.empty(n, dtype=torch.float32, device=x.device)
     err = lib.rf_perceive_layer_fwd(
         x.data_ptr(), y.data_ptr(), None if selection is None else selection.data_ptr(),
         _pointers(wl),
         *_layer_args(x, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
                      compute_bf16),
-        ws.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        ws.data_ptr(), n, _stream(x),
     )
     cuda_build.check(err, "perceive_layer_fwd")
     launches_fwd += 1
@@ -436,17 +461,77 @@ def layer_backward_cuda(x0, g, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
         raise ValueError("g must be contiguous f32 shaped like x")
     lib = cuda_build.libraries()["perceive_stack"]
     dx = torch.empty_like(x0)
-    grads = [torch.empty(w.shape, dtype=torch.float32, device=x0.device) for w in wl]
-    ws = _workspace(lib, x0, wl[10].shape[-1])
+    flat = torch.empty(sum(w.numel() for w in wl), dtype=torch.float32, device=x0.device)
+    grads = [g.view(w.shape) for g, w in zip(flat.split([w.numel() for w in wl]), wl)]
+    m = x0.shape[0] * x0.shape[1]
+    rows = split_rows(m)
+    n = workspace_floats(m, x0.shape[2], wl[10].shape[-1], -(-m // rows))
+    ws = torch.empty(n, dtype=torch.float32, device=x0.device)
     err = lib.rf_perceive_layer_bwd(
         x0.data_ptr(), g.data_ptr(), dx.data_ptr(), _pointers(wl), _pointers(grads),
         *_layer_args(x0, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
                      compute_bf16),
-        ws.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream(x0.device).cuda_stream),
+        rows, ws.data_ptr(), n, _stream(x0),
     )
     cuda_build.check(err, "perceive_layer_bwd")
     launches_bwd += 1
     return dx, tuple(grads)
+
+
+def gemm_core_plain(a, b, *, bias=None, act=None, mask=None, keep=1.0, aux=None,
+                    aux_act=None, res=None, compute_bf16=True):
+    """Plain version of ``gemm_core``: ``(c, pre)`` with the operands
+    rounded to bf16 (``compute_bf16``), f32 accumulation, then the layer's
+    epilogue in its order."""
+    v = _mm(a, b, torch.bfloat16 if compute_bf16 else torch.float32)
+    if bias is not None:
+        v = v + bias
+    pre = v
+    if act is not None:
+        v = act_fwd(v, act)
+    if mask is not None:
+        v = v * mask.float() * keep
+    if aux is not None:
+        v = v * act_grad(aux, aux_act)
+    if res is not None:
+        v = res + v
+    return v, pre
+
+
+def gemm_core(a, b, *, a_t=False, b_t=False, bias=None, act=None, mask=None, keep=1.0,
+              aux=None, aux_act=None, res=None, with_pre=False, split=None,
+              compute_bf16=True):
+    """The Perceive layers' GEMM on its own, on the card: ``c = epilogue(A
+    B)`` for f32 ``a`` (M, K) (``a_t``: ``a`` holds A^T, (K, M)) and ``b``
+    (K, N) (``b_t``: ``b`` holds B^T, (N, K)), each with unit stride along
+    its last dimension, through the GEMM core (``compute_bf16``) or the f32
+    FMA path. Returns ``c``, with ``with_pre`` also the pre-activation, and
+    with ``split`` (rows per split of K, a multiple of 64) the product split
+    over K as the weight grads are, reduced in order, and B's column sums:
+    ``(c, colsum)``, no epilogue."""
+    m, k = (a.shape[1], a.shape[0]) if a_t else a.shape
+    n = b.shape[0] if b_t else b.shape[1]
+    lib = cuda_build.libraries()["perceive_stack"]
+    c = torch.empty(m, n, dtype=torch.float32, device=a.device)
+    pre = torch.empty_like(c) if with_pre else None
+    colsum = torch.empty(n, dtype=torch.float32, device=a.device) if split else None
+    ws = (torch.empty(-(-k // split) * (m * n + n), dtype=torch.float32, device=a.device)
+          if split else None)
+    # A(i, j) = a[i sa + j sa'] and B(i, j) = b[i sb + j sb'] in elements
+    sa = (1, a.stride(0)) if a_t else (a.stride(0), 1)
+    sb = (1, b.stride(0)) if b_t else (b.stride(0), 1)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = lib.rf_perceive_gemm(
+        a.data_ptr(), *sa, b.data_ptr(), *sb, c.data_ptr(), m, n, k, ptr(bias), ptr(pre), _ACT.get(act, 0), ptr(mask),
+        ctypes.c_float(keep), ptr(aux), _ACT.get(aux_act, 0), ptr(res), split or 0,
+        ptr(ws), ptr(colsum), int(compute_bf16), _stream(a))
+    cuda_build.check(err, "perceive_gemm")
+    if split:
+        return c, colsum
+    return (c, pre) if with_pre else c
 
 
 # ------------------------------------------------------------------ #

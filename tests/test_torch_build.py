@@ -63,3 +63,18 @@ def test_signatures_match_the_c_entries(name):
     assert entries.keys() == cuda_build.SIGNATURES[name].keys()
     for fn, argtypes in cuda_build.SIGNATURES[name].items():
         assert entries[fn] == argtypes, fn
+
+
+@pytest.mark.parametrize("name", ["swin_block", "perceive_stack"])
+def test_gemm_core_header_is_hashed_into_k1_and_k3(tmp_path, monkeypatch, name):
+    """K1 and K3 include the Hopper GEMM core (``gemm_sm90.cuh``): an edit of
+    it renames (so rebuilds) both libraries."""
+    real = cuda_build.CSRC
+    assert '#include "gemm_sm90.cuh"' in (real / f"{name}.cu").read_text()
+    for f in real.iterdir():
+        (tmp_path / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = cuda_build._target(name)
+    assert cuda_build._target(name) == before
+    (tmp_path / "gemm_sm90.cuh").write_text((real / "gemm_sm90.cuh").read_text() + "\n")
+    assert cuda_build._target(name) != before

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3a, K3b and K4 against their plain versions on
-a card.
+"""The CUDA kernels K1, K2, K3a, K3b and K4, and the Hopper GEMM core that
+K1 and K3 share, against their plain versions on a card.
 
 Marked ``cuda``: without a card every test skips. The file imports no JAX,
 so it also runs where JAX is not installed:
@@ -25,6 +25,134 @@ def cuda_device():
 
 def _randn(gen, *shape, s=1.0):
     return torch.randn(*shape, generator=gen) * s
+
+
+def _max_err(got, want):
+    return (got.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+
+
+# The GEMMs of one SwinV2 block, (M, N, K, act, out dtype) per stage at batch
+# 1 (M = windows x tokens): qkv, proj, fc1 (tanh gelu), fc2; then ragged M,
+# N and K.
+K1_GEMMS = [(m, n, k, act, dt) for m, c in ((98304, 128), (24576, 256), (6144, 512),
+                                            (1536, 1024))
+            for n, k, act, dt in ((3 * c, c, 0, "float32"), (c, c, 0, "float32"),
+                                  (4 * c, c, 1, "bfloat16"), (c, 4 * c, 0, "float32"))]
+K1_GEMMS += [(1000, 200, 72, 1, "bfloat16"), (77, 130, 136, 0, "float32"),
+             (1000, 520, 72, 0, "float32")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,act,dtype", K1_GEMMS)
+def test_gemm_core_tma_matches_matmul(cuda_device, m, n, k, act, dtype):
+    """The core with its TMA producer (K1's bf16 operands) against
+    ``torch.matmul`` of the same bf16 values in f32 (exact products): f32
+    output within 1e-4 of its max (sums in another order), bf16 within 1e-2
+    (one rounding of the output)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(m + n + k)
+    a = _randn(g, m, k).to(cuda_device, torch.bfloat16)
+    w = _randn(g, n, k, s=k ** -0.5).to(cuda_device, torch.bfloat16)
+    bias = _randn(g, n, s=0.1).to(cuda_device)
+    out = torch.empty(m, n, dtype=getattr(torch, dtype), device=cuda_device)
+    got = swin_block_fusion.gemm_bias_act(a, w, bias, out, act)
+    want = swin_block_fusion.gemm_bias_act_plain(a, w, bias, act, torch.float32)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= (1e-2 if dtype == "bfloat16" else 1e-4)
+
+
+# The Perceive layers' GEMMs (M rows, D 128, F 256): X W, dY W^T and the
+# weight grads X^T dY split over the rows, at the frame, video and gaze
+# stacks' M; then ragged shapes. (M, N, K, a_t, b_t, split).
+K3_GEMMS = [g for m in (24960, 2560, 640) for g in (
+    (m, 128, 128, False, False, None), (m, 256, 128, False, False, None),
+    (m, 128, 256, False, True, None), (m, 256, 128, False, True, None),
+    (128, 384, m, True, False, fusion_stack.split_rows(m)),
+    (256, 128, m, True, False, fusion_stack.split_rows(m)))]
+K3_GEMMS += [(1000, 200, 72, False, False, None), (1000, 200, 72, False, True, None),
+             (200, 130, 1000, True, False, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,a_t,b_t,split", K3_GEMMS)
+@pytest.mark.parametrize("compute_bf16", [True, False], ids=["core", "f32"])
+def test_gemm_core_converting_matches_matmul(cuda_device, m, n, k, a_t, b_t, split,
+                                             compute_bf16):
+    """The core with its converting producer (K3's f32 operands, rounded to
+    bf16 as staged; "f32": the FMA check path) against the plain version:
+    within 1e-4 of the output's max (sums in another order); a product split
+    over its rows also gives B's column sums, within 1e-5 of the largest
+    column's sum of |B|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(m * n + k)
+    a = _randn(g, *((k, m) if a_t else (m, k))).to(cuda_device)
+    b = _randn(g, *((n, k) if b_t else (k, n)), s=k ** -0.5).to(cuda_device)
+    ops = dict(a_t=a_t, b_t=b_t, compute_bf16=compute_bf16)
+    am, bm = (a.t() if a_t else a), (b.t() if b_t else b)
+    want, _ = fusion_stack.gemm_core_plain(am, bm, compute_bf16=compute_bf16)
+    if split:
+        got, colsum = fusion_stack.gemm_core(a, b, split=split, **ops)
+        torch.cuda.synchronize()
+        assert (colsum - bm.sum(0)).abs().max() <= 1e-5 * bm.abs().sum(0).max()
+    else:
+        got = fusion_stack.gemm_core(a, b, **ops)
+        torch.cuda.synchronize()
+    assert _max_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", ["bias", "pre", "gelu", "relu", "mask", "aux gelu",
+                                    "aux relu", "res", "all"])
+def test_gemm_core_epilogue(cuda_device, option):
+    """Each option of the Perceive layers' epilogue (bias, the pre-activation,
+    act, mask * keep, act'(aux), residual) and all of them at once, on the
+    core at a ragged shape, against the plain version within 1e-4."""
+    g = torch.Generator().manual_seed(len(option))
+    m, n, k = 777, 258, 136
+    a = _randn(g, m, k).to(cuda_device)
+    b = _randn(g, k, n, s=k ** -0.5).to(cuda_device)
+    allopt = option == "all"
+    kw = {}
+    if option in ("bias", "pre", "all"):
+        kw["bias"] = _randn(g, n, s=0.1).to(cuda_device)
+    if option in ("gelu", "pre", "all"):
+        kw["act"] = "gelu"
+    if option == "relu":
+        kw["act"] = "relu"
+    if option in ("mask", "all"):
+        kw["mask"] = (torch.rand(m, n, generator=g) > 0.1).to(cuda_device, torch.int8)
+        kw["keep"] = 1 / 0.9
+    if option.startswith("aux") or allopt:
+        kw["aux"] = _randn(g, m, n).to(cuda_device)
+        kw["aux_act"] = "relu" if option == "aux relu" else "gelu"
+    if option in ("res", "all"):
+        kw["res"] = _randn(g, m, n).to(cuda_device)
+    want, want_pre = fusion_stack.gemm_core_plain(a, b, **kw)
+    got, pre = fusion_stack.gemm_core(a, b, with_pre=True, **kw)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= 1e-4
+    if option in ("pre", "all"):
+        assert _max_err(pre, want_pre) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,l", [(6, 65), (2, 160), (3, 40)])
+@pytest.mark.parametrize("compute_bf16", [True, False], ids=["bf16", "f32"])
+def test_perceive_backward_is_deterministic(cuda_device, r, l, compute_bf16):
+    """K3b twice on the same inputs: the same bits in dx and in all 16
+    weight grads (fixed-order sums, no atomics)."""
+    gen = torch.Generator().manual_seed(r + l)
+    x, w, masks, cnt = _stack_inputs(gen, r, l)
+    wl = tuple(t[0].to(cuda_device) for t in w)
+    ml = tuple(m[0].to(cuda_device) for m in masks)
+    xd, c = x.to(cuda_device), cnt[0].contiguous().to(cuda_device)
+    gd = _randn(gen, *x.shape).to(cuda_device)
+    kw = dict(heads=8, u=l, dropout_rate=0.05, activation="gelu", compute_bf16=compute_bf16)
+    dx1, dw1 = fusion_stack.layer_backward_cuda(xd, gd, wl, c, ml, **kw)
+    dx2, dw2 = fusion_stack.layer_backward_cuda(xd, gd, wl, c, ml, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(dx1, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(dw1, dw2))
 
 
 @pytest.mark.cuda

@@ -112,13 +112,15 @@ def test_use_flash_follows_the_jax_rule(monkeypatch, mode):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_dot_product_attention_routes_long_keys_to_k4(rng, monkeypatch, causal):
-    """``auto`` sends L_k >= 512 through K4's wrapper (its plain version on
-    the CPU) and shorter keys through the plain einsum path; both routes
-    match JAX's ``impl="flash"`` (interpret mode) in f32 at 2e-5."""
+    """``auto`` sends L_k >= 512 through K4's wrapper on the (B, L, H, E)
+    views, ``dense_attention_blhe`` (its plain version on the CPU, the same
+    route the card takes), and shorter keys through the plain einsum path;
+    both routes match JAX's ``impl="flash"`` (interpret mode) in f32 at
+    2e-5."""
     monkeypatch.delenv("ROUTEFORMER_FLASH", raising=False)
     calls = []
-    real = attention.flash_attention_bhle
-    monkeypatch.setattr(attention, "flash_attention_bhle",
+    real = attention.dense_attention_blhe
+    monkeypatch.setattr(attention, "dense_attention_blhe",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     for l in (40, 520):
         q, k, v = (rng.normal(size=(1, l, 2, 16)).astype(np.float32) for _ in range(3))
@@ -128,7 +130,7 @@ def test_dot_product_attention_routes_long_keys_to_k4(rng, monkeypatch, causal):
             want, _ = jax_attention.dot_product_attention(*map(jnp.asarray, (q, k, v)),
                                                           causal=causal, impl="flash")
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
-    assert calls == [(2, 520, 16)]
+    assert calls == [(1, 520, 2, 16)]
     attention.dot_product_attention(*map(torch.from_numpy, (q, k, v)), impl="plain")
     assert len(calls) == 1
     with pytest.raises(ValueError, match="impl"):

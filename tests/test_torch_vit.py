@@ -44,8 +44,8 @@ def long_preset(monkeypatch):
     monkeypatch.setitem(jax_vit.PRESETS, LONG, jax_vit.ViTPreset(96, 4, 32, 2, 4))
     monkeypatch.setitem(vit.PRESETS, LONG, vit.ViTPreset(96, 4, 32, 2, 4))
     calls = []
-    real = attention.flash_attention_bhle
-    monkeypatch.setattr(attention, "flash_attention_bhle",
+    real = attention.dense_attention_blhe
+    monkeypatch.setattr(attention, "dense_attention_blhe",
                         lambda *a: calls.append(a[0].shape) or real(*a))
     return calls
 
@@ -90,7 +90,7 @@ def test_vit_backbone_matches_jax(rng, long_preset, preset, dtype, hw):
         got = port(torch.from_numpy(x)).numpy()
     grid = 24 if preset == LONG else 4
     assert got.shape == want.shape == (3, grid, grid, 32)
-    assert long_preset == ([(12, 576, 8)] * 2 if preset == LONG else [])
+    assert long_preset == ([(3, 576, 4, 8)] * 2 if preset == LONG else [])
     if dtype == "float32":
         np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
         return
