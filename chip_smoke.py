@@ -39,18 +39,24 @@ Phases (any failure exits non-zero):
    (``build_dinov2``), through a bundle, three batch-1 and one batch-4
    request; 12 K4 launches and no K1/K2/K3a launch per forward; the card's
    forward against the CPU plain forward (exhaustive); request times, peak
-   memory and one profiled request; the fused Perceive stack refuses the
-   frame encoder's 1370 tokens before any launch.
+   memory and one profiled request, with the plain Perceive layers and with
+   the fused stack. Then a batch-1 request with the fused stack (K3a runs
+   the frame encoder at 1370 tokens: 24 K3a launches per forward, counts
+   set to 0 just before) against the plain-stack request, both exhaustive:
+   the frame encoder's output and the prediction within 5e-2.
 6. K3a (fused Perceive stack forward) against its plain version at every
-   stack geometry of the flagship train step, eval and train (dropout
-   masks at p = 0.05): bf16 with exhaustive ProbSparse and f32 with the
-   real u. With the real u, in f32 and bf16, the top-u selections that
-   differ (layer by layer and along the stack), how near each was to a
-   tie, and the error where none differs; in f32 a selection may differ
-   only at a near-tie. K3b (per-layer backward) against the plain backward
-   at the same geometries, and run twice on the same inputs: the same
-   bits in dx and every weight grad. K1/K2 gradients through their
-   autograd Functions against autograd of the plain versions.
+   stack geometry of the flagship train step and at the DinoV2 frame
+   encoder's (24, 1370), eval and train (dropout masks at p = 0.05): bf16
+   with exhaustive ProbSparse and f32 with the real u. With the real u, in
+   f32 and bf16, the top-u selections that differ (layer by layer and
+   along the stack), how near each was to a tie, and the error where none
+   differs; in f32 a selection may differ only at a near-tie. K3b
+   (per-layer backward) against the plain backward at the train step's
+   geometries; in bf16 with the real u, the selection K3b differentiated
+   against the one K3a made, every layer of a stack (no flip allowed);
+   K3b run twice on the same inputs: the same bits in dx and every weight
+   grad. K1/K2 gradients through their autograd Functions against
+   autograd of the plain versions.
 7. Flagship training with ``ROUTEFORMER_FUSION_KERNEL=1``: two steps at
    batch 16 on synthetic GEM clips at epoch 12; finite metrics, the
    non-backbone parameters move and the frozen backbone does not, and the
@@ -79,7 +85,9 @@ Phases (any failure exits non-zero):
    ``gemm_library_graph_ms`` as device time; ``gemm_stage_ms`` per stage. K3a's
    and K3b's ``attention_ms``, ``gemm_ms`` and ``rows_ms`` split their device
    time (torch.profiler) into the attention core, the GEMMs and the row
-   kernels (LayerNorms, the fixed-order reduction).
+   kernels (LayerNorms, the fixed-order reduction). K3a is timed as the
+   fused stack calls it, all 8 layers in one call; its ``dinov2_*`` keys
+   give the DinoV2 frame encoder's stack per batch-1 forward.
 9. Print ``{"ok": true, "device": {...}}`` as the last line.
 
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
@@ -154,6 +162,9 @@ K3_GEOMS = [("frame", 384, 65, 1), ("frame target", 288, 65, 1),
             ("video", 16, 160, 1), ("video target", 16, 120, 1),
             ("gaze", 16, 40, 2)]
 K3_BACKWARD = {"frame", "video", "gaze"}  # the stacks that backpropagate
+# The DinoV2 frame encoder's stack at batch-1 serving (K3a only: K3b's
+# attention block takes at most 208 tokens), once per forward.
+K3_DINO = ("dinov2 frame", 24, 1370, 1)
 K3_D, K3_F, K3_H, K3_N, K3_FACTOR, K3_P = 128, 256, 8, 8, 5, 0.05
 K3A_TOL = 2e-2  # max|kernel - plain| / max|plain| (the JAX fused-stack forward parity)
 K3B_TOL = 5e-2  # dx against its max, weight grads against one global scale
@@ -161,11 +172,21 @@ K3B_TOL = 5e-2  # dx against its max, weight grads against one global scale
 # and the largest distance of a differing selection from the top-u
 # boundary (of max|measure|): an f32 near-tie.
 K3A_F32_CLEAN_TOL, K3A_F32_TIE = 1e-4, 1e-4
+# bf16 with the real u, each layer from the plain layer input: the kernel's
+# q and k are its own QKV GEMM's f32 sums rounded to bf16, so one may land
+# one bf16 ulp from the plain version's and move the measure by about that
+# much: a selection may differ only within 2^-8 of the max measure of the
+# boundary (H100 readings <= 1.4e-3); the tokens where none differs within
+# 1e-2 of max|plain| (the K1/K2/K4 bf16 limit; readings <= 3.1e-3).
+K3A_BF16_CLEAN_TOL, K3A_BF16_TIE = 1e-2, 2 ** -8
 K12_GRAD_TOL = 1e-2  # the Functions' gradients against autograd of the plain versions
 # K4 on the DinoV2 serving path at batch 1: 24 frames x 12 heads, 1369
 # tokens, head width 64, one launch per ViT block.
 K4_SHAPE = (288, 1369, 64)
 K4_PER_FORWARD = 12
+# K3a per serving forward with the fused stack: the frame, video and gaze
+# encoders' 8 layers each (the DinoV2 frame encoder's at 1370 tokens).
+K3A_PER_FORWARD = 24
 K4_TOL = 1e-2  # max|kernel - plain| / max|plain|, as K1/K2
 # (BH, L, E, E_v, causal, dtype): the main shape, a causal ragged length,
 # E not a multiple of 16 with a narrower E_v, and f32 inputs.
@@ -610,10 +631,15 @@ KERNEL_TAGS = (("BiasActEpi", "K1 gemm"),
                ("window_attention_kernel", "K2 window_attention"),
                ("dense_attention", "K4 dense_attention"),
                ("gemm_kernel<(anonymous namespace)::Epi", "K3 gemm"),
+               ("gemm_kernel<(anonymous namespace)::NormEpi", "K3 gemm"),
+               ("gemm_kernel<(anonymous namespace)::FwdEpi", "K3 gemm"),
                ("gemm_f32_kernel", "K3 gemm"),
-               ("attn_fwd_kernel", "K3 attention"),
+               ("measure_mma_kernel", "K3 attention"),
+               ("measure_fma_kernel", "K3 attention"),
+               ("select_kernel", "K3 attention"),
                ("attn_bwd_kernel", "K3 attention"),
                ("layernorm_bwd_kernel", "K3 rows"),
+               ("to_bf16_kernel", "K3 rows"),
                ("::layernorm_kernel(", "K3 rows"),
                ("ReduceJobs", "K3 rows"))
 
@@ -798,23 +824,53 @@ def serve_dinov2(results: dict) -> int:
         log(f"DinoV2 request batch {b}: {out[f'request_ms_b{b}']:.2f} ms, "
             f"peak memory {out[f'peak_gib_b{b}']:.2f} GiB")
     out["profile"] = profile_request(serving, requests[0], out["request_ms_b1"])
+    out["fused"] = fused = {}
+    set_fusion("1")  # the same request through K3a: time and device time
+    fused["request_ms_b1"] = cuda_ms(lambda: serving(requests[0]), iters=5, warmup=1)
+    fused["profile"] = profile_request(serving, requests[0], fused["request_ms_b1"])
+    set_fusion("0")
     out["card_vs_cpu"] = card_vs_cpu(serving, "norm", requests[0])
-
-    # The fused Perceive stack takes at most 208 tokens: the frame encoder's
-    # 1370 are refused before any launch.
-    set_fusion("1")
-    before = launch_counts()
-    try:
-        serving(requests[0])
-    except ValueError as err:
-        assert "at most 208 tokens" in str(err), err
-        log(f"fused stack at 1370 tokens refused: {err}")
-    else:
-        raise AssertionError("the fused Perceive stack took 1370 tokens")
-    finally:
-        set_fusion("0")
-    assert launch_counts()["K3a"] == before["K3a"], "K3a launched at 1370 tokens"
+    serve_dinov2_fused(serving, requests[0], fused)
     return launches
+
+
+def serve_dinov2_fused(serving, batch, out: dict) -> None:
+    """A batch-1 DinoV2 request with the fused Perceive stack (K3a, the frame
+    encoder at 1370 tokens) against the plain-stack request, both
+    exhaustive (the model is, after ``card_vs_cpu``): the frame encoder's
+    output, the displacement and the dense features within FEATURE_TOL and
+    PRED_TOL; 24 K3a launches per forward (counts set to 0 just before,
+    read just after)."""
+    import torch
+
+    feats = {}
+
+    def capture(_module, _inp, o):
+        feats["frame"] = o.detach().float()
+
+    hook = serving.model.frame_encoder.register_forward_hook(capture)
+    set_fusion("0")
+    gps_plain, dense_plain = serving(batch)
+    frame_plain = feats["frame"]
+    set_fusion("1")
+    reset_counts()
+    gps, dense = serving(batch)
+    torch.cuda.synchronize()
+    per = launch_counts()
+    set_fusion("0")
+    hook.remove()
+    expected = {"K1": 0, "K2": 0, "K3a": K3A_PER_FORWARD, "K3b": 0, "K4": K4_PER_FORWARD}
+    last = torch.as_tensor(batch["gps"][:, -1:], device=gps.device)
+    errs = {"frame_encoder": rel_err(feats["frame"], frame_plain),
+            "displacement": rel_err(gps - last, gps_plain - last),
+            "dense": rel_err(dense, dense_plain)}
+    log(f"DinoV2 request with the fused stack (exhaustive): launches {per}; fused vs plain "
+        f"stack, max|diff|/max|plain|: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    assert per == expected, f"launches per fused DinoV2 forward {per}, expected {expected}"
+    assert errs["frame_encoder"] <= FEATURE_TOL, errs
+    assert errs["displacement"] <= PRED_TOL and errs["dense"] <= PRED_TOL, errs
+    assert torch.isfinite(gps).all() and torch.isfinite(dense).all()
+    out.update(launches_per_forward=per, **errs)
 
 
 def serving_requests(cfg) -> list:
@@ -946,7 +1002,7 @@ def check_k3a(results: dict) -> None:
 
     worst = 0.0
     results["k3a_selections"] = traces = {}
-    for name, r, l, _ in K3_GEOMS:
+    for name, r, l, _ in K3_GEOMS + [K3_DINO]:
         u = fs.prob_sparse_u(l, K3_FACTOR)
         for train in (False, True):
             x, w, masks, cnt = k3_inputs(r, l, seed=r * l + train, train=train)
@@ -970,12 +1026,69 @@ def check_k3a(results: dict) -> None:
                 traces[f"{name} {mode} {prec}"] = t
                 log(f"K3a {name} ({r}, {l}) {mode} {prec} u={u}, selections: "
                     + json.dumps(t))
+                fine = max(t["layer"]["err_clean_tokens"], t["chain"]["err_clean_rows"])
                 if prec == "f32":  # f32: a selection may differ only at a near-tie
-                    fine = max(t["layer"]["err_clean_tokens"], t["chain"]["err_clean_rows"])
                     near = max(t["layer"]["margin"], t["chain"]["margin"])
-                    if not (fine <= K3A_F32_CLEAN_TOL and near <= K3A_F32_TIE):
-                        raise AssertionError(f"K3a f32 selections: {t}")
+                    ok = fine <= K3A_F32_CLEAN_TOL and near <= K3A_F32_TIE
+                else:
+                    # bf16: the two chains' inputs part by bf16 roundings from
+                    # the first layer on, so only the layer mode compares the
+                    # measure on equal inputs.
+                    ok = fine <= K3A_BF16_CLEAN_TOL and t["layer"]["margin"] <= K3A_BF16_TIE
+                if not ok:
+                    raise AssertionError(f"K3a {prec} selections: {t}")
     results["k3a_max_abs_err"] = worst
+
+
+def check_k3a_measure(results: dict) -> None:
+    """bf16 with the real u at every K3a geometry, eval and train: the
+    selection of the tensor-core measure (``measure_mma_kernel``) against
+    the rank test ``#{j : m_j > m_i} < u`` of the measure rebuilt in f64
+    from the q|k the kernel stored (bf16, so the products are exact) and
+    the counts. Only the order of the kernel's f32 sums differs: a
+    selection may differ only within K3A_F32_TIE of the max measure of the
+    boundary."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    out = {}
+    for name, r, l, _ in K3_GEOMS + [K3_DINO]:
+        u = fs.prob_sparse_u(l, K3_FACTOR)
+        for train in (False, True):
+            x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 13 + train, train=train)
+            p = K3_P if train else 0.0
+            sel = torch.empty(r, K3_H, l, dtype=torch.int8, device="cuda")
+            fs.layer_forward_cuda(x, layer_of(w, 0), cnt[0].contiguous(), layer_of(masks, 0),
+                                  heads=K3_H, u=u, dropout_rate=p, activation="gelu",
+                                  compute_bf16=True, selection=sel)
+            torch.cuda.synchronize()
+            m, d = r * l, K3_D
+            qk = fs._workspaces[x.device][:m * d].view(torch.bfloat16).view(r, l, 2, K3_H, -1)
+            c = cnt[0].double()
+            flips, margin = 0, 0.0
+            for h in range(K3_H):
+                q, k = qk[:, :, 0, h].double(), qk[:, :, 1, h].double()
+                s = q @ k.transpose(-1, -2)
+                top = torch.where(c > 0, s, torch.full_like(s, -torch.inf)).amax(-1)
+                meas = top - (s * c).sum(-1) / l
+                s = meas.sort(-1, descending=True).values
+                want = meas >= s[:, u - 1:u]
+                gap = torch.where(want, meas - s[:, u:u + 1], s[:, u - 1:u] - meas)
+                differ = sel[:, h].bool() != want
+                flips += int(differ.sum())
+                if differ.any():
+                    rel = gap / meas.abs().amax(-1, keepdim=True)
+                    margin = max(margin, rel[differ].max().item())
+            key = f"{name} {'train' if train else 'eval'}"
+            out[key] = {"flips": flips, "margin": margin, "of": r * K3_H * l}
+            log(f"K3a {name} ({r}, {l}) {key.split()[-1]} bf16 u={u}: tensor-core selection "
+                f"vs the rank test of its stored q|k: " + json.dumps(out[key]))
+            if margin > K3A_F32_TIE or int(sel.sum(-1).min()) < u:
+                raise AssertionError(f"K3a's measure disagrees with its stored q|k: {out[key]}")
+            del x, w, masks, cnt, qk
+            torch.cuda.empty_cache()
+    results["k3a_measure_flips"] = {k: v["flips"] for k, v in out.items()}
 
 
 def check_k3b(results: dict) -> None:
@@ -1006,6 +1119,42 @@ def check_k3b(results: dict) -> None:
                 raise AssertionError(f"K3b disagrees with the plain backward: "
                                      f"{err_dx}, {diff_w / scale} > {K3B_TOL}")
     results["k3b_max_abs_err"] = worst
+
+
+def check_k3b_selection(results: dict) -> None:
+    """bf16 with the real u at every backward geometry, eval and train: the
+    selection K3b's recompute made and differentiated against K3a's on the
+    same layer input, through the 8 layers of a stack (each layer's input
+    the previous K3a output). Any flip fails."""
+    import torch
+
+    from routeformer_torch.ops import fusion_stack as fs
+
+    flips = {}
+    for name, r, l, _ in K3_GEOMS:
+        if name not in K3_BACKWARD:
+            continue
+        u = fs.prob_sparse_u(l, K3_FACTOR)
+        for train in (False, True):
+            x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 11 + train, train=train)
+            p = K3_P if train else 0.0
+            kw = dict(heads=K3_H, u=u, dropout_rate=p, activation="gelu", compute_bf16=True)
+            fwd = torch.empty(r, K3_H, l, dtype=torch.int8, device="cuda")
+            bwd = torch.empty_like(fwd)
+            n = 0
+            for i in range(K3_N):
+                wl, ml, c = layer_of(w, i), layer_of(masks, i), cnt[i].contiguous()
+                y = fs.layer_forward_cuda(x, wl, c, ml, selection=fwd, **kw)
+                fs.layer_backward_cuda(x, torch.ones_like(x), wl, c, ml, selection=bwd, **kw)
+                n += int((fwd != bwd).sum())
+                x = y
+            key = f"{name} {'train' if train else 'eval'}"
+            flips[key] = n
+            log(f"K3b vs K3a selections, {name} ({r}, {l}) {key.split()[-1]} bf16 u={u}, "
+                f"{K3_N} layers: {n} flips of {K3_N * r * K3_H * l}")
+    results["k3b_selection_flips"] = flips
+    if any(flips.values()):
+        raise AssertionError(f"K3b differentiated another selection than K3a made: {flips}")
 
 
 def check_k3b_determinism(results: dict) -> None:
@@ -1370,23 +1519,30 @@ def train_parity(results: dict) -> None:
 # ---------------------------------------------------------------- phase 8 #
 
 
-def k3_cost(r, l, u, backward):
-    """``(bf16 operations, f32 operations, bytes)`` of one K3a (or K3b)
-    layer call: the products' multiply-adds, p.v (and in the backward dv
-    and dp) over the selected queries in f32; x (and g) read, y (dx)
-    written, weights (and their grads), masks and counts once."""
+def k3_cost(r, l, u, nnz, layers, train, backward):
+    """``(bf16 operations, f32 operations, bytes)`` of one K3a stack call
+    of ``layers`` layers (or one K3b layer call), as the function needs
+    them: the projections' multiply-adds; the measure's scores at the
+    sampled keys only (``nnz``: the count matrices' nonzeros over the
+    layers); the selected queries' scores (bf16 operands) and p.v (f32),
+    and in the backward ds.k and ds^T.q (bf16) and dv and dp (f32). Bytes:
+    x (and g) read and y (dx) written once per call, each layer's weights
+    (and their grads), counts and, in training, masks once, and the layer
+    inputs the training stack keeps for K3b."""
     d, f = K3_D, K3_F
     m = r * l
     gemm = 2 * m * (4 * d * d + 2 * d * f)
-    qk = 2 * r * l * l * d
+    measure = 2 * r * nnz * d  # every head's scores at each query's sampled keys
     sel = 2 * r * u * l * d  # one (u x L) by (L x dh) product per head
     weights = 4 * (4 * d * d + 2 * d * f + 9 * d + f)
-    nbytes = 4 * 2 * m * d + m * (2 * d + f) + 4 * l * l + weights
+    per_layer = weights + 4 * l * l + (m * (2 * d + f) if train else 0)
     if not backward:
-        return gemm + qk, sel, nbytes
-    # recompute, dX and dW of the six projections, dq and dk (bf16
-    # operands), dv and dp (f32)
-    return 3 * gemm + qk + 2 * sel, 3 * sel, nbytes + 4 * m * d + weights
+        kept = 4 * m * d * layers if train else 0
+        return (layers * (gemm + sel) + measure, layers * sel,
+                4 * 2 * m * d + layers * per_layer + kept)
+    # recompute (measure and selection), dX and dW of the six projections
+    return (3 * gemm + measure + 3 * sel, 3 * sel,
+            4 * 3 * m * d + per_layer + weights)
 
 
 def device_parts(run, reps: int = 3) -> dict:
@@ -1403,12 +1559,32 @@ def device_parts(run, reps: int = 3) -> dict:
         torch.cuda.synchronize()
     groups, _ = device_groups(prof, reps)
     return {"attention_ms": groups.get("K3 attention", 0.0),
-            "gemm_ms": groups.get("K3 gemm", 0.0), "rows_ms": groups.get("K3 rows", 0.0)}
+            "gemm_ms": groups.get("K3 gemm", 0.0), "rows_ms": groups.get("K3 rows", 0.0),
+            "us_per_launch": launch_times(prof)}
+
+
+def launch_times(prof) -> dict:
+    """Device µs per launch of each K3 kernel in a torch.profiler run, by
+    name with its template arguments (a GEMM by its epilogue)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        label = next((label for tag, label in KERNEL_TAGS if tag in e.key), "")
+        if e.device_type != DeviceType.CUDA or t <= 0 or not label.startswith("K3"):
+            continue
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        out[name.removeprefix("void ")[:80]] = t / e.count
+    return out
 
 
 def k3_times() -> dict:
-    """K3a and K3b per flagship train step: kernel and plain times of one
-    layer at each geometry, times the layer calls per step."""
+    """K3a and K3b per flagship train step: K3a one stack call (8 layers,
+    as the fused stack runs it, keeping each layer's input for K3b) at each
+    geometry, K3b one layer call; kernel and plain times times the calls per
+    step (K3b: 8 per backward stack). K3a's ``dinov2_*`` keys: the DinoV2
+    frame encoder's stack (eval, one call) per batch-1 forward."""
     import torch
 
     from routeformer_torch.ops import fusion_stack as fs
@@ -1416,40 +1592,56 @@ def k3_times() -> dict:
     acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0,
                "attention_ms": 0.0, "gemm_ms": 0.0, "rows_ms": 0.0}
            for k in ("K3a", "K3b")}
-    for name, r, l, calls in K3_GEOMS:
+    for name, r, l, calls in K3_GEOMS + [K3_DINO]:
+        dino = name == K3_DINO[0]
         u = fs.prob_sparse_u(l, K3_FACTOR)
-        x, w, masks, cnt = k3_inputs(r, l, seed=1, train=True)
+        x, w, masks, cnt = k3_inputs(r, l, seed=1, train=not dino)
+        kw_stack = fs.kernel_weights(w)
+        p = 0.0 if dino else K3_P
         g = torch.randn_like(x)
         wl, ml, c = layer_of(w, 0), layer_of(masks, 0), cnt[0].contiguous()
-        kw = dict(heads=K3_H, u=u, dropout_rate=K3_P, activation="gelu")
-        runs = {"K3a": (lambda: fs.layer_forward_cuda(x, wl, c, ml, compute_bf16=True, **kw),
-                        lambda: fs.layer_forward(x, wl, c, ml, mm_dtype=torch.bfloat16, **kw),
-                        calls)}
+        kw = dict(heads=K3_H, u=u, dropout_rate=p, activation="gelu")
+        runs = {"K3a": (
+            lambda: fs.stack_forward_cuda(x, w, kw_stack, cnt, masks, compute_bf16=True,
+                                          keep_inputs=not dino, **kw),
+            lambda: fs.stack_reference(x, w, cnt, masks, compute_bf16=True, **kw),
+            calls, K3_N)}
         if name in K3_BACKWARD:
+            kw_layer = fs.KernelWeights(*(t[0] for t in kw_stack))
             runs["K3b"] = (
-                lambda: fs.layer_backward_cuda(x, g, wl, c, ml, compute_bf16=True, **kw),
+                lambda: fs.layer_backward_cuda(x, g, wl, c, ml, compute_bf16=True,
+                                               kernel_w=kw_layer, **kw),
                 lambda: fs.layer_backward(x, g, wl, c, ml, mm_dtype=torch.bfloat16, **kw),
-                1)
-        for kernel, (run, plain, n_calls) in runs.items():
+                K3_N, 1)
+        for kernel, (run, plain, n_calls, layers) in runs.items():
             t = cuda_ms(run)
             tp = cuda_ms(plain, iters=3, warmup=1)
             parts = device_parts(run)
-            bf, f32, nbytes = k3_cost(r, l, u, kernel == "K3b")
+            nnz = int((cnt[:layers] > 0).sum())
+            bf, f32, nbytes = k3_cost(r, l, u, nnz, layers, masks is not None,
+                                      kernel == "K3b")
             ops_s = bf / PEAK_BF16 + f32 / PEAK_F32
             bytes_s = nbytes / PEAK_BYTES
-            times = n_calls * K3_N
-            a = acc[kernel]
-            a["ms"] += times * t
-            a["plain_ms"] += times * tp
-            a["bound_ms"] += times * 1e3 * max(ops_s, bytes_s)
-            a["ops_s"] += times * ops_s
-            a["bytes_s"] += times * bytes_s
-            for key, val in parts.items():
-                a[key] += times * val
-            log(f"{kernel} {name} ({r}, {l}, u={u}): {t:.3f} ms per layer (plain {tp:.3f}, "
-                f"bound {1e3 * max(ops_s, bytes_s):.4f}; device: "
-                + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f") x {times}")
-        del x, w, masks, cnt, g
+            if dino:
+                acc[kernel].update(dinov2_ms=t, dinov2_plain_ms=tp,
+                                   dinov2_bound_ms=1e3 * max(ops_s, bytes_s),
+                                   dinov2_bound_by="operations" if ops_s >= bytes_s else "bytes",
+                                   dinov2_parts=parts)
+            else:
+                a = acc[kernel]
+                a["ms"] += n_calls * t
+                a["plain_ms"] += n_calls * tp
+                a["bound_ms"] += n_calls * 1e3 * max(ops_s, bytes_s)
+                a["ops_s"] += n_calls * ops_s
+                a["bytes_s"] += n_calls * bytes_s
+                for key, val in parts.items():
+                    if key != "us_per_launch":
+                        a[key] += n_calls * val
+            log(f"{kernel} {name} ({r}, {l}, u={u}), {layers} layer(s) a call: {t:.3f} ms "
+                f"(plain {tp:.3f}, bound {1e3 * max(ops_s, bytes_s):.4f}; device: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in parts.items() if k != "us_per_launch")
+                + f") x {n_calls}; µs per launch: " + json.dumps(parts["us_per_launch"]))
+        del x, w, masks, cnt, g, kw_stack, runs
         torch.cuda.empty_cache()
     return acc
 
@@ -1543,7 +1735,9 @@ def k2_times() -> dict:
 # (k3_times).
 EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms",
               "gemm_ms", "gemm_library_ms", "gemm_graph_ms", "gemm_library_graph_ms",
-              "gemm_stage_ms", "attention_ms", "rows_ms")
+              "gemm_stage_ms", "attention_ms", "rows_ms", "dinov2_ms", "dinov2_plain_ms",
+              "dinov2_bound_ms", "dinov2_bound_by", "dinov2_parts",
+              "dinov2_launches_per_forward")
 
 
 def k1_gemm_times() -> dict:
@@ -1626,6 +1820,8 @@ def kernel_line(launches: dict, results: dict) -> dict:
 
     k2 = k2_times()
     k3 = k3_times()
+    fused = results["dinov2"]["fused"]
+    k3["K3a"]["dinov2_launches_per_forward"] = fused["launches_per_forward"]["K3a"]
     k4 = k4_times()
     per_forward, per_step = "batch-1 serving forward", f"batch-{TRAIN_BATCH} train step"
     return {"kernels": [
@@ -1721,7 +1917,9 @@ def main() -> int:
     check_k4(results)
     k4_launches = serve_dinov2(results)
     check_k3a(results)
+    check_k3a_measure(results)
     check_k3b(results)
+    check_k3b_selection(results)
     check_k3b_determinism(results)
     check_k12_grad(results)
     launches = train_flagship(results)

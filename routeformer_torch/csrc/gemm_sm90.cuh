@@ -29,12 +29,22 @@
 //               contiguous index (scalar loads where rows are not 16-byte
 //               aligned), rounds to bf16 (the TPU kernel's point: operands
 //               "rounded to the compute type as they are staged") and stores
-//               into the swizzled layout. A K-contiguous tile is 128 rows of 64 k; an
+//               into the swizzled layout. A may also be bf16 already (K3b's
+//               att^T and a1^T, stored rounded by the forward): its values
+//               pass through unchanged. A K-contiguous tile is 128 rows of 64 k; an
 //               M- or N-contiguous tile is 64 k-rows of two 64-wide panels,
 //               which wgmma reads through its transpose bit, so X^T dY needs
 //               no transposed copy. For an N-contiguous f32 B it can also sum
 //               B's columns over the split's rows (the bias gradient of
 //               X^T dY), in a fixed order.
+//
+// The epilogue either finishes each output pair on its own (Epi::fetch and
+// Epi::store), or, for an Epi with ROW_NORM (K3's LayerNorm after the
+// out-projection and FFN2: N = 128, one tile's width), normalises whole
+// rows: it finishes every pair into the accumulator registers (the next
+// tile's first k-step overwrites them), sums each row's values and their
+// squares over the quad that holds it, and stores the row normalised
+// (Epi::value, Epi::store_norm).
 //
 // Shared memory layout of a stage (1024-byte aligned):
 //   K-major tile:  row r (m or n) at r * 128 bytes; 16-byte chunk c (k 8c..8c+7)
@@ -53,6 +63,7 @@
 #include <map>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 
 namespace gemm90 {
 
@@ -206,6 +217,34 @@ struct Staged {
   static constexpr int CPR = IN / 8, ROWS_PER_PASS = 128 / CPR;
   float v[8][8];
 
+  // bf16 source: 8 values (16 bytes) a lane, exact in f32, so the store
+  // rounds nothing.
+  __device__ __forceinline__ void load(const bf16* __restrict__ src, ll ld, int o0, int o_end,
+                                       int i0, int i_end) {
+    const int t = threadIdx.x % 128;
+    const int i = i0 + 8 * (t % CPR);
+    const bool full_chunk =
+        i + 8 <= i_end && ld % 8 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int o = o0 + t / CPR + ROWS_PER_PASS * q;
+      const bf16* p = src + (ll)o * ld + i;
+      if (o < o_end && full_chunk) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+        const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          v[q][2 * e] = __uint_as_float(w[e] << 16);
+          v[q][2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          v[q][e] = (o < o_end && i + e < i_end) ? __bfloat162float(p[e]) : 0.f;
+      }
+    }
+  }
+
   __device__ __forceinline__ void load(const float* __restrict__ src, ll ld, int o0, int o_end,
                                        int i0, int i_end) {
     const int t = threadIdx.x % 128;
@@ -266,13 +305,28 @@ __device__ __forceinline__ TileCoord tile_coord(const Problem& p, int t) {
   return c;
 }
 
+// Whether an epilogue normalises whole rows (Epi::ROW_NORM, absent: no).
+template <class E, class = void>
+struct row_norm : std::false_type {};
+template <class E>
+struct row_norm<E, std::void_t<decltype(E::ROW_NORM)>> : std::bool_constant<E::ROW_NORM> {};
+
+// The sum over the four lanes of a quad: one accumulator row.
+__device__ __forceinline__ float row_sum4(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // Epi finishes and stores the pair (row, col), (row, col + 1) of the
 // accumulated product (N is even) in two steps: `In in = epi.fetch(row,
 // col)` loads what the pair needs from memory (bias, residual, ...), then
 // `epi.store(row, col, v0, v1, in)`. The epilogue fetches for Epi::GROUP
 // pairs (a divisor of 16) before it stores any, so their loads overlap
-// instead of each waiting behind the previous pair's store.
-template <class Epi, bool TMA, bool A_K, bool B_K>
+// instead of each waiting behind the previous pair's store. A row-norm Epi
+// gives `float2 epi.value(row, col, v0, v1, in)`, the finished pair, and
+// `epi.store_norm(row, col, v0, v1, mean, inv_std)`. TA is the element type
+// of the converting producer's A (float or bf16).
+template <class Epi, bool TMA, bool A_K, bool B_K, class TA = float>
 __global__ void __launch_bounds__(threads<TMA>(), 1)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
             Operand a, Operand b, Problem p, Epi epi) {
@@ -312,9 +366,9 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
           if (wg == 0) {  // A
             Staged<A_K> sa;
             if constexpr (A_K)
-              sa.load(static_cast<const float*>(a.ptr), a.ld, tc.m * BM, p.M, k0, tc.k_end);
+              sa.load(static_cast<const TA*>(a.ptr), a.ld, tc.m * BM, p.M, k0, tc.k_end);
             else
-              sa.load(static_cast<const float*>(a.ptr), a.ld, k0, tc.k_end, tc.m * BM, p.M);
+              sa.load(static_cast<const TA*>(a.ptr), a.ld, k0, tc.k_end, tc.m * BM, p.M);
             sa.store(ta, false, cols);
           } else {  // B
             Staged<B_K> sb;
@@ -386,31 +440,68 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     // 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e.
     const int row0 = tc.m * BM + 64 * cw + 16 * warp + lane / 4;
     const int col0 = tc.n * BN + 2 * (lane % 4);
+    if constexpr (row_norm<Epi>::value) {  // whole rows: N == BN (the launch checks)
+      float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + 8 * h;
-      if (row >= p.M) continue;
-      if (p.partial) {
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= p.M) continue;
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          const int col = col0 + 8 * j;
-          if (col < p.N)
-            *reinterpret_cast<float2*>(p.partial + ((ll)tc.split * p.M + row) * p.N + col) =
-                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        for (int j0 = 0; j0 < BN / 8; j0 += Epi::GROUP) {
+          typename Epi::In in[Epi::GROUP];
+#pragma unroll
+          for (int j = 0; j < Epi::GROUP; ++j) in[j] = epi.fetch(row, col0 + 8 * (j0 + j));
+#pragma unroll
+          for (int j = 0; j < Epi::GROUP; ++j) {
+            const int col = col0 + 8 * (j0 + j);
+            const float2 v = epi.value(row, col, acc[4 * (j0 + j) + 2 * h],
+                                       acc[4 * (j0 + j) + 2 * h + 1], in[j]);
+            acc[4 * (j0 + j) + 2 * h] = v.x;
+            acc[4 * (j0 + j) + 2 * h + 1] = v.y;
+            s[h] += v.x + v.y;
+            ss[h] += v.x * v.x + v.y * v.y;
+          }
         }
-        continue;
       }
 #pragma unroll
-      for (int j0 = 0; j0 < BN / 8; j0 += Epi::GROUP) {
-        typename Epi::In in[Epi::GROUP];
+      for (int h = 0; h < 2; ++h) {
+        s[h] = row_sum4(s[h]);
+        ss[h] = row_sum4(ss[h]);
+        const float mean = s[h] / p.N;
+        const float inv = rsqrtf(fmaxf(ss[h] / p.N - mean * mean, 0.f) + epi.eps);
+        const int row = row0 + 8 * h;
+        if (row >= p.M) continue;
 #pragma unroll
-        for (int j = 0; j < Epi::GROUP; ++j)
-          if (col0 + 8 * (j0 + j) < p.N) in[j] = epi.fetch(row, col0 + 8 * (j0 + j));
+        for (int j = 0; j < BN / 8; ++j)
+          epi.store_norm(row, col0 + 8 * j, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1], mean, inv);
+      }
+    } else {
 #pragma unroll
-        for (int j = 0; j < Epi::GROUP; ++j) {
-          const int col = col0 + 8 * (j0 + j);
-          if (col < p.N)
-            epi.store(row, col, acc[4 * (j0 + j) + 2 * h], acc[4 * (j0 + j) + 2 * h + 1], in[j]);
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+        if (row >= p.M) continue;
+        if (p.partial) {
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = col0 + 8 * j;
+            if (col < p.N)
+              *reinterpret_cast<float2*>(p.partial + ((ll)tc.split * p.M + row) * p.N + col) =
+                  make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          }
+          continue;
+        }
+#pragma unroll
+        for (int j0 = 0; j0 < BN / 8; j0 += Epi::GROUP) {
+          typename Epi::In in[Epi::GROUP];
+#pragma unroll
+          for (int j = 0; j < Epi::GROUP; ++j)
+            if (col0 + 8 * (j0 + j) < p.N) in[j] = epi.fetch(row, col0 + 8 * (j0 + j));
+#pragma unroll
+          for (int j = 0; j < Epi::GROUP; ++j) {
+            const int col = col0 + 8 * (j0 + j);
+            if (col < p.N)
+              epi.store(row, col, acc[4 * (j0 + j) + 2 * h], acc[4 * (j0 + j) + 2 * h + 1], in[j]);
+          }
         }
       }
     }
@@ -500,14 +591,16 @@ inline Problem problem(int M, int N, int K, int k_chunk, float* partial, float* 
 
 // Launch on `st`: persistent, min(tiles, SMs) CTAs. With TMA, ma / mb are A's
 // (K x M, K contiguous) and B's (K x N, K contiguous) maps.
-template <class Epi, bool TMA, bool A_K, bool B_K>
+template <class Epi, bool TMA, bool A_K, bool B_K, class TA = float>
 cudaError_t launch(const CUtensorMap& ma, const CUtensorMap& mb, Operand a, Operand b,
                    const Problem& p, Epi epi, cudaStream_t st) {
   if (p.M < 1 || p.N < 1 || p.K < 1 || p.N % 2 || (p.splits > 1 && p.k_chunk % BK))
     return cudaErrorInvalidValue;
+  if (row_norm<Epi>::value && (p.N != BN || p.splits > 1 || p.partial))
+    return cudaErrorInvalidValue;
   const ll tiles = (ll)p.m_tiles * p.n_tiles * p.splits;
   if (tiles > (1ll << 30)) return cudaErrorInvalidValue;
-  auto kernel = gemm_kernel<Epi, TMA, A_K, B_K>;
+  auto kernel = gemm_kernel<Epi, TMA, A_K, B_K, TA>;
   static bool ready = false;  // the shared-memory opt-in, once per instantiation
   if (!ready) {
     cudaError_t err =

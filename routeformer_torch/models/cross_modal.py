@@ -33,12 +33,24 @@ from routeformer_torch.models.layers import (
 )
 from routeformer_torch.models.layers.encdec import LN_EPS
 from routeformer_torch.ops.fusion_stack import (
+    KernelWeights,
     StackWeights,
     fused_perceive_stack,
+    kernel_weights,
     make_dropout_masks,
     prob_sparse_u,
     sample_count_matrices,
 )
+from routeformer_torch.ops.weight_cache import derived
+
+# Each StackWeights field's parameter inside an EncoderLayer, in field order.
+_STACK_PATHS = [
+    f"{module}.{kind}"
+    for module in ("attention.query_projection", "attention.key_projection",
+                   "attention.value_projection", "attention.out_projection", "norm1",
+                   "ff1", "ff2", "norm2")
+    for kind in ("weight", "bias")
+]
 
 
 def torch_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
@@ -87,21 +99,31 @@ class PerceiveEncoder(nn.Module):
             return None
         return "hybrid" if mode in ("hybrid", "hybrid-interpret") else "kernel"
 
-    def stack_weights(self) -> StackWeights:
-        """The layers' parameters stacked over layers, (in, out) matrices."""
-        def stack(path):
-            ts = [operator.attrgetter(path)(layer) for layer in self.stacked_layers]
-            return torch.stack([t.t() if t.ndim == 2 else t for t in ts])
+    def _stack_params(self) -> list:
+        """Every layer's parameter of each ``StackWeights`` field, in field order."""
+        return [operator.attrgetter(path)(layer) for path in _STACK_PATHS
+                for layer in self.stacked_layers]
 
-        names = {"q": "attention.query_projection", "k": "attention.key_projection",
-                 "v": "attention.value_projection", "out": "attention.out_projection",
-                 "ff1": "ff1", "ff2": "ff2"}
-        return StackWeights(
-            **{f"w{k}": stack(f"{m}.weight") for k, m in names.items()},
-            **{f"b{k}": stack(f"{m}.bias") for k, m in names.items()},
-            ln1_scale=stack("norm1.weight"), ln1_bias=stack("norm1.bias"),
-            ln2_scale=stack("norm2.weight"), ln2_bias=stack("norm2.bias"),
-        )
+    def stack_weights(self) -> StackWeights:
+        """The layers' parameters stacked over layers, (in, out) matrices;
+        built once and reused until a parameter is replaced or updated in
+        place (``weight_cache.derived``; afresh while autograd records
+        through them)."""
+        def build(*params):
+            n = len(self.stacked_layers)
+            return StackWeights(*(
+                torch.stack([t.t() if t.ndim == 2 else t for t in params[i:i + n]])
+                for i in range(0, len(params), n)))
+
+        return derived("perceive_stack", build, *self._stack_params())
+
+    def kernel_weights(self) -> KernelWeights:
+        """K3a/K3b's derived weights (``fusion_stack.kernel_weights``),
+        cached as ``stack_weights`` but also while autograd records: the
+        kernels' backward returns the gradients of ``stack_weights``."""
+        return derived("perceive_kernel",
+                       lambda *params: kernel_weights(self.stack_weights()),
+                       *self._stack_params(), differentiable=False)
 
     def _run_fused_stack(self, x: torch.Tensor, backward: str) -> torch.Tensor:
         """ProbSparse key samples as the plain layers draw them (the fixed
@@ -125,6 +147,7 @@ class PerceiveEncoder(nn.Module):
             dropout_rate=self.dropout_rate if train_dropout else 0.0,
             activation=self.activation, compute_bf16=self.compute_bf16,
             backward=backward,
+            kernel_w=None if x.device.type == "cpu" else self.kernel_weights(),
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,8 @@ from routeformer_torch.models.layers.attention import Linear
 from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
 from routeformer_torch.ops.flash_attention import flash_window_attention
 from routeformer_torch.ops.image import condition_frames
-from routeformer_torch.ops.swin_block_fusion import derived, fused_swin_block
+from routeformer_torch.ops.swin_block_fusion import fused_swin_block
+from routeformer_torch.ops.weight_cache import derived
 
 LN_EPS = 1e-5  # timm/torch SwinV2 LayerNorm eps
 

@@ -26,13 +26,14 @@ NVCC_FLAGS = [
 ]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_PERCEIVE_ARGS = [_P, _P, _P, _P, _F, _I, _I, _I, _I, _I, _I, _I, _I]
 # C signatures of the entries in each source (each returns an int CUDA
 # error code).
 SIGNATURES = {
     "perceive_stack": {
-        "rf_perceive_layer_fwd": [_P, _P, _P, _P, *_PERCEIVE_ARGS, _P, _LL, _P],
-        "rf_perceive_layer_bwd": [_P, _P, _P, _P, _P, *_PERCEIVE_ARGS, _I, _P, _LL, _P],
+        "rf_perceive_stack_fwd": [_P, _P, _P, _P, _P, _P, _P, _LL, _P, _P, _P, _F,
+                                  *[_I] * 9, _P, _LL, _P],
+        "rf_perceive_layer_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F,
+                                  *[_I] * 8, _I, _P, _LL, _P],
         "rf_perceive_gemm": [_P, _LL, _LL, _P, _LL, _LL, _P, _I, _I, _I, _P, _P, _I, _P, _F,
                              _P, _I, _P, _I, _P, _P, _I, _P],
     },

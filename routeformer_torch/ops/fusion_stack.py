@@ -9,18 +9,29 @@ out-projection with dropout, LayerNorm, the FFN with the erf gelu, LayerNorm.
 - ``stack_reference`` / ``layer_forward`` are the plain forward, and
   ``layer_backward`` the plain backward: an explicit mirror of the JAX
   package's ``_layer_bwd`` (not autograd), the executable spec of K3b.
-- K3a (``csrc/perceive_stack.cu``, ``rf_perceive_layer_fwd``) runs one
-  layer forward over all rows; K3b (``rf_perceive_layer_bwd``) recomputes
-  one layer from its saved input and returns dx and the 16 weight grads
-  summed over all rows in f32, in a fixed order (two runs give the same
-  bits). Their GEMMs run on the Hopper GEMM core (``csrc/gemm_sm90.cuh``,
-  converting producer); ``split_rows`` and ``workspace_floats`` plan the
-  weight-gradient products' splits and the workspace, and ``gemm_core``
-  runs the layer's GEMM on its own. ``launches_fwd`` / ``launches_bwd``
-  count one per layer.
+  ``attention_core_tiled`` mirrors K3a's attention algorithm (the measure
+  accumulated over key tiles, the softmax and p.v only on the selected
+  queries); ``tiled=True`` runs the layers through it.
+- K3a (``csrc/perceive_stack.cu``, ``rf_perceive_stack_fwd``) runs all N
+  layers forward over all rows in one call, at any L whose measures fit a
+  block's shared memory (``max_tokens_fwd``); K3b (``rf_perceive_layer_bwd``)
+  recomputes one layer from its saved input with K3a's attention core,
+  differentiates the selection that core made, and returns dx and the 16
+  weight grads summed over all rows in f32, in a fixed order (two runs give
+  the same bits); its attention block holds an L x L tile and takes at most
+  ``max_tokens`` tokens. Their GEMMs run on the Hopper GEMM core
+  (``csrc/gemm_sm90.cuh``); ``kernel_weights`` derives the concatenated
+  q|k|v weights and the bf16 (out, in) copies of the forward's four weight
+  matrices that they read;
+  ``split_rows`` and ``workspace_floats`` plan the weight-gradient
+  products' splits and the workspace (one buffer per device, grown to the
+  largest call and reused: the calls run in order on the current stream),
+  and ``gemm_core`` runs the layer's GEMM on its own. ``launches_fwd`` /
+  ``launches_bwd`` count one per layer.
 - ``fused_perceive_stack`` wires them under autograd: ``backward="kernel"``
   runs K3b layer by layer in reverse from the per-layer inputs (the only
-  residual); ``"hybrid"`` runs autograd over the plain layer forward.
+  residual, which K3a writes into one (N, R, L, D) buffer); ``"hybrid"``
+  runs autograd over the plain layer forward.
 
 Tensors on the CPU take the plain versions; CUDA tensors take the kernels
 (a build or launch failure raises). ``StackWeights`` are in the JAX layout,
@@ -210,24 +221,56 @@ def attention_core(x, wq, bq, wk, bk, wv, bv, cnt, *, heads, u, mm_dtype):
     return _merge(att), (q, k, v, p, selected)
 
 
+def attention_core_tiled(x, wq, bq, wk, bk, wv, bv, cnt, *, heads, u, mm_dtype, tile=64):
+    """K3a's attention algorithm in plain PyTorch: the measure's sampled
+    sum and max accumulated over ``tile``-key tiles, the rank-test
+    selection, then the f32 softmax and p.v (f32 x f32) for the selected
+    queries only and the mean of V for the others. Returns the merged
+    attention output ``(C*L, D)`` f32 and the selection ``(C, H, L)``."""
+    c, l, d = x.shape
+    scale = float(np.float32(1.0 / math.sqrt(d // heads)))
+    xf = x.reshape(c * l, d)
+    q = _heads(_mm(xf, wq, mm_dtype) + bq.float(), c, l, heads).to(mm_dtype).float()
+    k = _heads(_mm(xf, wk, mm_dtype) + bk.float(), c, l, heads).to(mm_dtype).float()
+    v = _heads(_mm(xf, wv, mm_dtype) + bv.float(), c, l, heads)
+    cnt = cnt.float()
+    sampled_sum = torch.zeros(q.shape[:-1], dtype=torch.float32, device=x.device)
+    sampled_max = torch.full_like(sampled_sum, _NEG_INF)
+    for j0 in range(0, l, tile):
+        s = q @ k[..., j0:j0 + tile, :].transpose(-1, -2)  # (C, H, L, tile)
+        ct = cnt[:, j0:j0 + tile]
+        sampled_sum = sampled_sum + (s * ct).sum(-1)
+        sampled_max = torch.maximum(
+            sampled_max, torch.where(ct > 0.0, s, torch.full_like(s, _NEG_INF)).amax(-1))
+    m = sampled_max - sampled_sum / float(l)
+    selected = (m[..., :, None] < m[..., None, :]).sum(-1) < u  # (C, H, L)
+    att = v.mean(2, keepdim=True).expand_as(v).clone()
+    ci, hi, li = selected.nonzero(as_tuple=True)
+    s = torch.einsum("se,sje->sj", q[ci, hi, li], k[ci, hi]) * scale
+    att[ci, hi, li] = torch.einsum("sj,sje->se", torch.softmax(s, dim=-1), v[ci, hi])
+    return _merge(att), selected
+
+
 def _dropout(t, mask, keep):
     return t if mask is None else t * mask.float() * keep
 
 
 def layer_forward(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate, activation,
-                  mm_dtype, internals=False):
+                  mm_dtype, internals=False, tiled=False):
     """One encoder layer (EncoderLayer semantics) on ``(C, L, D)`` f32.
 
     ``masks_l`` is None or three int8 keep-masks of this layer; with
-    ``internals`` the recomputed intermediates are returned too."""
+    ``internals`` the recomputed intermediates are returned too; ``tiled``
+    computes the attention as K3a does (``attention_core_tiled``; its
+    internals then hold the selection ``(C, H, L)`` as ``saved``)."""
     (wq, bq, wk, bk, wv, bv, wout, bout, g1, b1,
      wff1, bff1, wff2, bff2, g2, b2) = wl
     c, l, d = x.shape
     keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if dropout_rate else None
     m1, m2, m3 = masks_l if masks_l is not None else (None, None, None)
     x = x.float()
-    att, saved = attention_core(x, wq, bq, wk, bk, wv, bv, cnt_l, heads=heads,
-                                u=u, mm_dtype=mm_dtype)
+    core = attention_core_tiled if tiled else attention_core
+    att, saved = core(x, wq, bq, wk, bk, wv, bv, cnt_l, heads=heads, u=u, mm_dtype=mm_dtype)
     new_x = (_mm(att, wout, mm_dtype) + bout.float()).reshape(c, l, d)
     x1 = x + _dropout(new_x, m1, keep)
     xn1 = ln_fwd(x1, g1, b1)
@@ -251,15 +294,16 @@ def _layer_weights(weights, i):
 
 
 def stack_reference(x, weights: StackWeights, cnt, masks, *, heads, u,
-                    dropout_rate, activation="gelu", compute_bf16=True):
-    """Plain forward: ``(R, L, D)`` -> ``(R, L, D)`` f32 through all N layers."""
+                    dropout_rate, activation="gelu", compute_bf16=True, tiled=False):
+    """Plain forward: ``(R, L, D)`` -> ``(R, L, D)`` f32 through all N
+    layers (``tiled``: K3a's attention algorithm)."""
     mm_dtype = torch.bfloat16 if compute_bf16 else torch.float32
     x = x.float()
     for i in range(weights.wq.shape[0]):
         x = layer_forward(x, _layer_weights(weights, i), cnt[i],
                           _layer_masks(masks, i), heads=heads, u=u,
                           dropout_rate=dropout_rate, activation=activation,
-                          mm_dtype=mm_dtype)
+                          mm_dtype=mm_dtype, tiled=tiled)
     return x
 
 
@@ -349,57 +393,119 @@ def _pointers(tensors):
 
 
 SMEM_BYTES = 232448  # shared memory one H100 block can have
+_SEL_THREADS, _SEL_WARPS = 128, 4  # K3a's select block (``perceive_stack.cu``)
 
 
 def attn_smem_bytes(l: int, dh: int) -> int:
-    """Shared memory of K3a/K3b's attention block (``perceive_stack.cu``
-    ``attn_smem_bytes`` with the backward's extra tile, which the kernels
-    check for both directions): q, k, v, g and the L x L f32 score tile."""
-    return 4 * (4 * l * (dh + 1) + l * (l + 1) + 2 * l)
+    """Shared memory of K3b's attention block (``perceive_stack.cu``
+    ``attn_smem_bytes``): q, k, v, g, the L x L f32 score tile and the
+    selection."""
+    return 4 * (4 * l * (dh + 1) + l * (l + 1) + l)
 
 
 @functools.lru_cache(maxsize=None)
 def max_tokens(dh: int) -> int:
-    """The largest L whose attention block fits shared memory (208 at the
-    d128 / 8-head width)."""
+    """The largest L whose K3b attention block fits shared memory (208 at
+    the d128 / 8-head width, below the DinoV2 frame encoder's 1370)."""
     l = 1
     while attn_smem_bytes(l + 1, dh) <= SMEM_BYTES:
         l += 1
     return l
 
 
-def _check_cuda(x, wl, cnt_l, masks_l, heads):
+def select_smem_bytes(l: int, dh: int) -> int:
+    """Shared memory of K3a's select block (``perceive_stack.cu``
+    ``select_smem_bytes``): the L measures, the selected queries and their
+    flags, and the k and v tiles and the queries, which do not grow with L
+    (head widths bucketed to 16, 32 or 64)."""
+    bucket = 16 if dh <= 16 else 32 if dh <= 32 else 64
+    tile = 4096 // bucket
+    return 4 * (2 * l + _SEL_WARPS * 64 + (2 * tile * (bucket + 1) + tile * bucket)
+                + _SEL_THREADS + 68) + l
+
+
+def max_tokens_fwd(dh: int) -> int:
+    """The largest L K3a takes: its rank test keeps the L measures in shared
+    memory (19,937 tokens at 16-wide heads)."""
+    fixed = select_smem_bytes(0, dh)
+    return (SMEM_BYTES - fixed) // (select_smem_bytes(1, dh) - fixed)
+
+
+def _check_width(x, heads):
     r, l, d = x.shape
-    f = wl[10].shape[-1]
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("the Perceive kernels take contiguous f32 (R, L, D) rows")
     if d % heads or d // heads > 64:
         raise ValueError(f"unsupported width D={d} with {heads} heads")
+    if d % 8:
+        raise ValueError(f"the Perceive kernels take D a multiple of 8, got D={d}")
+
+
+def _check_fwd(x, weights, cnt, masks, heads, compute_bf16=False):
+    """What K3a takes, checked once per stack call: f32 rows and weights on
+    x's device, (N, L, L) counts, (N, R, L, D|F|D) masks, L within
+    ``max_tokens_fwd``; with bf16 operands D = 128, one GEMM tile per row
+    (the LayerNorm epilogue)."""
+    r, l, d = x.shape
+    n, f = weights.wff1.shape[0], weights.wff1.shape[-1]
+    _check_width(x, heads)
+    if compute_bf16 and d != 128:
+        raise ValueError(f"the bf16 Perceive kernels take D = 128 (their LayerNorm runs in a "
+                         f"GEMM epilogue over one 128-wide tile), got D={d}")
+    if f % 8:
+        raise ValueError(f"the Perceive kernels take F a multiple of 8, got F={f}")
+    limit = max_tokens_fwd(d // heads)
+    if l > limit:
+        raise ValueError(f"K3a keeps the L measures of its rank test in shared memory and "
+                         f"takes at most {limit} tokens at D={d} with {heads} heads, got L={l}")
+    for w in weights:
+        if w.dtype != torch.float32 or not w.is_contiguous() or w.device != x.device:
+            raise ValueError("layer weights must be contiguous f32 on x's device")
+        if w.shape[0] != n:
+            raise ValueError("the stacked weights disagree on the number of layers")
+    if (cnt.shape != (n, l, l) or cnt.dtype != torch.float32 or not cnt[0].is_contiguous()
+            or cnt.device != x.device):
+        raise ValueError(f"cnt must be f32 ({n}, {l}, {l}), each layer contiguous")
+    if masks is not None:
+        for m, width in zip(masks, (d, f, d)):
+            if m.dtype != torch.int8 or m.shape != (n, r, l, width) or not m.is_contiguous():
+                raise ValueError("masks must be contiguous int8 (N, R, L, D|F|D)")
+
+
+def _check_bwd(x, heads):
+    """K3b's token cap, checked before any launch."""
+    l, d = x.shape[1], x.shape[2]
     limit = max_tokens(d // heads)
     if l > limit:
         raise ValueError(
-            f"the Perceive kernels keep an L x L score tile in shared memory and take "
-            f"at most {limit} tokens at D={d} with {heads} heads, got L={l}: use the "
-            f"plain layers (ROUTEFORMER_FUSION_KERNEL=0)")
-    for w in wl:
-        if w.dtype != torch.float32 or not w.is_contiguous() or w.device != x.device:
-            raise ValueError("layer weights must be contiguous f32 on x's device")
-    if cnt_l.shape != (l, l) or cnt_l.dtype != torch.float32 or not cnt_l.is_contiguous():
-        raise ValueError(f"cnt must be contiguous f32 ({l}, {l})")
-    if masks_l is not None:
-        for m, width in zip(masks_l, (d, f, d)):
-            if m.dtype != torch.int8 or m.shape != (r, l, width) or not m.is_contiguous():
-                raise ValueError("masks must be contiguous int8 (R, L, D|F|D)")
+            f"K3b (the Perceive stack's backward kernel) keeps an L x L score tile in "
+            f"shared memory and takes at most {limit} tokens at D={d} with {heads} heads, "
+            f"got L={l}: use the hybrid backward (ROUTEFORMER_FUSION_KERNEL=hybrid) or the "
+            f"plain layers (0)")
 
 
-def _layer_args(x, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
-                compute_bf16):
-    r, l, d = x.shape
-    keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if masks_l is not None else 1.0
-    m = masks_l if masks_l is not None else (None, None, None)
-    return [cnt_l.data_ptr(), *[None if t is None else t.data_ptr() for t in m],
-            ctypes.c_float(keep), r, l, d, wl[10].shape[-1], heads, u,
-            _ACT[activation], int(compute_bf16)]
+class KernelWeights(NamedTuple):
+    """What K3a/K3b read beside ``StackWeights``, derived from it."""
+
+    wqkv: torch.Tensor  # (N, D, 3D) f32: wq | wk | wv
+    bqkv: torch.Tensor  # (N, 3D) f32
+    wqkv_t: torch.Tensor  # (N, 3D, D) bf16, (out, in)
+    wout_t: torch.Tensor  # (N, D, D) bf16
+    wff1_t: torch.Tensor  # (N, F, D) bf16
+    wff2_t: torch.Tensor  # (N, D, F) bf16
+
+
+def kernel_weights(weights) -> KernelWeights:
+    """The kernels' derived weights from stacked (or one layer's) weights."""
+    wq, bq, wk, bk, wv, bv, wout, _, _, _, wff1, _, wff2 = tuple(weights)[:13]
+
+    def bf16_t(w):
+        return w.transpose(-1, -2).to(torch.bfloat16).contiguous()
+
+    with torch.no_grad():
+        wqkv = torch.cat([wq, wk, wv], -1).float().contiguous()
+        return KernelWeights(wqkv, torch.cat([bq, bk, bv], -1).float().contiguous(),
+                             bf16_t(wqkv), bf16_t(wout), bf16_t(wff1), bf16_t(wff2))
 
 
 SPLITS = 128  # about one split of a weight-gradient product per SM
@@ -413,66 +519,126 @@ def split_rows(m: int) -> int:
     return max(64, -(-(-(-m // SPLITS)) // 64) * 64)
 
 
-def workspace_floats(m: int, d: int, f: int, splits: int = 0) -> int:
+def _align4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def workspace_floats(m: int, d: int, f: int, heads: int, splits: int = 0) -> int:
     """f32 workspace of one K3a (``splits`` 0) or K3b layer call over ``m``
-    rows: the intermediates, and for K3b each split's partial products and
-    column sums and the LayerNorm backward's partial sums
-    (``perceive_stack.cu`` ``carve``, which checks the size)."""
+    rows: the forward's intermediates (with bf16 copies of the layer input
+    and of xn1 for the GEMMs), the measures and the int8 selection,
+    and for K3b the gradients, each split's partial products and column
+    sums and the LayerNorm backward's partial sums (``perceive_stack.cu``
+    ``carve``, which checks the size)."""
+    fwd = m * (9 * d + 2 * f) + _align4(m * heads) + _align4(-(-m * heads // 4))
+    if not splits:
+        return fwd
     partials = splits * (4 * d * d + 2 * d * f + 5 * d + f)
-    return m * (16 * d + 3 * f) + partials + (4 * LN_BLOCKS * d if splits else 0)
+    return fwd + m * (9 * d + f) + partials + 4 * LN_BLOCKS * d
+
+
+_workspaces = {}  # device -> the f32 workspace, grown to the largest call
+
+
+def _workspace(device, n: int) -> torch.Tensor:
+    buf = _workspaces.get(device)
+    if buf is None or buf.numel() < n:
+        _workspaces.pop(device, None)  # free the smaller one first
+        buf = _workspaces[device] = torch.empty(n, dtype=torch.float32, device=device)
+    return buf
 
 
 def _stream(x):
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def layer_forward_cuda(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
-                       activation, compute_bf16, selection=None):
-    """K3a: one layer forward over all rows on the card. ``selection``, if
-    given, is an int8 ``(R, H, L)`` tensor that receives the top-u picks."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def stack_forward_cuda(x, weights, kernel_w, cnt, masks, *, heads, u, dropout_rate,
+                       activation, compute_bf16, keep_inputs=False, selection=None):
+    """K3a: every layer of the stack over all rows in one call on the card.
+    ``weights`` stacked (N, ...) f32, ``kernel_w`` their ``kernel_weights``,
+    ``cnt`` (N, L, L) (a layer stride of 0 is kept), ``masks`` None or
+    (N, R, L, D|F|D) int8. Returns ``y`` and, with ``keep_inputs``, each
+    layer's input (N, R, L, D) (for K3b); ``selection``, if given, is an
+    int8 (N, R, H, L) tensor that receives every layer's top-u picks."""
     global launches_fwd
-    _check_cuda(x, wl, cnt_l, masks_l, heads)
-    if selection is not None and (selection.dtype != torch.int8
-                                  or selection.shape != (x.shape[0], heads, x.shape[1])
-                                  or not selection.is_contiguous()):
-        raise ValueError("selection must be contiguous int8 (R, H, L)")
+    _check_fwd(x, weights, cnt, masks, heads, compute_bf16)
+    r, l, d = x.shape
+    n, f = weights.wff1.shape[0], weights.wff1.shape[-1]
+    if selection is not None and (selection.dtype != torch.int8 or not selection.is_contiguous()
+                                  or selection.shape != (n, r, heads, l)):
+        raise ValueError("selection must be contiguous int8 (N, R, H, L)")
     lib = cuda_build.libraries()["perceive_stack"]
     y = torch.empty_like(x)
-    n = workspace_floats(x.shape[0] * x.shape[1], x.shape[2], wl[10].shape[-1])
-    ws = torch.empty(n, dtype=torch.float32, device=x.device)
-    err = lib.rf_perceive_layer_fwd(
-        x.data_ptr(), y.data_ptr(), None if selection is None else selection.data_ptr(),
-        _pointers(wl),
-        *_layer_args(x, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
-                     compute_bf16),
-        ws.data_ptr(), n, _stream(x),
-    )
-    cuda_build.check(err, "perceive_layer_fwd")
-    launches_fwd += 1
-    return y
+    xs = torch.empty(n, r, l, d, dtype=torch.float32, device=x.device) if keep_inputs else None
+    size = workspace_floats(r * l, d, f, heads)
+    ws = _workspace(x.device, size)
+    keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if masks is not None else 1.0
+    m = masks if masks is not None else (None, None, None)
+    err = lib.rf_perceive_stack_fwd(
+        x.data_ptr(), y.data_ptr(), _ptr(xs), _ptr(selection), _pointers(weights),
+        _pointers(kernel_w), cnt.data_ptr(), cnt.stride(0), *map(_ptr, m), ctypes.c_float(keep),
+        n, r, l, d, f, heads, u, _ACT[activation], int(compute_bf16), ws.data_ptr(), ws.numel(),
+        _stream(x))
+    cuda_build.check(err, "perceive_stack_fwd")
+    launches_fwd += n
+    return (y, xs) if keep_inputs else y
+
+
+def _one_layer(wl, cnt_l, masks_l):
+    """A layer's weights, counts and masks as a stack of one."""
+    return (StackWeights(*(w[None] for w in wl)), cnt_l[None],
+            None if masks_l is None else tuple(m[None] for m in masks_l))
+
+
+def layer_forward_cuda(x, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
+                       activation, compute_bf16, selection=None, kernel_w=None):
+    """K3a on one layer: ``stack_forward_cuda`` over a stack of one.
+    ``selection``, if given, is an int8 ``(R, H, L)`` tensor that receives
+    the top-u picks."""
+    weights, cnt, masks = _one_layer(wl, cnt_l, masks_l)
+    kernel_w = kernel_weights(weights) if kernel_w is None else kernel_w
+    return stack_forward_cuda(
+        x, weights, kernel_w, cnt, masks, heads=heads, u=u, dropout_rate=dropout_rate,
+        activation=activation, compute_bf16=compute_bf16,
+        selection=None if selection is None else selection[None])
 
 
 def layer_backward_cuda(x0, g, wl, cnt_l, masks_l, *, heads, u, dropout_rate,
-                        activation, compute_bf16):
-    """K3b: one layer backward from its saved input on the card."""
+                        activation, compute_bf16, selection=None, kernel_w=None):
+    """K3b: one layer backward from its saved input on the card. ``wl``
+    and ``kernel_w`` (``kernel_weights`` of the layer; derived when None)
+    carry no layer axis; ``selection``, if given, is an int8 ``(R, H, L)``
+    tensor that receives the selection the recompute made and the backward
+    differentiated."""
     global launches_bwd
-    _check_cuda(x0, wl, cnt_l, masks_l, heads)
+    weights, cnt, masks = _one_layer(wl, cnt_l, masks_l)
+    _check_fwd(x0, weights, cnt, masks, heads, compute_bf16)
+    _check_bwd(x0, heads)
+    r, l, d = x0.shape
     if g.shape != x0.shape or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError("g must be contiguous f32 shaped like x")
+    if selection is not None and (selection.dtype != torch.int8 or not selection.is_contiguous()
+                                  or selection.shape != (r, heads, l)):
+        raise ValueError("selection must be contiguous int8 (R, H, L)")
+    kernel_w = kernel_weights(wl) if kernel_w is None else kernel_w
     lib = cuda_build.libraries()["perceive_stack"]
     dx = torch.empty_like(x0)
     flat = torch.empty(sum(w.numel() for w in wl), dtype=torch.float32, device=x0.device)
-    grads = [g.view(w.shape) for g, w in zip(flat.split([w.numel() for w in wl]), wl)]
-    m = x0.shape[0] * x0.shape[1]
+    grads = [t.view(w.shape) for t, w in zip(flat.split([w.numel() for w in wl]), wl)]
+    m = r * l
     rows = split_rows(m)
-    n = workspace_floats(m, x0.shape[2], wl[10].shape[-1], -(-m // rows))
-    ws = torch.empty(n, dtype=torch.float32, device=x0.device)
+    ws = _workspace(x0.device, workspace_floats(m, d, wl[10].shape[-1], heads, -(-m // rows)))
+    keep = float(np.float32(1.0 / (1.0 - dropout_rate))) if masks_l is not None else 1.0
+    mk = masks_l if masks_l is not None else (None, None, None)
     err = lib.rf_perceive_layer_bwd(
-        x0.data_ptr(), g.data_ptr(), dx.data_ptr(), _pointers(wl), _pointers(grads),
-        *_layer_args(x0, wl, cnt_l, masks_l, heads, u, dropout_rate, activation,
-                     compute_bf16),
-        rows, ws.data_ptr(), n, _stream(x0),
-    )
+        x0.data_ptr(), g.data_ptr(), dx.data_ptr(), _ptr(selection), _pointers(wl),
+        _pointers(kernel_w), _pointers(grads), cnt_l.data_ptr(), *map(_ptr, mk),
+        ctypes.c_float(keep), r, l, d, wl[10].shape[-1], heads, u, _ACT[activation],
+        int(compute_bf16), rows, ws.data_ptr(), ws.numel(), _stream(x0))
     cuda_build.check(err, "perceive_layer_bwd")
     launches_bwd += 1
     return dx, tuple(grads)
@@ -539,27 +705,18 @@ def gemm_core(a, b, *, a_t=False, b_t=False, bias=None, act=None, mask=None, kee
 # ------------------------------------------------------------------ #
 
 
-def _run_layer_fwd(x, wl, cnt_l, masks_l, cfg):
-    heads, u, p, act, bf16 = cfg
-    if x.device.type == "cpu":
-        return layer_forward(x, wl, cnt_l, masks_l, heads=heads, u=u,
-                             dropout_rate=p, activation=act,
-                             mm_dtype=torch.bfloat16 if bf16 else torch.float32)
-    return layer_forward_cuda(x, wl, cnt_l, masks_l, heads=heads, u=u,
-                              dropout_rate=p, activation=act, compute_bf16=bf16)
-
-
-def _run_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg):
+def _run_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg, kernel_w):
     heads, u, p, act, bf16 = cfg
     if x0.device.type == "cpu":
         return layer_backward(x0, g, wl, cnt_l, masks_l, heads=heads, u=u,
                               dropout_rate=p, activation=act,
                               mm_dtype=torch.bfloat16 if bf16 else torch.float32)
     return layer_backward_cuda(x0, g, wl, cnt_l, masks_l, heads=heads, u=u,
-                               dropout_rate=p, activation=act, compute_bf16=bf16)
+                               dropout_rate=p, activation=act, compute_bf16=bf16,
+                               kernel_w=kernel_w)
 
 
-def _hybrid_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg):
+def _hybrid_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg, kernel_w):
     """Autograd over the plain layer forward (the hybrid backward)."""
     heads, u, p, act, bf16 = cfg
     with torch.enable_grad():
@@ -574,16 +731,30 @@ def _hybrid_layer_bwd(x0, g, wl, cnt_l, masks_l, cfg):
 
 class _FusedStack(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, cfg, backward, cnt, masks, x, *weights):
-        weights = tuple(w.detach().float().contiguous() for w in weights)
+    def forward(ctx, cfg, backward, cnt, masks, kernel_w, x, *weights):
+        heads, u, p, act, bf16 = cfg
+        weights = StackWeights(*(w.detach().float().contiguous() for w in weights))
         x = x.detach().float().contiguous()
-        inputs = []
-        for i in range(weights[0].shape[0]):
-            inputs.append(x)
-            x = _run_layer_fwd(x, _layer_weights(weights, i), cnt[i].contiguous(),
-                               _layer_masks(masks, i), cfg)
-        ctx.cfg, ctx.backward, ctx.cnt, ctx.masks = cfg, backward, cnt, masks
-        ctx.inputs, ctx.weights = inputs, weights
+        keep = any(ctx.needs_input_grad)
+        if x.device.type == "cpu":
+            inputs = []
+            for i in range(weights.wq.shape[0]):
+                inputs.append(x)
+                x = layer_forward(x, _layer_weights(weights, i), cnt[i], _layer_masks(masks, i),
+                                  heads=heads, u=u, dropout_rate=p, activation=act,
+                                  mm_dtype=torch.bfloat16 if bf16 else torch.float32)
+        else:
+            if keep and backward == "kernel":
+                _check_bwd(x, heads)  # before any launch
+            kernel_w = kernel_weights(weights) if kernel_w is None else kernel_w
+            x = stack_forward_cuda(x, weights, kernel_w, cnt, masks, heads=heads, u=u,
+                                   dropout_rate=p, activation=act, compute_bf16=bf16,
+                                   keep_inputs=keep)
+            if keep:
+                x, inputs = x
+        if keep:
+            ctx.cfg, ctx.backward, ctx.cnt, ctx.masks = cfg, backward, cnt, masks
+            ctx.inputs, ctx.weights, ctx.kernel_w = inputs, weights, kernel_w
         return x
 
     @staticmethod
@@ -593,12 +764,13 @@ class _FusedStack(torch.autograd.Function):
         n_layers = len(ctx.inputs)
         per_layer = [None] * n_layers
         for i in range(n_layers - 1, -1, -1):
+            kw = None if ctx.kernel_w is None else KernelWeights(*(t[i] for t in ctx.kernel_w))
             g, per_layer[i] = run(ctx.inputs[i], g, _layer_weights(ctx.weights, i),
                                   ctx.cnt[i].contiguous(), _layer_masks(ctx.masks, i),
-                                  ctx.cfg)
+                                  ctx.cfg, kw)
         dws = [torch.stack([per_layer[i][j] for i in range(n_layers)])
                for j in range(len(ctx.weights))]
-        return (None, None, None, None, g, *dws)
+        return (None, None, None, None, None, g, *dws)
 
 
 def prob_sparse_u(l: int, factor: int) -> int:
@@ -617,13 +789,16 @@ def fused_perceive_stack(
     activation: str = "gelu",
     compute_bf16: bool = True,
     backward: str = "kernel",
+    kernel_w: Optional[KernelWeights] = None,
 ) -> torch.Tensor:
     """The N-layer ProbSparse encoder stack, differentiable in x and weights.
 
     ``x`` ``(R, L, D)``; ``cnt`` ``(N, L, L)`` (``sample_count_matrices``);
     ``masks`` None or three int8 keep-masks ``(N, R, L, D|F|D)``;
     ``backward`` "kernel" (K3b per layer) or "hybrid" (autograd over the
-    plain layer forward). Returns ``(R, L, D)`` f32.
+    plain layer forward); ``kernel_w`` the kernels' derived weights
+    (``kernel_weights(weights)``, derived per call when None; the CPU path
+    reads none). Returns ``(R, L, D)`` f32.
     """
     if backward not in ("kernel", "hybrid"):
         raise ValueError(f"backward must be 'kernel' or 'hybrid', got {backward!r}")
@@ -634,4 +809,4 @@ def fused_perceive_stack(
     cfg = (heads, u, float(dropout_rate) if train else 0.0, activation,
            bool(compute_bf16))
     return _FusedStack.apply(cfg, backward, cnt.float(),
-                             tuple(masks) if train else None, x, *weights)
+                             tuple(masks) if train else None, kernel_w, x, *weights)

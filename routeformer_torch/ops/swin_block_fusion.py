@@ -23,11 +23,11 @@ fastest along the batch.
 
 import ctypes
 import math
-import weakref
 
 import torch
 
 from routeformer_torch.ops import cuda_build, flash_attention
+from routeformer_torch.ops.weight_cache import derived
 
 launches = 0
 LN_EPS = 1e-5
@@ -85,38 +85,6 @@ def fused_swin_block_plain(x_windows, params, bias, n_heads, compute_bf16=True):
 
 def _f32(t):
     return t.float().contiguous()
-
-
-_derived = {}  # (kind, id of each source) -> (stamps, weak references, value)
-
-
-def _stamp(t):
-    return t._version, t.data_ptr(), t.dtype, t.device, tuple(t.shape)
-
-
-def derived(kind, fn, *sources, differentiable=True):
-    """``fn(*sources)``, computed once and reused while every source is the
-    same tensor with the same ``_version`` (which every in-place update
-    bumps: an optimizer step, ``copy_`` in ``load_flax_params`` or
-    ``load_state_dict``) and storage. A ``differentiable`` value is
-    computed afresh while autograd records through a source, so its
-    gradient still reaches the source; any other is computed without
-    autograd (the kernel's bf16 weights: the block's backward recomputes
-    from the f32 parameters)."""
-    if any(s.is_inference() for s in sources) or (
-            differentiable and torch.is_grad_enabled()
-            and any(s.requires_grad for s in sources)):
-        return fn(*sources)
-    key = (kind, *map(id, sources))
-    stamps = tuple(map(_stamp, sources))
-    hit = _derived.get(key)
-    if hit is not None and hit[0] == stamps and all(r() is s for r, s in zip(hit[1], sources)):
-        return hit[2]
-    with torch.inference_mode(False), torch.no_grad():  # a normal tensor, reusable anywhere
-        value = fn(*sources)
-    refs = [weakref.ref(s, lambda _, key=key: _derived.pop(key, None)) for s in sources]
-    _derived[key] = (stamps, refs, value)
-    return value
 
 
 def _bf16_weights(params):

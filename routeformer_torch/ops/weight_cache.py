@@ -1,0 +1,41 @@
+"""Weights derived from parameters, kept from one call to the next.
+
+``derived`` is shared by the kernels' wrappers: K1's bf16 weights and
+position bias (``swin_block_fusion``) and the Perceive encoder's stacked
+and kernel weights (``models/cross_modal.py``, K3a/K3b).
+"""
+
+import weakref
+
+import torch
+
+_derived = {}  # (kind, id of each source) -> (stamps, weak references, value)
+
+
+def _stamp(t):
+    return t._version, t.data_ptr(), t.dtype, t.device, tuple(t.shape)
+
+
+def derived(kind, fn, *sources, differentiable=True):
+    """``fn(*sources)``, computed once and reused while every source is the
+    same tensor with the same ``_version`` (which every in-place update
+    bumps: an optimizer step, ``copy_`` in ``load_flax_params`` or
+    ``load_state_dict``) and storage. A ``differentiable`` value is
+    computed afresh while autograd records through a source, so its
+    gradient still reaches the source; any other is computed without
+    autograd (the kernel's bf16 weights: the block's backward recomputes
+    from the f32 parameters)."""
+    if any(s.is_inference() for s in sources) or (
+            differentiable and torch.is_grad_enabled()
+            and any(s.requires_grad for s in sources)):
+        return fn(*sources)
+    key = (kind, *map(id, sources))
+    stamps = tuple(map(_stamp, sources))
+    hit = _derived.get(key)
+    if hit is not None and hit[0] == stamps and all(r() is s for r, s in zip(hit[1], sources)):
+        return hit[2]
+    with torch.inference_mode(False), torch.no_grad():  # a normal tensor, reusable anywhere
+        value = fn(*sources)
+    refs = [weakref.ref(s, lambda _, key=key: _derived.pop(key, None)) for s in sources]
+    _derived[key] = (stamps, refs, value)
+    return value

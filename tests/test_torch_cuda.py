@@ -327,6 +327,148 @@ def test_perceive_layer_kernel_bf16_and_selection(cuda_device):
     assert int(sel.sum(-1).min()) >= 25  # ties are kept
 
 
+# K3a's geometries (rows, tokens): the flagship train step's five stacks and
+# the DinoV2 frame encoder at batch 1; K3b's three (the input-pass stacks).
+K3A_GEOMS = [(384, 65), (288, 65), (16, 160), (16, 120), (16, 40), (24, 1370)]
+K3B_GEOMS = [(384, 65), (16, 160), (16, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,l", K3A_GEOMS)
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_perceive_stack_forward_matches_plain(cuda_device, r, l, train):
+    """K3a, two layers in one call, against the plain stack on the card:
+    bf16 with exhaustive ProbSparse within 2e-2 of the output's max (a bf16
+    rounding may land on the other side), f32 within 1e-4; one launch
+    counted per layer."""
+    gen = torch.Generator().manual_seed(r + l)
+    x, w, masks, cnt = _stack_inputs(gen, r, l)
+    xd, wd, cd = x.to(cuda_device), fusion_stack.StackWeights(*[t.to(cuda_device) for t in w]), \
+        cnt.to(cuda_device)
+    md = tuple(m.to(cuda_device) for m in masks) if train else None
+    p = 0.05 if train else 0.0
+    for bf16, tol in ((True, 2e-2), (False, 1e-4)):
+        before = fusion_stack.launches_fwd
+        got = fusion_stack.fused_perceive_stack(xd, wd, cd, md, heads=8, factor=10 ** 6,
+                                                dropout_rate=p, compute_bf16=bf16)
+        assert fusion_stack.launches_fwd == before + 2
+        want = fusion_stack.stack_reference(xd, wd, cd, md, heads=8, u=l, dropout_rate=p,
+                                            compute_bf16=bf16)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) <= tol, bf16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,l", K3B_GEOMS)
+def test_perceive_backward_selection_is_the_forwards(cuda_device, r, l):
+    """bf16 with the real u: the selection K3b's recompute made and
+    differentiated is, query by query, the one K3a made on the same layer
+    input."""
+    gen = torch.Generator().manual_seed(3 * r + l)
+    x, w, masks, cnt = _stack_inputs(gen, r, l)
+    wl = tuple(t[0].to(cuda_device) for t in w)
+    ml = tuple(m[0].to(cuda_device) for m in masks)
+    xd, c = x.to(cuda_device), cnt[0].contiguous().to(cuda_device)
+    kw = dict(heads=8, u=fusion_stack.prob_sparse_u(l, 5), dropout_rate=0.05,
+              activation="gelu", compute_bf16=True)
+    fwd = torch.empty(r, 8, l, dtype=torch.int8, device=cuda_device)
+    bwd = torch.zeros_like(fwd)
+    fusion_stack.layer_forward_cuda(xd, wl, c, ml, selection=fwd, **kw)
+    fusion_stack.layer_backward_cuda(xd, torch.ones_like(xd), wl, c, ml, selection=bwd, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd, bwd)
+    assert int(fwd.sum(-1).min()) >= kw["u"]  # ties are kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,l", K3A_GEOMS)
+def test_perceive_bf16_selection_is_the_rank_test_of_stored_qk(cuda_device, r, l):
+    """bf16 with the real u: the selection of K3a's tensor-core measure is
+    the rank test ``#{j : m_j > m_i} < u`` (ties kept) of the measure
+    rebuilt in f64 from the bf16 q|k the kernel stored and the counts, the
+    products exact; only the order of the kernel's f32 sums differs, so a
+    selection may differ only within 1e-4 of the max measure of the
+    boundary."""
+    gen = torch.Generator().manual_seed(5 * r + l)
+    x, w, masks, cnt = _stack_inputs(gen, r, l)
+    wl = tuple(t[0].to(cuda_device) for t in w)
+    ml = tuple(m[0].to(cuda_device) for m in masks)
+    xd, c = x.to(cuda_device), cnt[0].contiguous().to(cuda_device)
+    h, u = 8, fusion_stack.prob_sparse_u(l, 5)
+    sel = torch.empty(r, h, l, dtype=torch.int8, device=cuda_device)
+    fusion_stack.layer_forward_cuda(xd, wl, c, ml, heads=h, u=u, dropout_rate=0.05,
+                                    activation="gelu", compute_bf16=True, selection=sel)
+    torch.cuda.synchronize()
+    ws = fusion_stack._workspaces[cuda_device if cuda_device.index is not None
+                                  else torch.device("cuda", torch.cuda.current_device())]
+    qk = ws[:r * l * 128].view(torch.bfloat16).view(r, l, 2, h, -1)
+    c = c.double()
+    assert int(sel.sum(-1).min()) >= u  # ties are kept
+    for head in range(h):
+        q, k = qk[:, :, 0, head].double(), qk[:, :, 1, head].double()
+        s = q @ k.transpose(-1, -2)
+        top = torch.where(c > 0, s, torch.full_like(s, -torch.inf)).amax(-1)
+        meas = top - (s * c).sum(-1) / l
+        srt = meas.sort(-1, descending=True).values
+        want = meas >= srt[:, u - 1:u]
+        gap = torch.where(want, meas - srt[:, u:u + 1], srt[:, u - 1:u] - meas)
+        near = gap <= 1e-4 * meas.abs().amax(-1, keepdim=True)
+        differ = sel[:, head].bool() != want
+        assert not (differ & ~near).any(), (head, int(differ.sum()))
+
+
+def _align4(n):
+    return -(-n // 4) * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,l", [(24, 65), (4, 1370)])
+def test_perceive_stored_bf16_operands_are_rounded_f32(cuda_device, r, l):
+    """K3a keeps q, k, att and a1 as bf16, since every consumer rounds them:
+    q|k and a1 are the bits of the same GEMM's f32 result rounded (its
+    epilogue alone, on ``gemm_core``), att the f32 attention of the stored
+    q, k and v (the selected queries' softmax and the mean of V), to one
+    bf16 ulp plus 2^-20 of max|v|: its f32 sums run in another order, which
+    matters where p.v cancels to near 0."""
+    gen = torch.Generator().manual_seed(l)
+    x, w, masks, cnt = _stack_inputs(gen, r, l)
+    wl = tuple(t[0].to(cuda_device) for t in w)
+    ml = tuple(m[0].to(cuda_device) for m in masks)
+    xd, c = x.to(cuda_device), cnt[0].contiguous().to(cuda_device)
+    d, f, h, m = 128, 256, 8, r * l
+    u = fusion_stack.prob_sparse_u(l, 5)
+    sel = torch.empty(r, h, l, dtype=torch.int8, device=cuda_device)
+    fusion_stack.layer_forward_cuda(xd, wl, c, ml, heads=h, u=u, dropout_rate=0.05,
+                                    activation="gelu", compute_bf16=True, selection=sel)
+    torch.cuda.synchronize()
+    ws = fusion_stack._workspaces[cuda_device if cuda_device.index is not None
+                                  else torch.device("cuda", torch.cuda.current_device())]
+    qk = ws[:m * d].view(torch.bfloat16).view(m, 2 * d)
+    v = ws[m * d:2 * m * d].view(m, d)
+    att_at = 3 * m * d + _align4(m * h) + _align4(-(-m * h // 4))
+    att = ws[att_at:att_at + m * d // 2].view(torch.bfloat16).view(m, d)
+    xn1 = ws[att_at + 2 * m * d:att_at + 3 * m * d].view(m, d)
+    a1_at = att_at + 3 * m * d + m * f
+    a1 = ws[a1_at:a1_at + m * f // 2].view(torch.bfloat16).view(m, f)
+    kw = fusion_stack.kernel_weights(wl)
+    qkv = fusion_stack.gemm_core(xd.view(m, d), kw.wqkv, bias=kw.bqkv)
+    assert torch.equal(qk, qkv[:, :2 * d].bfloat16())
+    assert torch.equal(v, qkv[:, 2 * d:])
+    keep = float(np.float32(1 / 0.95))
+    a1_f32 = fusion_stack.gemm_core(xn1, wl[10], bias=wl[11], act="gelu",
+                                    mask=ml[1].view(m, f), keep=keep)
+    assert torch.equal(a1, a1_f32.bfloat16())
+    q = qk[:, :d].float().view(r, l, h, -1).permute(0, 2, 1, 3)
+    k = qk[:, d:].float().view(r, l, h, -1).permute(0, 2, 1, 3)
+    vh = v.view(r, l, h, -1).permute(0, 2, 1, 3)
+    chosen = sel.bool()
+    mean = vh.mean(2, keepdim=True).expand_as(vh)
+    p = torch.softmax(q @ k.transpose(-1, -2) * 0.25, dim=-1)
+    want = torch.where(chosen[..., None], p @ vh, mean).permute(0, 2, 1, 3).reshape(m, d)
+    bound = want.abs() * 2 ** -7 + vh.abs().max() * 2 ** -20
+    assert ((att.float() - want).abs() <= bound).all()
+
+
 @pytest.mark.cuda
 def test_perceive_kernels_reject_what_they_do_not_take(cuda_device):
     gen = torch.Generator().manual_seed(1)
@@ -442,16 +584,22 @@ def test_dense_kernel_rejects_what_it_does_not_take(cuda_device):
 
 @pytest.mark.cuda
 def test_perceive_stack_refuses_too_many_tokens(cuda_device):
-    """K3a/K3b keep an L x L score tile in shared memory: at the DinoV2 frame
-    encoder's 1370 tokens the stack raises, naming the largest L, before
-    any launch."""
+    """At the DinoV2 frame encoder's 1370 tokens K3a runs (its core keeps no
+    L x L tile: one launch per layer), while K3b, whose attention block
+    keeps one, is refused: a kernel-backward stack that needs a gradient
+    raises, naming the cap, before any launch."""
     gen = torch.Generator().manual_seed(2)
     _, w, _, _ = _stack_inputs(gen, 1, 40)
     x = torch.zeros(2, 1370, 128)
     cnt = fusion_stack.sample_count_matrices(2, 1370, 1370, 40)
+    wd = fusion_stack.StackWeights(*[t.to(cuda_device) for t in w])
     before = fusion_stack.launches_fwd
+    y = fusion_stack.fused_perceive_stack(x.to(cuda_device), wd, cnt.to(cuda_device), None,
+                                          heads=8)
+    torch.cuda.synchronize()
+    assert fusion_stack.launches_fwd == before + 2 and torch.isfinite(y).all()
+    before = (fusion_stack.launches_fwd, fusion_stack.launches_bwd)
     with pytest.raises(ValueError, match="at most 208 tokens"):
         fusion_stack.fused_perceive_stack(
-            x.to(cuda_device), fusion_stack.StackWeights(*[t.to(cuda_device) for t in w]),
-            cnt.to(cuda_device), None, heads=8)
-    assert fusion_stack.launches_fwd == before
+            x.to(cuda_device).requires_grad_(True), wd, cnt.to(cuda_device), None, heads=8)
+    assert (fusion_stack.launches_fwd, fusion_stack.launches_bwd) == before

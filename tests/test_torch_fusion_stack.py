@@ -107,6 +107,54 @@ def test_plain_forward_matches_jax(r, l, d, f, n, bf16, train):
     _close(got.numpy(), kernel, bf16)
 
 
+# K3a's attention algorithm (``attention_core_tiled``): the shapes above and
+# one past K3b's 208-token cap.
+TILED_SHAPES = SHAPES + [(2, 240, 32, 64, 2)]
+TILED_HEADS = {32: 2}  # the L > 208 case: 16-wide heads as the flagship's
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,l,d,f,n", TILED_SHAPES)
+def test_tiled_forward_matches_jax(r, l, d, f, n, bf16, train):
+    """The plain mirror of K3a's algorithm (the measure over 64-key tiles,
+    the softmax and p.v only on the selected queries) against the JAX twin
+    ``stack_reference`` and the Pallas kernel in interpret mode."""
+    heads = TILED_HEADS.get(d, HEADS)
+    x, w, cnt, masks, u, p = _case(r * 100 + l, r, l, d, f, n, train)
+    got = fs.stack_reference(_torch(x), fs.StackWeights(*_torch(w)), _torch(cnt),
+                             _torch(masks), heads=heads, u=u, dropout_rate=p,
+                             compute_bf16=bf16, tiled=True)
+    twin = jfs.stack_reference(_jnp(x), jfs.StackWeights(*_jnp(w)), _jnp(cnt), _jnp(masks),
+                               heads=heads, u=u, dropout_rate=p, compute_bf16=bf16)
+    kernel = jfs.fused_perceive_stack(_jnp(x), jfs.StackWeights(*_jnp(w)), _jnp(cnt),
+                                      _jnp(masks), heads=heads, dropout_rate=p,
+                                      compute_bf16=bf16, interpret=True)
+    assert got.shape == (r, l, d) and got.dtype == torch.float32
+    _close(got.numpy(), twin, bf16)
+    _close(got.numpy(), kernel, bf16)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("r,l,d,f,n", TILED_SHAPES)
+def test_tiled_attention_core_matches_jax(r, l, d, f, n, bf16):
+    """One layer's attention output and selection from the tiled mirror
+    against JAX ``_attention_core`` on the same layer input (the selection
+    may differ only at a near-tie of the measure: none at these seeds)."""
+    heads = TILED_HEADS.get(d, HEADS)
+    x, w, cnt, _, u, _ = _case(r * 7 + l, r, l, d, f, n, False)
+    mm_t, mm_j = (torch.bfloat16, jnp.bfloat16) if bf16 else (torch.float32, jnp.float32)
+    wl = [a[0] for a in w[:6]]
+    got, sel = fs.attention_core_tiled(_torch(x), *_torch(wl), _torch(cnt[0]), heads=heads,
+                                       u=u, mm_dtype=mm_t)
+    wj = [jnp.asarray(a).astype(mm_j) if a.ndim == 2 else jnp.asarray(a) for a in wl]
+    want, saved = jfs._attention_core(jnp.asarray(x), *wj, jnp.asarray(cnt[0]), heads=heads,
+                                      u=u, mm_dtype=mm_j)
+    want_sel = np.stack([np.asarray(s)[..., 0] for s in saved[4]], axis=1)  # (C, H, L)
+    np.testing.assert_array_equal(sel.numpy(), want_sel)
+    _close(got.numpy().reshape(r, l, d), np.asarray(want), bf16)
+
+
 def _port_grads(x, w, cnt, masks, p, bf16, backward):
     xt = torch.from_numpy(x).requires_grad_(True)
     wt = [torch.from_numpy(a).requires_grad_(True) for a in w]
@@ -208,6 +256,78 @@ def test_wrapper_rejects_unknown_modes():
 
 
 @pytest.mark.parametrize("dh", [8, 16, 32, 64])
+def test_max_tokens_fwd_is_the_largest_l_that_fits(dh):
+    """K3a's token limit: the largest L whose select block (the rank test's
+    L measures in shared memory) fits, far above the DinoV2 frame
+    encoder's 1370 and K3b's cap."""
+    want = max(l for l in range(1, 40000, 1) if fs.select_smem_bytes(l, dh) <= fs.SMEM_BYTES)
+    assert fs.max_tokens_fwd(dh) == want
+    assert want > 1370 and want > fs.max_tokens(dh)
+
+
+def _stack_case(l, train):
+    x, w, cnt, masks, _, p = _case(l, 2, l, 64, 96, 2, train)
+    return (_torch(x), fs.StackWeights(*_torch(w)), _torch(cnt), _torch(masks), p)
+
+
+@pytest.mark.parametrize("l", [240, 1370])
+def test_checks_split_k3a_takes_long_rows_k3b_refuses(l):
+    """The split checks: K3a's check takes L past K3b's cap (1370 tokens at
+    16-wide heads); K3b's raises a ValueError naming its cap, and so does a
+    kernel-backward stack that needs a gradient, before any launch."""
+    x, w, cnt, masks, p = _stack_case(l, train=False)
+    fs._check_fwd(x, w, cnt, masks, heads=4)  # D 64 / 4 heads: 16-wide, as the flagship's
+    with pytest.raises(ValueError, match=f"at most {fs.max_tokens(16)} tokens"):
+        fs._check_bwd(x, heads=4)
+    before = fs.launches_bwd
+    with pytest.raises(ValueError, match="at most 208 tokens"):
+        fs.layer_backward_cuda(x, torch.zeros_like(x), tuple(t[0] for t in w), cnt[0], None,
+                               heads=4, u=10, dropout_rate=0.0, activation="gelu",
+                               compute_bf16=False)
+    assert fs.launches_bwd == before
+
+
+def test_checks_refuse_what_k3a_does_not_take():
+    x, w, cnt, masks, p = _stack_case(17, train=True)
+    fs._check_fwd(x, w, cnt, masks, heads=4)
+    with pytest.raises(ValueError, match="D = 128"):
+        fs._check_fwd(x, w, cnt, masks, heads=4, compute_bf16=True)
+    with pytest.raises(ValueError, match="f32"):
+        fs._check_fwd(x.double(), w, cnt, masks, heads=4)
+    with pytest.raises(ValueError, match="cnt"):
+        fs._check_fwd(x, w, cnt[:, :10], masks, heads=4)
+    with pytest.raises(ValueError, match="masks"):
+        fs._check_fwd(x, w, cnt, tuple(m[:1] for m in masks), heads=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, fs.max_tokens_fwd(16) + 1, 64)
+        fs._check_fwd(big, w, torch.zeros(2, 1, 1).expand(2, big.shape[1], big.shape[1]),
+                      None, heads=4)
+
+
+def test_kernel_weights_concatenate_and_transpose():
+    """The kernels' derived weights: q|k|v side by side in f32, and the
+    bf16 (out, in) matrices of the TMA-fed GEMMs, for a stack and for one
+    layer."""
+    x, w, cnt, masks, p = _stack_case(17, train=False)
+    kw = fs.kernel_weights(w)
+    assert kw.wqkv.shape == (2, 64, 192) and kw.bqkv.shape == (2, 192)
+    torch.testing.assert_close(kw.wqkv[1, :, 64:128], w.wk[1], rtol=0, atol=0)
+    torch.testing.assert_close(kw.bqkv[0, 128:], w.bv[0], rtol=0, atol=0)
+    assert kw.wout_t.dtype == kw.wff2_t.dtype == kw.wqkv_t.dtype == torch.bfloat16
+    assert kw.wff2_t.shape == (2, 64, 96) and kw.wff2_t.is_contiguous()
+    assert kw.wqkv_t.shape == (2, 192, 64) and kw.wff1_t.shape == (2, 96, 64)
+    torch.testing.assert_close(kw.wqkv_t[0].float(), kw.wqkv[0].t().bfloat16().float(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(kw.wff1_t[1].float(), w.wff1[1].t().bfloat16().float(),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(kw.wout_t[1].float(), w.wout[1].t().bfloat16().float(),
+                               rtol=0, atol=0)
+    one = fs.kernel_weights(tuple(t[1] for t in w))
+    for a, b in zip(one, kw):
+        torch.testing.assert_close(a, b[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
 def test_max_tokens_is_the_largest_l_that_fits(dh):
     """The token limit the kernels' wrappers raise at is the largest L whose
     attention block fits a block's shared memory (208 at the d128 / 8-head
@@ -268,6 +388,64 @@ def test_perceive_encoder_fused_matches_jax(rng, monkeypatch, mode, compute_dtyp
     scale = max(np.abs(g).max() for g in want_g.values())
     for k, g in want_g.items():
         assert np.abs(got_g[k] - g).max() <= tol * scale, k
+
+
+@pytest.mark.parametrize("compute_dtype,factor", [(None, 5), ("bfloat16", 1000)],
+                         ids=["f32-u", "bf16-exhaustive"])
+def test_perceive_encoder_fused_long_rows_match_jax(rng, monkeypatch, compute_dtype, factor):
+    """An encoder at 240 tokens (past K3b's cap, as the DinoV2 frame
+    encoder's 1370 are) with ROUTEFORMER_FUSION_KERNEL=1 against the JAX
+    encoder with its kernel in interpret mode, eval: f32 with the real u
+    (the fixed eval key sample, bit-exact in both) and bf16 exhaustive."""
+    monkeypatch.setenv("ROUTEFORMER_FUSION_KERNEL", "1")
+    kw = dict(factor=factor, d_model=32, n_heads=2, layers=2, d_ff=64, dropout=0.0,
+              compute_dtype=compute_dtype)
+    jax_enc = JaxPerceiveEncoder(5, 16, 4, rngs=nnx.Rngs(0), **kw)
+    port = PerceiveEncoder(5, 16, 4, **kw)
+    load_flax_params(port, export_params(jax_enc, rng))
+    assert port.fused_kernel_mode() == "kernel"
+    monkeypatch.setenv("ROUTEFORMER_FUSION_KERNEL", "interpret")
+    x = rng.normal(size=(2, 240, 5)).astype(np.float32)
+    jax_enc.eval()
+    port.eval()
+    want = np.asarray(jax_enc(jnp.asarray(x)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    tol = 2e-2 if compute_dtype else 1e-4
+    assert got.shape == want.shape == (2, 4, 16)
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+def test_perceive_encoder_caches_stacked_weights(rng):
+    """The encoder's stacked weights and the kernels' derived ones are built
+    once and reused; an in-place update of a layer parameter (an optimizer
+    step) and ``load_flax_params`` rebuild both with the new values; while
+    autograd records, the stacked weights are built afresh (their gradient
+    reaches the parameters) and the derived ones still come from the cache."""
+    _, port = _encoder_pair(rng, None)
+    with torch.no_grad():
+        w, kw = port.stack_weights(), port.kernel_weights()
+        assert port.stack_weights() is w and port.kernel_weights() is kw
+        torch.testing.assert_close(kw.wqkv, fs.kernel_weights(w).wqkv, rtol=0, atol=0)
+        port.stacked_layers[1].attention.key_projection.weight.mul_(2.0)
+        w2, kw2 = port.stack_weights(), port.kernel_weights()
+        assert w2 is not w and kw2 is not kw
+        torch.testing.assert_close(
+            w2.wk[1], port.stacked_layers[1].attention.key_projection.weight.t(), rtol=0, atol=0)
+        torch.testing.assert_close(kw2.wqkv[1, :, 64:128], w2.wk[1], rtol=0, atol=0)
+    fresh_jax, _ = _encoder_pair(rng, None)
+    load_flax_params(port, export_params(fresh_jax, rng))
+    with torch.no_grad():
+        w3, kw3 = port.stack_weights(), port.kernel_weights()
+        assert w3 is not w2 and kw3 is not kw2
+        torch.testing.assert_close(
+            w3.wq[0], port.stacked_layers[0].attention.query_projection.weight.t(), rtol=0, atol=0)
+        torch.testing.assert_close(kw3.wout_t, fs.kernel_weights(w3).wout_t, rtol=0, atol=0)
+    recorded = port.stack_weights()
+    assert recorded is not w3 and recorded.wq.requires_grad
+    assert port.kernel_weights() is kw3
+    recorded.wq.sum().backward()
+    assert port.stacked_layers[0].attention.query_projection.weight.grad is not None
 
 
 def test_perceive_encoder_switch_values(monkeypatch):

@@ -18,7 +18,7 @@ from routeformer_torch.models.video_backbone.swin import SwinBlock
 from routeformer_torch.ops import fusion_stack, swin_block_fusion
 from test_torch_models import export_params
 
-D, F = 128, 256
+D, F, H = 128, 256, 8
 CORE_K = 64  # the GEMM core's k-step (gemm_sm90.cuh BK)
 # Rows M = R L of every Perceive stack at the flagship train step (batch 16:
 # frame, frame target, video, video target, gaze) and at batch-1 serving.
@@ -41,11 +41,15 @@ def test_split_plan_covers_the_rows_within_limits(m):
     for mm, n in ((D, 3 * D), (D, D), (D, F), (F, D)):
         assert -(-mm // 128) * -(-n // 128) * splits < 2 ** 30
     assert -(-m // 64) <= 65535  # the FMA GEMM's grid.y (64-row tiles)
-    inter = m * (3 * D + D + D + D + F + F + D) + m * (D + D + F + D + D + D + D + 3 * D)
+    # qkv, att, x1, xn1, f1, a1, z, stage, bf16 copies of x and xn1; the
+    # measures (M H floats) and the int8 selection, each rounded up to 16 bytes
+    fwd = (m * (3 * D + D + D + D + F + F + D + D + D // 2 + D // 2) + -(-m * H // 4) * 4
+           + -(-m * H // 16) * 4)
+    bwd = m * (D + D + F + D + D + D + D + 3 * D)
     partials = splits * (D * 3 * D + D * D + D * F + F * D + 3 * D + D + F + D)
     ln = 2 * fusion_stack.LN_BLOCKS * 2 * D
-    assert fusion_stack.workspace_floats(m, D, F) == inter
-    assert fusion_stack.workspace_floats(m, D, F, splits) == inter + partials + ln
+    assert fusion_stack.workspace_floats(m, D, F, H) == fwd
+    assert fusion_stack.workspace_floats(m, D, F, H, splits) == fwd + bwd + partials + ln
 
 
 def _block(shift):
