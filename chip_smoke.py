@@ -67,11 +67,37 @@ Phases (any failure exits non-zero):
    loss, gradients and the update, with the Perceive stacks in the
    flagship's bf16, with the plain layers rounding as the fused stack
    does, and in f32 (``STEP_TOLS``).
+7b. The training run (``ROUTEFORMER_FUSION_KERNEL=1``, batch 16, GEM
+   geometry, the flagship at full width, through the driver's pieces:
+   ``full_comparison.build_models``/``build_data``/``build_trainer``/
+   ``run_epochs``, 3 train batches and 1 val batch an epoch). (1) A
+   ``ParallelTrainer`` holding the flagship alone against
+   ``build_flagship_training``'s step: the same seed weights, batches and
+   generator seeds, dropout off, exhaustive ProbSparse, two steps: the same
+   bits, or the first differing tensor and the ops without a deterministic
+   implementation named, within phase 7's limits. (2) Two cold epochs (the
+   backbone in every step, the MC eval, ``maybe_save``, ``save_latest``
+   after every step; launches counted from 0 just before and read just
+   after: 48 K1/K2/K3a a step and 24 per eval forward, 16-24 K3b a step);
+   the cold step and the MC eval timed. (3) Resume: a snapshot mid-epoch,
+   the next step, and a fresh trainer restoring it and taking the same
+   step: loss and parameters bit for bit, or the nondeterministic ops
+   named. (4) The MC eval twice: the same bits. (5) One step past the
+   unfreeze epoch at batch 16 (or the largest batch that fits): finite,
+   non-zero backbone gradients; time and peak memory. (6) Steady epochs
+   with ``USE_EMBEDDING_CACHE=device``: epoch 1 fills the memo, epoch 2
+   encodes 0 frames and launches 0 K1 (48 K3a a step); the memo's features
+   against the backbone's own within 1e-2 of max (and whether bit-equal);
+   a steady step's loss against the cold step's on the same batch within
+   1e-2 (dropout off, exhaustive); the steady step, the memo's encode and
+   gather timed. Each timing line stands beside the card's name and power
+   limit.
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
    step, K4 per batch-1 DinoV2 forward; bound and library time.
-   ``ms_timing`` says how each ``ms`` was taken: ``eager`` (back-to-back
+   ``training_run_launches`` gives K1-K4's launches in phase 7b's cold
+   and steady epochs. ``ms_timing`` says how each ``ms`` was taken: ``eager`` (back-to-back
    calls, the host's launch time included where it exceeds the kernel's)
    or ``graph`` (device time, the launches replayed from a CUDA graph).
    K2's ``ms`` is the path's variant (f32 strided views with each block's
@@ -1318,9 +1344,10 @@ def train_flagship(results: dict) -> dict:
     return launches
 
 
-def profile_step(run, step_ms: float, results: dict) -> None:
+def profile_step(run, step_ms: float, results: dict, key: str = "train_profile") -> dict:
     """Device time by kernel over one train step (torch.profiler) and the
-    device's idle share of the step time measured with CUDA events."""
+    device's idle share of the step time measured with CUDA events, kept
+    under ``results[key]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1339,8 +1366,9 @@ def profile_step(run, step_ms: float, results: dict) -> None:
         **kernel_shares(groups),
         "top_device_ms_per_step": {k[:80]: v for k, v in top},
     }
-    results["train_profile"] = line
-    log("train profile: " + json.dumps(line))
+    results[key] = line
+    log(f"{key}: " + json.dumps(line))
+    return line
 
 
 def quiet(model) -> None:
@@ -1514,6 +1542,458 @@ def train_parity(results: dict) -> None:
     set_fusion("1")
     del model, optimizer, step, state
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- phase 7b #
+
+# The training run: the driver's trainer, data and checkpoints at batch 16
+# (GEM geometry, the flagship at full width), 3 train batches and 1 val
+# batch per epoch.
+RUN_DIR = ROOT / "build" / "smoke_run"
+RUN_ENV = {"DATASET": "GEM", "MODEL_SET": "flagship", "BATCH_SIZE": str(TRAIN_BATCH),
+           "EPOCHS": "2", "SAVE_EVERY_STEPS": "1"}
+RUN_TRAIN, RUN_VAL = 3, 1
+# Launches per eval forward at batch 16 (the MC eval runs 5 a batch): one
+# backbone pass (24 K1, each with a K2) and 3 Perceive stacks (24 K3a).
+PER_EVAL_FORWARD = {"K1": 24, "K2": 24, "K3a": 24, "K3b": 0, "K4": 0}
+MC_SAMPLES = 5
+MEMO_TOL = 1e-2  # memo features vs the backbone's, of max: the K1 limit (bf16 store)
+STEADY_LOSS_TOL = 1e-2  # steady vs cold loss, relative (bf16 features)
+
+
+def reset_peak() -> None:
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def run_setup(dev, env=None):
+    """The driver's settings and data for the run (``RUN_TRAIN`` and
+    ``RUN_VAL`` batches) and a fresh results directory."""
+    from routeformer_torch.experiments import full_comparison as fc
+
+    s = fc.Settings.from_env(dict(RUN_ENV, RESULTS_DIR=str(RUN_DIR), **(env or {})))
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    train, val = fc.build_data(s)
+    return s, [train[i] for i in range(RUN_TRAIN)], [val[i] for i in range(RUN_VAL)]
+
+
+def step_launches(fn) -> dict:
+    import torch
+
+    before = launch_counts()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def params_of(models) -> dict:
+    return {n: p.detach().clone() for n, p in models.named_parameters()}
+
+
+def first_difference(got: dict, want: dict):
+    """The first tensor (in module order) whose bits differ, or None."""
+    import torch
+
+    return next((n for n in want if not torch.equal(got[n], want[n])), None)
+
+
+def name_nondeterminism(run) -> dict:
+    """``run()`` repeats a comparison and returns whether its bits matched.
+    First with cuDNN held to deterministic algorithms: if the bits then
+    match, the op is cuDNN's convolution backward. Else under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``, which
+    warns for each op without a deterministic CUDA implementation."""
+    import warnings
+
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        if run():
+            return {"op": "cuDNN convolution backward (the same bits with "
+                          "torch.backends.cudnn.deterministic = True)", "same_bits": True}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            bits = run()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split("\n")[0][:200] for w in caught
+                  if "deterministic" in str(w.message)})
+    return {"op": ops or "not named: no op warned", "same_bits": bits}
+
+
+def trainer_vs_step(results: dict, dev) -> None:
+    """A ``ParallelTrainer`` holding the flagship alone against
+    ``build_flagship_training``'s step: the same seed weights, batches and
+    generator seeds, dropout off, exhaustive ProbSparse, two steps past the
+    warmup. The same bits; else the first step (both from the same
+    weights) within phase 7's kernel-step limits, the first differing
+    tensor and the nondeterministic op named, and the two steps again with
+    that op held deterministic: the same bits. (The second step's gap is
+    reported, not limited: after one step the weights differ where AdamW
+    moved near-zero gradients by lr x their sign.)"""
+    import torch
+
+    import routeformer_torch as rt
+    from routeformer_torch.optimizers import build_optimizer
+    from routeformer_torch.train import ParallelTrainer
+
+    model, optimizer, step = rt.build_flagship_training(seed=0, device=dev)
+    mine = rt.build_flagship(seed=0, device=dev)
+    quiet(model)
+    quiet(mine)
+    trainer = ParallelTrainer(
+        {"flagship": mine},
+        lambda m: build_optimizer(m, learning_rate=1e-5, weight_decay=1e-4,
+                                  video_backbone_lr=1e-6, warmup_epochs=2, max_epochs=200,
+                                  gradient_clip_val=2.5),
+        mine.configs, unfreeze_epoch=None, device=dev)
+    trainer.epoch = TRAIN_EPOCH
+    state_a, state_b = params_of(model), params_of(mine)
+    report = {"steps": []}
+
+    def run_pair(seeds):
+        model.load_state_dict(state_a, strict=False)
+        mine.load_state_dict(state_b, strict=False)
+        for opt in (optimizer, trainer.optimizer):
+            opt.opt.state.clear()
+            opt.count = TRAIN_EPOCH
+        out = []
+        for seed in seeds:
+            inp, tgt = train_batches(seed)
+            torch.manual_seed(seed)
+            want = step(inp, tgt, TRAIN_EPOCH)["total_loss"]
+            torch.manual_seed(seed)
+            got = trainer.training_step({"train": inp, "target": tgt})["train_total_loss"]
+            want_g = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+            got_g = {n.split(".", 1)[1]: p.grad for n, p in trainer.models.named_parameters()}
+            gscale = max(g.abs().max().item() for g in want_g.values())
+            out.append({"loss": got.item(), "want_loss": want.item(),
+                        "loss_bits": bool(torch.equal(got, want)),
+                        "grad_rel": max((got_g[n] - g).abs().max().item()
+                                        for n, g in want_g.items()) / gscale,
+                        "first_grad_diff": first_difference(got_g, want_g),
+                        "first_param_diff": first_difference(
+                            {n.split(".", 1)[1]: p.detach()
+                             for n, p in trainer.models.named_parameters()},
+                            {n: p.detach() for n, p in model.named_parameters()})})
+        return out
+
+    def same_bits(steps) -> bool:
+        return all(s_["loss_bits"] and s_["first_param_diff"] is None for s_ in steps)
+
+    seeds = (31, 32)
+    report["steps"] = steps = run_pair(seeds)
+    report["same_bits"] = same_bits(steps)
+    if not report["same_bits"]:
+        first = steps[0]
+        assert (abs(first["loss"] - first["want_loss"]) <= STEP_LOSS_TOL * abs(first["want_loss"])
+                and first["grad_rel"] <= STEP_TOLS["bf16"]), report
+        report["nondeterminism"] = name_nondeterminism(lambda: same_bits(run_pair(seeds)))
+        assert report["nondeterminism"]["same_bits"], report
+    results["trainer_vs_step"] = report
+    log("trainer vs build_flagship_training's step: " + json.dumps(report))
+    del model, optimizer, step, mine, trainer, state_a, state_b
+    torch.cuda.empty_cache()
+
+
+def cold_epochs(results: dict, dev, smi: str):
+    """The main path of this slice: two cold epochs through the driver's
+    ``run_epochs`` (the backbone in every step, the MC eval, ``maybe_save``,
+    ``save_latest`` after every step), the launches counted from 0 just
+    before and read just after. Then the cold step's and the MC eval's
+    times. Returns the trainer, its checkpoint manager and the data."""
+    import torch
+
+    from routeformer_torch.experiments import full_comparison as fc
+    from routeformer_torch.train import CheckpointManager, MetricsLogger
+
+    set_fusion("1")
+    s, train, val = run_setup(dev)
+    trainer = fc.build_trainer(s, fc.build_models(s), dev)
+    ckpt = CheckpointManager(s.results_dir / "checkpoints")
+    metrics_logger = MetricsLogger(s.results_dir / "logs", experiment="smoke_run")
+    saves = []
+    save_latest = ckpt.save_latest
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save_latest(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+
+    ckpt.save_latest = timed_save
+    reset_peak()
+    reset_counts()  # the main path: counts set to 0 just before, read just after
+    history = fc.run_epochs(trainer, ckpt, metrics_logger, train, val, lambda b: b,
+                            epochs=s.epochs, save_every=s.save_every_steps)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    run_peak = peak_gib()
+    metrics_logger.close()
+    ckpt.save_latest = save_latest
+    steps, evals = s.epochs * RUN_TRAIN, s.epochs * RUN_VAL * MC_SAMPLES
+    if dev.type == "cuda":
+        for k in ("K1", "K2", "K3a", "K4"):
+            want = steps * PER_STEP[k][0] + evals * PER_EVAL_FORWARD[k]
+            assert launches[k] == want, f"cold epochs: {k} {launches[k]} launches, not {want}"
+        assert steps * 16 <= launches["K3b"] <= steps * 24, launches
+    for h in history:
+        values = [float(v) for v in h["val"].values()]
+        assert all(math.isfinite(v) for v in values), h
+    assert set(ckpt.best) == {fc.FLAGSHIP}
+    assert (s.results_dir / "checkpoints" / "_latest" / "position.json").exists()
+
+    b0 = train[0]
+    per_step = step_launches(lambda: trainer.training_step(b0))
+    reset_peak()
+    step_ms = cuda_ms(lambda: trainer.training_step(b0), iters=3, warmup=1)
+    step_peak = peak_gib()
+    profile = profile_step(lambda: trainer.training_step(b0), step_ms, results,
+                           key="run_cold_profile")
+    reset_peak()
+    eval_ms = cuda_ms(lambda: trainer.eval_batch_raw(val[0]), iters=2, warmup=1)
+    eval_peak = peak_gib()
+    out = {
+        "epochs": [{"epoch": h["epoch"], "seconds": h["seconds"],
+                    "val_ade": float(h["val"][f"val_{fc.FLAGSHIP}_ade"])} for h in history],
+        "launches": launches, "run_peak_gib": run_peak,
+        "save_latest_s": saves, "best": ckpt.best,
+        "cold_step_ms": step_ms, "cold_step_peak_gib": step_peak,
+        "cold_step_device_busy_ms": profile["device_busy_ms_per_step"],
+        "cold_step_idle_share": profile["idle_share"],
+        "cold_launches_per_step": per_step,
+        "mc_eval_ms_per_batch": eval_ms, "mc_eval_peak_gib": eval_peak,
+    }
+    results["run_cold"] = out
+    log(f"{smi}: cold epochs {json.dumps(out)}")
+    return trainer, ckpt, s, train, val
+
+
+def resume_check(results: dict, dev, smi: str, trainer, ckpt, s, train) -> None:
+    """Snapshot after a step mid-epoch, take the next step; a fresh trainer
+    restores the snapshot and takes the same step: its loss and parameters
+    against the uninterrupted run's, bit for bit; else the loss within
+    phase 7's limit, the nondeterministic op named, and two restores of the
+    snapshot with that op held deterministic: the same bits."""
+    import torch
+
+    from routeformer_torch.experiments import full_comparison as fc
+
+    trainer.epoch = 2
+    trainer.training_step(train[0])
+    t0 = time.perf_counter()
+    ckpt.save_latest(trainer, epoch=2, next_batch=1)
+    save_s = time.perf_counter() - t0
+    want = trainer.training_step(train[1])["train_total_loss"]
+    want_p = params_of(trainer.models)
+
+    fresh = fc.build_trainer(s, fc.build_models(s), dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    position = type(ckpt)(ckpt.directory).restore_latest(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert position == (2, 1), position
+    fresh.epoch = 2
+    got = fresh.training_step(train[1])["train_total_loss"]
+    got_p = params_of(fresh.models)
+    report = {"save_latest_s": save_s, "restore_latest_s": restore_s,
+              "loss": got.item(), "want_loss": want.item(),
+              "loss_bits": bool(torch.equal(got, want)),
+              "first_param_diff": first_difference(got_p, want_p)}
+    report["same_bits"] = report["loss_bits"] and report["first_param_diff"] is None
+    if not report["same_bits"]:
+        report["param_max_abs"] = max((got_p[n] - want_p[n]).abs().max().item() for n in want_p)
+        assert abs(report["loss"] - report["want_loss"]) <= STEP_LOSS_TOL * abs(
+            report["want_loss"]), report
+
+        def again() -> bool:  # two restores of the snapshot, one step each
+            runs = []
+            for _ in range(2):
+                type(ckpt)(ckpt.directory).restore_latest(fresh)
+                loss = fresh.training_step(train[1])["train_total_loss"]
+                runs.append((loss, params_of(fresh.models)))
+            (la, pa), (lb, pb) = runs
+            return bool(torch.equal(la, lb)) and first_difference(pa, pb) is None
+
+        report["nondeterminism"] = name_nondeterminism(again)
+        assert report["nondeterminism"]["same_bits"], report
+    results["run_resume"] = report
+    log(f"{smi}: resume " + json.dumps(report))
+    del fresh, want_p, got_p
+    torch.cuda.empty_cache()
+
+
+def eval_twice(results: dict, trainer, val) -> None:
+    """The MC eval (real factors, fresh key samples) twice: the same bits."""
+    import torch
+
+    first, second = trainer.evaluate(val), trainer.evaluate(val)
+    same = set(first) == set(second) and all(torch.equal(first[k], second[k]) for k in first)
+    results["run_eval_twice_same_bits"] = same
+    log(f"MC eval twice, {len(first)} metrics: same bits {same}")
+    assert same, "two evaluations differ"
+
+
+def unfrozen_step(results: dict, dev, smi: str, trainer, train) -> None:
+    """One step past the unfreeze epoch: the backbone carries gradients
+    (K1/K2 through autograd over their plain f32 recompute). At batch 16,
+    or, if it does not fit, the largest batch that does (halving)."""
+    import torch
+
+    trainer.epoch = 11
+    batch = train[0]
+    size = len(batch["pci"])
+    while True:
+        part = {k: ({n: v[:size] for n, v in batch[k].items()} if isinstance(batch[k], dict)
+                    else batch[k][:size]) for k in batch}
+        try:
+            reset_peak()
+            step_ms = cuda_ms(lambda: trainer.training_step(part), iters=1, warmup=1)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"unfrozen step at batch {size} does not fit in device memory")
+            torch.cuda.empty_cache()
+            size //= 2
+            assert size >= 1, "no batch fits"
+    backbone = trainer.models[next(iter(trainer.models))].video_backbone
+    assert backbone.unfreeze
+    grads = [p.grad for p in backbone.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads), "backbone grads"
+    gmax = max(g.abs().max().item() for g in grads)
+    assert gmax > 0.0, "the unfrozen backbone has no gradient"
+    out = {"batch": size, "step_ms": step_ms, "peak_gib": peak_gib(), "backbone_grad_max": gmax}
+    results["run_unfrozen"] = out
+    log(f"{smi}: unfrozen step {json.dumps(out)}")
+    trainer.epoch = 2
+
+
+def steady_epochs(results: dict, dev, smi: str) -> dict:
+    """``USE_EMBEDDING_CACHE=device``: epoch 1 fills the memo, epoch 2
+    encodes nothing and runs no backbone (0 K1, 48 K3a a step; launches
+    counted from 0 just before epoch 2 and read just after). The memo's
+    features against the backbone's own; a steady step's loss against the
+    cold step's on the same batch (dropout off, exhaustive); the steady
+    step's time, the memo's encode and gather times."""
+    import torch
+
+    from routeformer_torch.experiments import full_comparison as fc
+    from routeformer_torch.models.routeformer import fps_subsample_indices
+    from routeformer_torch.train import CheckpointManager, MetricsLogger
+    from routeformer_torch.train.losses import routeformer_training_loss
+
+    set_fusion("1")
+    s, train, val = run_setup(dev, {"USE_EMBEDDING_CACHE": "device", "SAVE_EVERY_STEPS": "0"})
+    models = fc.build_models(s)
+    trainer = fc.build_trainer(s, models, dev)
+    model = models[fc.FLAGSHIP]
+    memo = fc.build_precompute(s, models, dev)
+    prepare = fc.make_prepare(memo)
+    ckpt = CheckpointManager(s.results_dir / "checkpoints")
+    metrics_logger = MetricsLogger(s.results_dir / "logs", experiment="smoke_steady")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prepare(val[0])
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    encoded_val = memo.stats()["encoded"]
+    fc.run_epochs(trainer, ckpt, metrics_logger, train, val, prepare, epochs=1)
+    filled = memo.stats()
+    reset_peak()
+    reset_counts()  # the steady epoch: counts set to 0 just before, read just after
+    history = fc.run_epochs(trainer, ckpt, metrics_logger, train, val, prepare,
+                            start_epoch=1, epochs=2)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    run_peak = peak_gib()
+    metrics_logger.close()
+    after = memo.stats()
+    assert after["encoded"] == filled["encoded"], (filled, after)
+    if dev.type == "cuda":
+        assert launches["K1"] == 0 and launches["K2"] == 0, launches
+        want = RUN_TRAIN * PER_STEP["K3a"][0] + RUN_VAL * MC_SAMPLES * PER_EVAL_FORWARD["K3a"]
+        assert launches["K3a"] == want, f"steady epoch: K3a {launches['K3a']}, not {want}"
+
+    warm = prepare(train[0])
+    per_step = step_launches(lambda: trainer.training_step(warm))
+    if dev.type == "cuda":
+        assert per_step["K1"] == 0 and per_step["K3a"] == PER_STEP["K3a"][0], per_step
+    reset_peak()
+    step_ms = cuda_ms(lambda: trainer.training_step(warm), iters=3, warmup=1)
+    step_peak = peak_gib()
+    profile = profile_step(lambda: trainer.training_step(warm), step_ms, results,
+                           key="run_steady_profile")
+    gather_ms = cuda_ms(lambda: prepare(train[0]), iters=3, warmup=1)
+
+    # the memo against the backbone on the same frames (the val batch's left view)
+    pixels = torch.from_numpy(val[0]["train"]["left_video"])
+    cfg = model.configs
+    idx = torch.from_numpy(fps_subsample_indices(pixels.shape[1],
+                                                 cfg.output_fps // cfg.video_fps))
+    frames = pixels[:, idx].flatten(0, 1).numpy()
+    with torch.no_grad():
+        own = model.video_backbone(torch.from_numpy(frames).to(dev))
+    cached = memo.backbone(frames)
+    memo_err = rel_err(cached, own)
+    memo_bits = bool(torch.equal(cached.float(), own.float()))
+    assert memo_err <= MEMO_TOL, f"memo features vs backbone: {memo_err}"
+
+    quiet(model)
+    with torch.no_grad():
+        cold_loss, _ = routeformer_training_loss(model, trainer._place(train[0]["train"]),
+                                                 trainer._place(train[0]["target"]), 12)
+        steady_loss, _ = routeformer_training_loss(model, trainer._place(warm["train"]),
+                                                   trainer._place(warm["target"]), 12)
+    loss_rel = abs(steady_loss.item() - cold_loss.item()) / abs(cold_loss.item())
+    assert loss_rel <= STEADY_LOSS_TOL, f"steady vs cold loss: {loss_rel}"
+    out = {
+        "epoch_seconds": history[0]["seconds"], "launches": launches,
+        "run_peak_gib": run_peak, "memo": after,
+        "encode_ms_per_novel_frame": 1e3 * encode_s / encoded_val,
+        "encoded_frames_timed": encoded_val, "gather_ms_per_batch": gather_ms,
+        "steady_step_ms": step_ms, "steady_step_peak_gib": step_peak,
+        "steady_step_device_busy_ms": profile["device_busy_ms_per_step"],
+        "steady_step_idle_share": profile["idle_share"],
+        "steady_launches_per_step": per_step,
+        "memo_vs_backbone_rel": memo_err, "memo_bits_equal": memo_bits,
+        "steady_vs_cold_loss_rel": loss_rel,
+    }
+    results["run_steady"] = out
+    log(f"{smi}: steady epochs {json.dumps(out)}")
+    del trainer, models, model, memo
+    torch.cuda.empty_cache()
+    return launches
+
+
+def training_run(results: dict, smi: str, dev=None) -> dict:
+    """Phase 7b. Returns the launches of the cold and the steady epochs."""
+    import torch
+
+    dev = torch.device("cuda") if dev is None else dev
+    t0 = time.perf_counter()
+    trainer_vs_step(results, dev)
+    trainer, ckpt, s, train, val = cold_epochs(results, dev, smi)
+    resume_check(results, dev, smi, trainer, ckpt, s, train)
+    eval_twice(results, trainer, val)
+    unfrozen_step(results, dev, smi, trainer, train)
+    cold = results["run_cold"]["launches"]
+    del trainer, ckpt
+    torch.cuda.empty_cache()
+    steady = steady_epochs(results, dev, smi)
+    log(f"training run phase: {time.perf_counter() - t0:.1f} s")
+    return {"cold_epochs": cold, "steady_epoch": steady}
 
 
 # ---------------------------------------------------------------- phase 8 #
@@ -1811,6 +2291,8 @@ def kernel_line(launches: dict, results: dict) -> dict:
             "launches": launches[name],
             "launches_per_step": [c[name] for c in results["train_launches_per_step"]],
             "launches_per_forward": per_forward[name],
+            "training_run_launches": {run: counts[name] for run, counts
+                                      in results["training_run_launches"].items()},
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -1925,6 +2407,7 @@ def main() -> int:
     launches = train_flagship(results)
     launches["K4"] = k4_launches  # K4's path is DinoV2 serving
     train_parity(results)
+    results["training_run_launches"] = training_run(results, smi)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

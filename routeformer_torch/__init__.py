@@ -1,12 +1,22 @@
 """PyTorch/CUDA port of routeformer_tpu for NVIDIA Hopper (H100).
 
-The port imports torch, numpy and the standard library only, never jax,
-flax or routeformer_tpu. Entry points (``build_flagship``,
-``build_dinov2``, ``build_flagship_training``, ``load_serving_bundle``,
-``synthetic_batch``) run on CUDA unless the caller passes
-``device="cpu"``; when CUDA is asked for and absent they raise.
+The port imports torch, numpy, scipy and the standard library only, never
+jax, flax or routeformer_tpu. Entry points run on CUDA unless the caller
+passes ``device="cpu"``; when CUDA is asked for and absent they raise:
+
+- models and steps: ``build_flagship``, ``build_dinov2``,
+  ``build_flagship_training``, ``load_serving_bundle``;
+- data: ``synthetic_batch`` (tensors on a device), ``SyntheticDataset``
+  (numpy batches, no device);
+- training: ``ParallelTrainer`` (lockstep multi-model trainer with the
+  Monte-Carlo, PCI-bucketed eval), ``CheckpointManager`` (best-ADE
+  checkpoints and the latest snapshot for exact resume), and the driver,
+  ``python -m routeformer_torch.experiments.full_comparison``
+  (``full_comparison.main``; ``ROUTEFORMER_FORCE_CPU=1`` runs it on the
+  CPU).
 """
 
+from routeformer_torch.experiments import full_comparison
 from routeformer_torch.flagship import (
     build_dinov2,
     build_flagship,
@@ -14,11 +24,13 @@ from routeformer_torch.flagship import (
     dinov2_config,
     flagship_config,
 )
-from routeformer_torch.io.synthetic import synthetic_batch
+from routeformer_torch.io.synthetic import SyntheticDataset, synthetic_batch
 from routeformer_torch.serve import ServingModel, load_serving_bundle, save_serving_bundle
+from routeformer_torch.train import CheckpointManager, ParallelTrainer
 
 __all__ = [
-    "ServingModel", "build_dinov2", "build_flagship", "build_flagship_training",
-    "dinov2_config", "flagship_config", "load_serving_bundle", "save_serving_bundle",
+    "CheckpointManager", "ParallelTrainer", "ServingModel", "SyntheticDataset",
+    "build_dinov2", "build_flagship", "build_flagship_training", "dinov2_config",
+    "flagship_config", "full_comparison", "load_serving_bundle", "save_serving_bundle",
     "synthetic_batch",
 ]

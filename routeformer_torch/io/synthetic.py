@@ -1,18 +1,21 @@
 """Synthetic driving batches (the port's numpy copy of
-``routeformer_tpu/io/synthetic.py::synthetic_batch``, without the ``pci``
-key): smooth unicycle GPS tracks in meters, gradient frames whose phase
-follows the future heading change, and gaze biased toward the turn.
+``routeformer_tpu/io/synthetic.py``): smooth unicycle GPS tracks in meters,
+gradient frames whose phase follows the future heading change, gaze biased
+toward the turn, and each sample's PCI.
 
-``synthetic_batch_numpy`` returns ``{"train": ..., "target": ...}`` numpy
-arrays (the same values the JAX package makes from the same seed);
-``synthetic_batch`` returns them as tensors on a device (CUDA by default).
+``synthetic_batch_numpy`` returns ``{"train": ..., "target": ..., "pci":
+...}`` numpy arrays (the same values the JAX package makes from the same
+seed; ``pci`` to f32 rounding); ``synthetic_batch`` returns them as tensors
+on a device (CUDA by default); ``SyntheticDataset`` indexes numpy batches.
 """
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
+from routeformer_torch.score.pci import estimate_pci_batch
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -84,16 +87,49 @@ def synthetic_batch_numpy(seed: int, batch_size: int, seq_len: int = 40,
              0.5 + rng.normal(0, 0.05, (batch_size, gaze_len))],
             axis=-1,
         ).astype(dtype)
-    return {"train": train, "target": target}
+    pci = estimate_pci_batch(train["gps"].astype(np.float64),
+                             target["gps"].astype(np.float64),
+                             curve_type="linear", frequency=fps)
+    return {"train": train, "target": target, "pci": pci.astype(np.float32)}
+
+
+def _to_tensors(value, dev):
+    if isinstance(value, dict):
+        return {k: _to_tensors(v, dev) for k, v in value.items()}
+    return torch.from_numpy(np.ascontiguousarray(value)).to(dev)
 
 
 def synthetic_batch(seed: int, batch_size: int, device: DeviceLike = None,
                     **kwargs) -> dict:
     """``synthetic_batch_numpy`` as tensors on ``device`` (CUDA by default)."""
     dev = resolve_device(device)
-    batch = synthetic_batch_numpy(seed, batch_size, **kwargs)
-    return {
-        split: {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                for k, v in part.items()}
-        for split, part in batch.items()
-    }
+    return _to_tensors(synthetic_batch_numpy(seed, batch_size, **kwargs), dev)
+
+
+@dataclass
+class SyntheticDataset:
+    """Indexable dataset of synthetic numpy batches (one batch per index)."""
+
+    n_batches: int
+    batch_size: int
+    seq_len: int = 40
+    pred_len: int = 30
+    fps: float = 5.0
+    with_video: bool = False
+    with_gaze: bool = False
+    frame_hw: Tuple[int, int] = (24, 32)
+    gaze_len: int = 200
+    seed: int = 0
+
+    def __len__(self) -> int:
+        return self.n_batches
+
+    def __getitem__(self, idx: int) -> dict:
+        if not 0 <= idx < self.n_batches:
+            raise IndexError(idx)
+        return synthetic_batch_numpy(
+            seed=self.seed * 100003 + idx, batch_size=self.batch_size,
+            seq_len=self.seq_len, pred_len=self.pred_len, fps=self.fps,
+            with_video=self.with_video, with_gaze=self.with_gaze,
+            frame_hw=self.frame_hw, gaze_len=self.gaze_len,
+        )

@@ -127,14 +127,17 @@ class PerceiveEncoder(nn.Module):
 
     def _run_fused_stack(self, x: torch.Tensor, backward: str) -> torch.Tensor:
         """ProbSparse key samples as the plain layers draw them (the fixed
-        eval sample, fresh draws in training; the layers' own factor) and
-        dropout keep-masks in training, then the fused stack."""
+        eval sample, fresh draws in training or from the Monte-Carlo eval's
+        generator; the layers' own factor) and dropout keep-masks in
+        training, then the fused stack."""
         n_layers = len(self.stacked_layers)
         r, l, d = x.shape
-        factor = self.stacked_layers[0].attention.inner_attention.factor
+        attention = self.stacked_layers[0].attention.inner_attention
+        factor, generator = attention.factor, attention.mc_generator
         u_part = prob_sparse_u(l, factor)
-        cnt = sample_count_matrices(n_layers, l, l, u_part, train=self.training,
-                                    device=x.device)
+        cnt = sample_count_matrices(n_layers, l, l, u_part,
+                                    train=self.training or generator is not None,
+                                    generator=generator, device=x.device)
         train_dropout = self.training and self.dropout_rate > 0.0
         masks = (
             make_dropout_masks(n_layers, r, l, d, self.stacked_layers[0].ff1.out_features,

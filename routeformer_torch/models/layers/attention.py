@@ -6,7 +6,9 @@ per-head outputs merge from the head-major layout ``(B, H, L, D) ->
 (B, L, H*D)``. ``ProbAttention`` in eval mode draws its key sample as the
 JAX package does (``utils/prng.py``) and in training draws a fresh one from
 the device's default generator; it applies no dropout, as in the JAX
-package. ``FullAttention`` drops attention weights in training.
+package. ``FullAttention`` drops attention weights in training. With
+``mc_generator`` set (the trainer's Monte-Carlo eval, ``set_mc_sampling``)
+``ProbAttention`` draws fresh key samples in eval too, from that generator.
 """
 
 from typing import Optional
@@ -64,11 +66,13 @@ class ProbAttention(nn.Module):
         self.mask_flag = mask_flag
         self.factor = factor
         self.scale = scale
+        self.mc_generator: Optional[torch.Generator] = None
 
     def forward(self, q, k, v):
         return prob_sparse_attention(
             q, k, v, factor=self.factor, causal=self.mask_flag,
-            scale=self.scale, train=self.training,
+            scale=self.scale, train=self.training or self.mc_generator is not None,
+            generator=self.mc_generator,
         )
 
 

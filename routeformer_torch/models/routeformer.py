@@ -17,7 +17,11 @@ samples of the layers. The decisions are drawn from the CPU's default
 generator, the noise and masks from the device's. The video backbone is
 frozen, as the JAX package's ``stop_gradient`` makes it: it runs without
 autograd unless its ``unfreeze`` attribute (or ``train_backbone``) is set.
-The autoregressive decode (off in the flagship config) is not ported.
+A batch may carry the frozen backbone's feature maps instead of pixels
+(``left_video_features`` etc., full timeline, zeros where no frame is
+sampled; ``models/video_backbone/cache.py`` makes them): those streams skip
+the backbone. The autoregressive decode (off in the flagship config) is not
+ported.
 """
 
 import math
@@ -42,7 +46,8 @@ def fps_subsample_indices(length: int, relative_fps: int) -> np.ndarray:
 
 
 class Routeformer(nn.Module):
-    def __init__(self, configs: RouteformerConfig, video_backbone: type = SwinV2Backbone):
+    def __init__(self, configs: RouteformerConfig, gps_backbone: type = Informer,
+                 video_backbone: type = SwinV2Backbone):
         super().__init__()
         self.configs = cfg = configs.copy()
         if cfg.autoregressive:
@@ -79,7 +84,7 @@ class Routeformer(nn.Module):
                     layers=cfg.cross_modal_decoder_layers, mix=False,
                     compute_dtype=cfg.compute_dtype,
                 )
-        self.gps_backbone = Informer(cfg.gps_backbone_config)
+        self.gps_backbone = gps_backbone(cfg.gps_backbone_config)
 
     # ------------------------------------------------------------------ #
 
@@ -141,23 +146,26 @@ class Routeformer(nn.Module):
             return motion_dynamics, None
 
         # Left, right and front frames ride one backbone pass and one
-        # frame-encoder call.
+        # frame-encoder call. Streams are (frames, precomputed).
         streams, meta = [], {}
         drop_left = drop_right = False
         if self.with_scene:
-            left = batch["left_video"]
-            right = batch.get("right_video", left)
+            pre = "left_video_features" in batch
+            key = "_video_features" if pre else "_video"
+            left = batch["left" + key]
+            right = batch.get("right" + key, left)
             if training:
-                drop_left, drop_right = self._view_drops("right_video" in batch)
+                drop_left, drop_right = self._view_drops("right" + key in batch)
             idx = fps_subsample_indices(left.shape[1], cfg.output_fps // cfg.video_fps)
             meta["scene"] = (left.shape[0], left.shape[1], idx)
             t = torch.from_numpy(idx)
-            streams += [left[:, t].flatten(0, 1), right[:, t].flatten(0, 1)]
+            streams += [(left[:, t].flatten(0, 1), pre), (right[:, t].flatten(0, 1), pre)]
         if self.with_gaze:
-            front = batch["front_video"]
+            pre = "front_video_features" in batch
+            front = batch["front_video_features" if pre else "front_video"]
             idx = fps_subsample_indices(front.shape[1], cfg.output_fps // cfg.gaze_fps)
             meta["front"] = (front.shape[0], front.shape[1], idx)
-            streams.append(front[:, torch.from_numpy(idx)].flatten(0, 1))
+            streams.append((front[:, torch.from_numpy(idx)].flatten(0, 1), pre))
         encoded = self._encode_frame_streams(streams)
 
         visual = []
@@ -207,14 +215,22 @@ class Routeformer(nn.Module):
         return gps, dense
 
     def _encode_frame_streams(self, streams):
+        """``[(frames, precomputed)]`` -> per-stream ``(N_i, emb)``: the pixel
+        streams through one backbone pass, the precomputed feature maps as
+        f32, then one frame-encoder call over all of them."""
         bb = self.video_backbone
-        sizes = [s.shape[0] for s in streams]
-        trainable = bb.unfreeze or bb.configs.train_backbone
-        with torch.set_grad_enabled(torch.is_grad_enabled() and trainable):
-            feats = bb.encode_frames(
-                torch.cat([bb.preprocess_frames(s) for s in streams], dim=0)
-            )
-        tokens = feats.reshape(feats.shape[0], -1, feats.shape[-1])
+        sizes = [s.shape[0] for s, _ in streams]
+        maps = [s.float() if pre else None for s, pre in streams]
+        pixel = [i for i, (_, pre) in enumerate(streams) if not pre]
+        if pixel:
+            trainable = bb.unfreeze or bb.configs.train_backbone
+            with torch.set_grad_enabled(torch.is_grad_enabled() and trainable):
+                feats = bb.encode_frames(
+                    torch.cat([bb.preprocess_frames(streams[i][0]) for i in pixel], dim=0)
+                )
+            for i, part in zip(pixel, torch.split(feats, [sizes[i] for i in pixel])):
+                maps[i] = part
+        tokens = torch.cat([f.reshape(f.shape[0], -1, f.shape[-1]) for f in maps])
         tokens = torch.cat([tokens, -torch.ones_like(tokens[:, :1])], dim=1)
         encoded = self.frame_encoder(tokens).reshape(-1, self.configs.image_embedding_size)
         return torch.split(encoded, sizes, dim=0)

@@ -12,6 +12,10 @@ class TimmBackboneConfig(BaseConfig):
     cache_dir: Optional[str] = None
     train_backbone: bool = False
     cache_enabled: bool = False
+    # The embedding cache's knobs (``video_backbone/cache.py``).
+    cache_module_hash: Optional[str] = None
+    max_memory_cache_size: float = 20e9
+    cache_dtype: str = "bfloat16"
     pad_to_square: bool = True
     model_type: Optional[str] = None
     # Encoder compute dtype; parameters stay float32.

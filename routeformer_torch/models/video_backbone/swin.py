@@ -300,6 +300,8 @@ def resolve_preset(model_type: Optional[str]) -> SwinPreset:
 class SwinV2Backbone(nn.Module):
     """Hierarchical SwinV2 encoder producing a (H/32, W/32, 8*embed) map."""
 
+    epoch_unfreeze = True  # the trainer's epoch-10 flip sets ``unfreeze``
+
     def __init__(self, configs: Optional[TimmBackboneConfig] = None):
         super().__init__()
         configs = configs or TimmBackboneConfig()

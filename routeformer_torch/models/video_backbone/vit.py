@@ -92,6 +92,8 @@ class ViTBlock(nn.Module):
 class TimmBackbone(nn.Module):
     """ViT image encoder with the reference's input conditioning."""
 
+    epoch_unfreeze = True  # the trainer's epoch-10 flip sets ``unfreeze``
+
     def __init__(self, configs: Optional[TimmBackboneConfig] = None):
         super().__init__()
         configs = configs or TimmBackboneConfig()

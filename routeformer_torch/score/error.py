@@ -10,6 +10,12 @@ def ade(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(pred - target, dim=-1).mean()
 
 
+def ade_per_sample(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``(B, T, D) -> (B,)`` mean L2 distance per sample."""
+    assert pred.shape == target.shape, "trajectories must have the same shape"
+    return torch.linalg.vector_norm(pred - target, dim=-1).mean(dim=-1)
+
+
 def fde_per_sample(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """``(B, T, D) -> (B,)`` L2 distance of the final points."""
     assert pred.shape == target.shape, "trajectories must have the same shape"

@@ -1,0 +1,246 @@
+"""Multi-model lockstep trainer on one device (counterpart of
+``routeformer_tpu/train/trainer.py``).
+
+A dict of candidate models trains on identical batches with one optimizer
+(one summed loss; the global gradient clip spans every model), and is
+evaluated with the 5-forward Monte-Carlo protocol under a fixed seed, with
+PCI-bucketed reporting (``train/metrics.py``). Models whose name contains
+``baseline`` are left out of the loss and out of the optimizer, so nothing
+updates or decays their parameters (the JAX package zeroes their updates).
+
+The Monte-Carlo eval: in eval mode the only stochastic part of a model is
+the ProbSparse key sample. ``eval_batch_raw`` gives every ``ProbAttention``
+(and so every fused Perceive stack) an explicit ``torch.Generator`` on the
+trainer's device, reseeded to ``EVAL_SEED`` before each model's five
+forwards on each batch, so two evaluations give the same bits. The draws
+are torch's, not JAX's: the nnx stream is not reproduced draw for draw, so
+MC-sampled metrics match the JAX package only where no key sample matters
+(exhaustive ProbSparse, ``u == L``).
+
+The epoch-10 backbone unfreeze flips ``unfreeze`` on every module whose
+class sets ``epoch_unfreeze = True`` once ``epoch > unfreeze_epoch``; the
+backbone then carries gradients (K1/K2 through autograd over their plain
+f32 recompute) and its 1e-6 optimizer group starts to move it. A feature
+cache serves frozen features, so the trainer refuses a cache together with
+an unfreeze epoch when it is built. ``mesh=`` (data and tensor parallelism)
+is not ported.
+"""
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from routeformer_torch.models.layers.attention import ProbAttention
+from routeformer_torch.ops.image import dequantize_videos
+from routeformer_torch.optimizers.optimizer import Optimizer
+from routeformer_torch.score.error import ade_per_sample, fde_per_sample
+from routeformer_torch.train.losses import TrainingLosses, routeformer_training_loss
+from routeformer_torch.train.metrics import GEM_QUARTILES, bucketed_eval_metrics
+from routeformer_torch.utils.device import DeviceLike, resolve_device
+from routeformer_torch.utils.logging import get_logger
+
+logger = get_logger("trainer")
+
+EVAL_SEED = 12345
+MC_SAMPLES = 5
+
+
+def set_mc_sampling(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Give every ``ProbAttention`` of ``model`` the Monte-Carlo eval's
+    generator (fresh key samples in eval), or take it away (``None``)."""
+    for module in model.modules():
+        if isinstance(module, ProbAttention):
+            module.mc_generator = generator
+
+
+def maybe_split_video(batch: dict, enabled: bool = True) -> dict:
+    """DR(eye)VE left-video split: the single view is cut into left and
+    right halves. Returns a new dict and never writes the input's phase
+    dicts; a batch that already has ``right_video`` passes unchanged."""
+    if not enabled:
+        return batch
+    out = dict(batch)
+    for phase in ("train", "target"):
+        videos = batch.get(phase, {})
+        if "left_video" not in videos or "right_video" in videos:
+            continue
+        videos = dict(videos)
+        full = videos["left_video"]
+        half = int(0.5 * full.shape[3])
+        videos["right_video"] = full[:, :, :, half:]
+        videos["left_video"] = full[:, :, :, :half]
+        out[phase] = videos
+    return out
+
+
+def is_baseline(name: str) -> bool:
+    return "baseline" in name
+
+
+class ParallelTrainer:
+    """Train all candidate models in lockstep with one optimizer.
+
+    ``optimizer(module) -> optimizers.Optimizer`` builds the optimizer over
+    the module dict of the trained models, e.g.
+    ``lambda m: build_optimizer(m, learning_rate=1e-5, ...)``. The models
+    move to ``device`` (CUDA by default; raises without it)."""
+
+    def __init__(self, models: Dict[str, nn.Module],
+                 optimizer: Callable[[nn.Module], Optimizer], config,
+                 quartiles: Optional[Dict[str, float]] = None,
+                 loss_fn: Optional[Callable] = None, mesh=None,
+                 unfreeze_epoch: Optional[int] = 10,
+                 feature_cache_active: bool = False, device: DeviceLike = None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (data and tensor parallelism over several cards) is not "
+                "ported: ROADMAP.md §1 item 6")
+        if feature_cache_active and unfreeze_epoch is not None:
+            raise ValueError(
+                f"feature_cache_active with unfreeze_epoch={unfreeze_epoch}: cached "
+                "runs keep serving frozen features past the unfreeze boundary and "
+                "would silently diverge. Pass unfreeze_epoch=None (train fully "
+                "frozen) or disable the embedding cache.")
+        self.device = resolve_device(device)
+        self.model_names = list(models)
+        self.models = nn.ModuleDict(models).to(self.device).train()
+        self.config = config
+        self.quartiles = quartiles or GEM_QUARTILES
+        self.losses = TrainingLosses.from_config(config)
+        self._loss_fn = loss_fn or self._default_loss_fn
+        self.unfreeze_epoch = unfreeze_epoch
+        self.feature_cache_active = feature_cache_active
+        self._unfrozen = False
+        self.trained = nn.ModuleDict(
+            {n: m for n, m in self.models.items() if not is_baseline(n)})
+        has_params = any(True for _ in self.trained.parameters())
+        self.optimizer = optimizer(self.trained) if has_params else None
+        self.eval_generator = torch.Generator(device=self.device)
+        self.epoch = 0
+
+    def _place(self, part: dict) -> dict:
+        out = {}
+        for k, v in part.items():
+            if isinstance(v, np.ndarray):
+                v = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = v.to(self.device)
+        return dequantize_videos(out)
+
+    def _default_loss_fn(self, name, model, inp, tgt, epoch):
+        return routeformer_training_loss(model, inp, tgt, epoch, self.losses)
+
+    def _apply_unfreeze(self) -> None:
+        """Flip ``unfreeze`` on the opted-in backbone modules when the
+        epoch crosses ``unfreeze_epoch``."""
+        if self.unfreeze_epoch is None:
+            return
+        want = self.epoch > self.unfreeze_epoch
+        if want == self._unfrozen:
+            return
+        if want and self.feature_cache_active:
+            raise RuntimeError(
+                f"epoch {self.epoch}: the backbone unfreeze was crossed while a "
+                "feature cache is active; cached runs would keep serving frozen "
+                "features. Disable the cache or pass unfreeze_epoch=None.")
+        for module in self.models.modules():
+            if getattr(type(module), "epoch_unfreeze", False):
+                module.unfreeze = want
+        self._unfrozen = want
+        logger.info("epoch %d: video-backbone unfreeze -> %s", self.epoch, want)
+
+    def training_step(self, batch: dict) -> Dict[str, torch.Tensor]:
+        """One lockstep update on one batch: the summed loss of the trained
+        models, one backward, one clipped AdamW step. Returns detached
+        ``train_{metric}_{model}`` and ``train_total_loss``."""
+        self._apply_unfreeze()
+        inp, tgt = self._place(batch["train"]), self._place(batch["target"])
+        metrics, total = {}, None
+        if self.optimizer is not None:
+            self.optimizer.zero_grad()
+        for name, model in self.trained.items():
+            loss, model_metrics = self._loss_fn(name, model, inp, tgt, self.epoch)
+            total = loss if total is None else total + loss
+            for k, v in model_metrics.items():
+                metrics[f"train_{k}_{name}"] = v.detach()
+        if total is None:
+            total = torch.zeros((), device=self.device)
+        else:
+            total.backward()
+            self.optimizer.step()
+        metrics["train_total_loss"] = total.detach()
+        return metrics
+
+    def eval_batch_raw(self, batch: dict):
+        """``(pcis, {model: (losses, ades, fdes)})``, one value per sample:
+        each model's prediction is the mean of ``MC_SAMPLES`` eval forwards
+        with fresh key samples from the generator reseeded to ``EVAL_SEED``."""
+        inp = self._place(batch["train"])
+        target_gps = torch.as_tensor(batch["target"]["gps"]).to(self.device).float()
+        pcis = torch.as_tensor(batch["pci"]).float().cpu()
+        raw = {}
+        for name, model in self.models.items():
+            was_training = model.training
+            model.eval()
+            set_mc_sampling(model, self.eval_generator)
+            try:
+                self.eval_generator.manual_seed(EVAL_SEED)
+                with torch.no_grad():
+                    preds = []
+                    for _ in range(MC_SAMPLES):
+                        out = model(inp)
+                        preds.append(out[0] if isinstance(out, tuple) else out)
+                    future = torch.stack(preds).mean(dim=0)
+                    losses = torch.stack([
+                        self.losses.trajectory_loss(future[i:i + 1], target_gps[i:i + 1],
+                                                    self.epoch)
+                        for i in range(future.shape[0])])
+                    raw[name] = tuple(x.cpu() for x in (
+                        losses, ade_per_sample(future, target_gps),
+                        fde_per_sample(future, target_gps)))
+            finally:
+                set_mc_sampling(model, None)
+                model.train(was_training)
+        return pcis, raw
+
+    def evaluate(self, batches, split: str = "val") -> Dict[str, torch.Tensor]:
+        """Epoch-level eval: per-sample values over every batch, bucketed
+        once (the sample-weighted epoch mean)."""
+        all_pcis, acc = [], {name: [] for name in self.model_names}
+        for batch in batches:
+            pcis, raw = self.eval_batch_raw(batch)
+            all_pcis.append(pcis)
+            for name, values in raw.items():
+                acc[name].append(values)
+        if not all_pcis:
+            return {}
+        pcis = torch.cat(all_pcis)
+        metrics = {}
+        for name in self.model_names:
+            losses, ades, fdes = (torch.cat([t[i] for t in acc[name]]) for i in range(3))
+            metrics.update(bucketed_eval_metrics(f"{split}_{name}", pcis, losses, ades,
+                                                 fdes, self.quartiles))
+        return metrics
+
+    def fit(self, train_batches, val_batches=None, epochs: int = 1,
+            log_every: int = 10, on_metrics: Optional[Callable] = None):
+        """Epoch loop over batch iterables; returns the val metrics of each
+        epoch. ``epoch`` ends one past the last trained epoch."""
+        history = []
+        for epoch in range(self.epoch, self.epoch + epochs):
+            self.epoch = epoch
+            for i, batch in enumerate(train_batches):
+                metrics = self.training_step(batch)
+                if i % log_every == 0:
+                    logger.info("epoch %d step %d loss %.4f", epoch, i,
+                                float(metrics["train_total_loss"]))
+                    if on_metrics:
+                        on_metrics("train", epoch, i, metrics)
+            if val_batches is not None:
+                val_metrics = self.evaluate(val_batches, "val")
+                history.append(val_metrics)
+                if on_metrics:
+                    on_metrics("val", epoch, 0, val_metrics)
+            self.epoch = epoch + 1
+        return history

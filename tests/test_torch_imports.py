@@ -66,7 +66,10 @@ def test_default_device_is_cuda():
                   lambda: routeformer_torch.build_dinov2(),
                   lambda: routeformer_torch.build_flagship_training(),
                   lambda: routeformer_torch.synthetic_batch(0, 1),
-                  lambda: routeformer_torch.load_serving_bundle("missing")):
+                  lambda: routeformer_torch.load_serving_bundle("missing"),
+                  lambda: routeformer_torch.ParallelTrainer({}, None, None),
+                  lambda: routeformer_torch.full_comparison.main(
+                      {"MODEL_SET": "flagship", "DEBUG": "1"})):
         with pytest.raises(RuntimeError, match="CUDA"):
             entry()
     assert resolve_device("cpu").type == "cpu"

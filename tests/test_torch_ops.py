@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from routeformer_tpu.io.synthetic import SyntheticDataset as JaxSyntheticDataset
 from routeformer_tpu.io.synthetic import synthetic_batch as jax_synthetic_batch
 from routeformer_tpu.ops.attention import dot_product_attention as jax_dense
 from routeformer_tpu.ops.attention import prob_sparse_attention as jax_prob
@@ -19,7 +20,7 @@ from routeformer_tpu.ops.image import to_float16 as jax_to_float16
 from routeformer_tpu.utils.filter import median_downsampler as jax_median
 from routeformer_tpu.utils.vector import estimate_angle_and_norm as jax_angle_norm
 from routeformer_tpu.utils.vector import rotate as jax_rotate
-from routeformer_torch.io.synthetic import synthetic_batch_numpy
+from routeformer_torch.io.synthetic import SyntheticDataset, synthetic_batch_numpy
 from routeformer_torch.ops.image import resize_bilinear
 from routeformer_torch.ops.attention import (
     dot_product_attention,
@@ -129,16 +130,38 @@ def test_prob_sparse_explicit_index_sample(rng):
 
 def test_synthetic_batch_matches_jax_package():
     """The port's copy gives the same arrays from the same seed, bit for bit
-    (GEM geometry, video and gaze); only the ``pci`` key is left out."""
+    (GEM geometry, video and gaze), and each sample's PCI (the f32 batch
+    path) within 1e-5 relative."""
     kw = dict(seq_len=40, pred_len=30, fps=5, with_video=True, with_gaze=True,
               frame_hw=(54, 96))
     want = jax_synthetic_batch(3, 2, **kw)
     got = synthetic_batch_numpy(3, 2, **kw)
-    assert set(got) == set(want) - {"pci"}
+    assert set(got) == set(want)
     for split in ("train", "target"):
         assert set(got[split]) == set(want[split])
         for k, v in want[split].items():
             np.testing.assert_array_equal(got[split][k], v)
+    assert got["pci"].dtype == np.float32 and got["pci"].shape == (2,)
+    np.testing.assert_allclose(got["pci"], want["pci"], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("with_video", [False, True])
+def test_synthetic_dataset_matches_jax_package(with_video):
+    """``SyntheticDataset`` items equal the JAX package's: the arrays
+    exactly, ``pci`` within 1e-5 relative; out-of-range indices raise."""
+    kw = dict(n_batches=3, batch_size=4, fps=5, with_video=with_video,
+              with_gaze=with_video, seed=2)
+    port, ref = SyntheticDataset(**kw), JaxSyntheticDataset(**kw)
+    assert len(port) == len(ref) == 3
+    for i in (0, 2):
+        got, want = port[i], ref[i]
+        for split in ("train", "target"):
+            assert set(got[split]) == set(want[split])
+            for k, v in want[split].items():
+                np.testing.assert_array_equal(got[split][k], v)
+        np.testing.assert_allclose(got["pci"], want["pci"], rtol=1e-5, atol=0)
+    with pytest.raises(IndexError):
+        port[3]
 
 
 @pytest.mark.parametrize("hw,size", [((24, 24), 64), ((96, 96), 40), ((96, 96), 256)])

@@ -1,0 +1,265 @@
+"""The port's lockstep trainer against the JAX package's on the CPU.
+
+A ``ParallelTrainer`` over {a small Routeformer (the SwinV2 config of
+``test_torch_routeformer.py``, exhaustive ProbSparse, dropout 0, no motion
+noise), ``stationary_baseline``} in each package, from the same weights
+(``load_flax_params``), takes two steps on the same batches (the first at
+epoch 3, the dense loss weighted 0; the second at epoch 12, the dense loss
+on and the schedule's second discount), with the Perceive stacks plain and
+fused (``ROUTEFORMER_FUSION_KERNEL=interpret``: the JAX Pallas kernels in
+interpret mode, the port's plain versions); with the plain stacks it then
+evaluates two batches with the Monte-Carlo protocol. Both trainers keep
+the backbone frozen (``unfreeze_epoch=None``): the JAX trainer recompiles
+its step at the unfreeze, which would double the file's time, and the
+port's backbone gradient is held against ``jax.grad`` in
+``test_torch_kernels.py``; the boundary itself is tested below. Then the
+port alone: MC eval reproducibility, the unfreeze boundary, the refusals,
+``fit`` and ``maybe_split_video``."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from routeformer_tpu.models import RouteformerConfig as JaxConfig
+from routeformer_tpu.models.cross_modal import PerceiveEncoder as JaxPerceiveEncoder
+from routeformer_tpu.models.gps_backbone import GPSBackboneConfig as JaxGPSConfig
+from routeformer_tpu.models.gps_backbone import Informer as JaxInformer
+from routeformer_tpu.models.gps_backbone import StationaryBaseline as JaxStationary
+from routeformer_tpu.models.layers.attention import ProbAttention as JaxProbAttention
+from routeformer_tpu.models.routeformer import Routeformer as JaxRouteformer
+from routeformer_tpu.models.video_backbone import SwinV2Backbone as JaxSwin
+from routeformer_tpu.models.video_backbone import TimmBackboneConfig as JaxTimmConfig
+from routeformer_tpu.optimizers import build_optimizer as jax_build_optimizer
+from routeformer_tpu.train.trainer import ParallelTrainer as JaxTrainer
+from routeformer_torch.convert import load_flax_params
+from routeformer_torch.models import Routeformer, RouteformerConfig
+from routeformer_torch.models.gps_backbone import GPSBackboneConfig, StationaryBaseline
+from routeformer_torch.models.layers import ProbAttention
+from routeformer_torch.models.video_backbone import TimmBackboneConfig
+from routeformer_torch.optimizers import build_optimizer
+from routeformer_torch.train.trainer import (
+    EVAL_SEED,
+    ParallelTrainer,
+    maybe_split_video,
+    set_mc_sampling,
+)
+from test_torch_models import export_params
+from test_torch_routeformer import EXHAUSTIVE, PRED_LEN, _inputs, _kwargs
+from test_torch_train import OPT, SCHEDULE, _flat_torch
+
+EPOCHS = (3, 12)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """One torch thread per test: the suite runs several workers on a few
+    cores, where more threads on these small tensors only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _batch(seed, pci):
+    tgt = {k: v if k == "gaze" else v[:, :PRED_LEN] for k, v in _inputs(seed + 1).items()}
+    return {"train": _inputs(seed), "target": tgt, "pci": np.asarray(pci, np.float32)}
+
+
+TRAIN = [_batch(7, [30.0, 30.0]), _batch(11, [30.0, 30.0])]
+VAL = [_batch(21, [23.0, 70.0]), _batch(31, [45.0, 90.0])]
+
+
+def _configs(factor=EXHAUSTIVE, **top_kw):
+    gps, video, top = _kwargs(factor)
+    top = dict(top, discount_factor=SCHEDULE, epsilon=1.0, visual_epsilon=0.3, **top_kw)
+    return gps, video, top
+
+
+def port_models(factor=EXHAUSTIVE, **top_kw):
+    gps, video, top = _configs(factor, **top_kw)
+    model = Routeformer(RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps),
+                                          video_backbone_config=TimmBackboneConfig(**video),
+                                          **top))
+    if factor == EXHAUSTIVE:
+        for m in model.modules():
+            if isinstance(m, ProbAttention):
+                m.factor = EXHAUSTIVE
+    baseline = Routeformer(
+        RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps),
+                          discount_factor=SCHEDULE, epsilon=1.0),
+        gps_backbone=StationaryBaseline)
+    return {"routeformer": model, "stationary_baseline": baseline}
+
+
+def port_trainer(models, **kw):
+    return ParallelTrainer(models, lambda m: build_optimizer(m, **OPT),
+                           models["routeformer"].configs, device="cpu", **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(fusion: str):
+    """The JAX trainer's two steps and evaluation, and the weights it
+    started from."""
+    gps, video, top = _configs()
+    model = JaxRouteformer(
+        JaxConfig(gps_backbone_config=JaxGPSConfig(**gps),
+                  video_backbone_config=JaxTimmConfig(cache_enabled=False, **video), **top),
+        gps_backbone=JaxInformer, video_backbone=JaxSwin, rngs=nnx.Rngs(0, dropout=1))
+    for _, m in nnx.iter_modules(model):
+        if isinstance(m, (JaxProbAttention, JaxPerceiveEncoder)):
+            m.factor = EXHAUSTIVE
+    flat = export_params(model, np.random.default_rng(0))
+    baseline = JaxRouteformer(
+        JaxConfig(gps_backbone_config=JaxGPSConfig(**gps), discount_factor=SCHEDULE,
+                  epsilon=1.0),
+        gps_backbone=JaxStationary, rngs=nnx.Rngs(1, dropout=2))
+    trainer = JaxTrainer({"routeformer": model, "stationary_baseline": baseline},
+                         jax_build_optimizer(**OPT), model.configs, unfreeze_epoch=None)
+    evaluation = None
+    if fusion == "0":  # the eval forward's fused stack is held in test_torch_fusion_stack
+        trainer.epoch = EPOCHS[1]
+        evaluation = {k: float(v) for k, v in trainer.evaluate(VAL).items()}
+    steps, moments = [], None
+    for epoch, batch in zip(EPOCHS, TRAIN):
+        trainer.epoch = epoch
+        steps.append({k: float(v) for k, v in trainer.training_step(batch).items()})
+        if moments is None:
+            moments = {}
+            for group in trainer.opt_state[1].inner_states.values():
+                moments.update(_flat_torch(group.inner_state[0].mu["routeformer"]))
+    return flat, steps, moments, _flat_torch(trainer.params["routeformer"]), evaluation
+
+
+@pytest.mark.parametrize("fusion", ["0", "interpret"], ids=["plain-stack", "fused-stack"])
+def test_trainer_steps_and_eval_match_jax(monkeypatch, fusion):
+    """- metrics of both steps (``train_{metric}_{model}`` and
+      ``train_total_loss``): the same keys, 1e-5 relative;
+    - the gradients after the first step, read from Adam's first moment:
+      1e-5 of the largest;
+    - the parameters after the second step by ``test_train_step_matches_jax``'s
+      rule (1e-3 lr where the gradient is firm, else 2 lr);
+    - the baseline has no parameters and stays out of the optimizer;
+    - with the plain stacks, ``evaluate`` over two batches at epoch 12,
+      before the steps (after them, AdamW's first updates, lr x the sign of
+      gradients that are 0 up to rounding, leave the weights up to 2 lr
+      apart): the same key set (per-model loss, ADE, FDE, every PCI bucket
+      and the bucket means), 1e-5 relative."""
+    monkeypatch.setenv("ROUTEFORMER_FUSION_KERNEL", fusion)
+    flat, want_steps, want_g, want_p, want_eval = _jax_run(fusion)
+    models = port_models()
+    load_flax_params(models["routeformer"], flat)
+    trainer = port_trainer(models, unfreeze_epoch=None)
+    assert list(trainer.trained) == ["routeformer"]
+    assert not list(models["stationary_baseline"].parameters())
+    assert len(trainer.optimizer.params) == len(list(models["routeformer"].parameters()))
+
+    model = models["routeformer"]
+    if want_eval is not None:
+        trainer.epoch = EPOCHS[1]
+        got_eval = trainer.evaluate(VAL)
+        assert set(got_eval) == set(want_eval)
+        assert len(want_eval) == 2 * (3 + 2 * 6 * 3)
+        for key, value in want_eval.items():
+            assert got_eval[key].item() == pytest.approx(value, rel=1e-5, abs=1e-6), key
+        assert model.training  # evaluation leaves the train mode as it found it
+    for i, (epoch, batch) in enumerate(zip(EPOCHS, TRAIN)):
+        trainer.epoch = epoch
+        got = trainer.training_step(batch)
+        assert set(got) == set(want_steps[i]) == {
+            "train_total_loss", *(f"train_{k}_routeformer"
+                                  for k in ("loss", "dense_loss", "ade", "fde"))}
+        for key, value in want_steps[i].items():
+            assert got[key].item() == pytest.approx(value, rel=1e-5), (i, key)
+        if i == 0:
+            got_g = {k: trainer.optimizer.opt.state[p]["exp_avg"].numpy()
+                     for k, p in model.named_parameters()}
+            assert set(got_g) == set(want_g)
+            g_scale = max(np.abs(g).max() for g in want_g.values())
+            for k, g in want_g.items():
+                assert np.abs(got_g[k] - g).max() <= 1e-5 * g_scale, k
+    assert want_steps[0]["train_total_loss"] == pytest.approx(
+        want_steps[0]["train_loss_routeformer"])
+    lr = OPT["learning_rate"]
+    for k, p in model.named_parameters():
+        diff = np.abs(p.detach().numpy() - want_p[k])
+        firm = np.abs(want_g[k]) > 1e-3 * g_scale
+        assert diff[firm].max(initial=0.0) <= 1e-3 * lr, k
+        assert diff.max() <= 2 * max(lr, OPT["video_backbone_lr"]), k
+
+
+
+def test_mc_eval_is_reproducible_and_samples():
+    """Real ProbSparse factors: two evaluations give the same bits, and the
+    five MC forwards of one batch differ from each other."""
+    torch.manual_seed(0)
+    models = port_models(factor=5)
+    trainer = port_trainer(models)
+    first = trainer.evaluate(VAL)
+    second = trainer.evaluate(VAL)
+    assert set(first) == set(second)
+    for key in first:
+        assert torch.equal(first[key], second[key]), key
+
+    model = models["routeformer"].eval()
+    batch = {k: torch.from_numpy(v) for k, v in VAL[0]["train"].items()}
+    set_mc_sampling(model, trainer.eval_generator)
+    trainer.eval_generator.manual_seed(EVAL_SEED)
+    with torch.no_grad():
+        a, b = model(batch)[0], model(batch)[0]
+    set_mc_sampling(model, None)
+    assert not torch.equal(a, b)
+    with torch.no_grad():  # without the generator, eval is the fixed sample
+        assert torch.equal(model(batch)[0], model(batch)[0])
+
+
+def test_unfreeze_boundary():
+    """No backbone gradient up to ``unfreeze_epoch``, a finite non-zero
+    one after it."""
+    trainer = port_trainer(port_models(), unfreeze_epoch=10)
+    backbone = trainer.models["routeformer"].video_backbone
+    trainer.epoch = 10
+    trainer.training_step(TRAIN[0])
+    assert not backbone.unfreeze
+    # the optimizer gives a frozen parameter a zero gradient, as optax does
+    assert all(p.grad is None or not p.grad.any() for p in backbone.parameters())
+    trainer.epoch = 11
+    trainer.training_step(TRAIN[0])
+    assert backbone.unfreeze
+    grads = [p.grad for p in backbone.parameters()]
+    assert all(g is not None and torch.isfinite(g).all() for g in grads)
+    assert max(g.abs().max().item() for g in grads) > 0.0
+
+
+def test_refusals():
+    with pytest.raises(ValueError, match="unfreeze"):
+        port_trainer(port_models(), unfreeze_epoch=10, feature_cache_active=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        port_trainer(port_models(), mesh=object())
+    port_trainer(port_models(), unfreeze_epoch=None, feature_cache_active=True)
+
+
+def test_fit_advances_the_epoch():
+    trainer = port_trainer(port_models())
+    seen = []
+    history = trainer.fit(TRAIN[:1], VAL[:1], epochs=2,
+                          on_metrics=lambda split, epoch, i, m: seen.append((split, epoch)))
+    assert trainer.epoch == 2 and len(history) == 2
+    assert seen == [("train", 0), ("val", 0), ("train", 1), ("val", 1)]
+    trainer.fit(TRAIN[:1], epochs=1)
+    assert trainer.epoch == 3
+
+
+def test_maybe_split_video_does_not_mutate():
+    video = np.arange(2 * 3 * 4 * 6 * 3, dtype=np.float32).reshape(2, 3, 4, 6, 3)
+    batch = {"train": {"left_video": video, "gps": np.zeros((2, 3, 2))},
+             "target": {"left_video": video}}
+    out = maybe_split_video(batch)
+    assert batch["train"]["left_video"] is video and "right_video" not in batch["train"]
+    np.testing.assert_array_equal(out["train"]["left_video"], video[:, :, :, :3])
+    np.testing.assert_array_equal(out["train"]["right_video"], video[:, :, :, 3:])
+    again = maybe_split_video(out)
+    assert again["train"]["left_video"] is out["train"]["left_video"]
+    assert maybe_split_video(batch, enabled=False) is batch
