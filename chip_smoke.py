@@ -45,18 +45,19 @@ Phases (any failure exits non-zero):
    set to 0 just before) against the plain-stack request, both exhaustive:
    the frame encoder's output and the prediction within 5e-2.
 6. K3a (fused Perceive stack forward) against its plain version at every
-   stack geometry of the flagship train step and at the DinoV2 frame
-   encoder's (24, 1370), eval and train (dropout masks at p = 0.05): bf16
-   with exhaustive ProbSparse and f32 with the real u. With the real u, in
-   f32 and bf16, the top-u selections that differ (layer by layer and
-   along the stack), how near each was to a tie, and the error where none
-   differs; in f32 a selection may differ only at a near-tie. K3b
-   (per-layer backward) against the plain backward at the train step's
-   geometries; in bf16 with the real u, the selection K3b differentiated
-   against the one K3a made, every layer of a stack (no flip allowed);
-   K3b run twice on the same inputs: the same bits in dx and every weight
-   grad. K1/K2 gradients through their autograd Functions against
-   autograd of the plain versions.
+   stack geometry of the flagship train step, of the zoo's models in
+   phase 7c (``K3_ZOO_GEOMS``) and at the DinoV2 frame encoder's (24,
+   1370), eval and train (dropout masks at p = 0.05): bf16 with exhaustive
+   ProbSparse and f32 with the real u. With the real u, in f32 and bf16,
+   the top-u selections that differ (layer by layer and along the stack),
+   how near each was to a tie, and the error where none differs; in f32 a
+   selection may differ only at a near-tie. K3b (per-layer backward)
+   against the plain backward at the same train and zoo geometries; with
+   the real u, in the precision each stack runs, the selection K3b
+   differentiated against the one K3a made, every layer of a stack (no
+   flip allowed); K3b run twice on the same inputs: the same bits in dx
+   and every weight grad. K1/K2 gradients through their autograd
+   Functions against autograd of the plain versions.
 7. Flagship training with ``ROUTEFORMER_FUSION_KERNEL=1``: two steps at
    batch 16 on synthetic GEM clips at epoch 12; finite metrics, the
    non-backbone parameters move and the frozen backbone does not, and the
@@ -78,7 +79,9 @@ Phases (any failure exits non-zero):
    implementation named, within phase 7's limits. (2) Two cold epochs (the
    backbone in every step, the MC eval, ``maybe_save``, ``save_latest``
    after every step; launches counted from 0 just before and read just
-   after: 48 K1/K2/K3a a step and 24 per eval forward, 16-24 K3b a step);
+   after: the driver's exact-gelu SwinV2 runs the unfused block, so 0 K1
+   and 48 K2/K3a a step and 0 K1 and 24 K2/K3a per eval forward, 16-24
+   K3b a step);
    the cold step and the MC eval timed. (3) Resume: a snapshot mid-epoch,
    the next step, and a fresh trainer restoring it and taking the same
    step: loss and parameters bit for bit, or the nondeterministic ops
@@ -92,12 +95,37 @@ Phases (any failure exits non-zero):
    1e-2 (dropout off, exhaustive); the steady step, the memo's encode and
    gather timed. Each timing line stands beside the card's name and power
    limit.
+7c. The driver's whole model zoo (``MODEL_SET=full``, the JAX driver's 13
+   models, ``ROUTEFORMER_FUSION_KERNEL=1``, batch 16, GEM geometry, full
+   width) through ``build_models``/``build_data``/``build_trainer``/
+   ``run_epochs``: one epoch of 2 train batches and 1 val batch, the
+   launches counted from 0 just before and read just after and attributed
+   to each model per step and per eval forward (``FULL_SET_DESIGN``: K2 24
+   a backbone call, K3a 8 a Perceive stack, K3b 8 a trained stack, 0 K1
+   and 0 K4); finite metrics, every trained model's parameters move, the
+   frozen backbones do not, the baselines have no parameters. The
+   full-set step (CUDA events, after a warm-up), its device busy time and
+   idle share, peak memory, the MC eval per val batch; the autoregressive
+   model's MC eval twice (the same bits); a snapshot and a fresh trainer's
+   restore and next step (bit for bit, or the nondeterministic op named);
+   every (rows, tokens, precision) that K3a and K3b ran at in the epoch is
+   one phase 6 checked (``StackShapes``); each model whose class or config
+   path the zoo added against its CPU plain forward at batch 1
+   (``FULL_NEW_MODELS``, exhaustive, the clip moved to its last fix,
+   5e-2); and ``USE_PATCHTST_BACKBONE=1``: one step of the flagship over
+   PatchTST (finite, BatchNorm statistics moved) and its card forward
+   against the CPU (``CardVsCpu`` with witnesses: its GPS backbone's input
+   and PatchTST on the card's input within 5e-2, end to end within
+   ``PATCHTST_E2E_TOL``; the card's and the CPU's own movement under a
+   relative 2^-9 change of the visual features, and the card with the
+   fused stack off, are reported).
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
    step, K4 per batch-1 DinoV2 forward; bound and library time.
    ``training_run_launches`` gives K1-K4's launches in phase 7b's cold
-   and steady epochs. ``ms_timing`` says how each ``ms`` was taken: ``eager`` (back-to-back
+   and steady epochs, ``full_set_launches`` those of phase 7c per full-set
+   step and per eval forward (one MC sample of every model). ``ms_timing`` says how each ``ms`` was taken: ``eager`` (back-to-back
    calls, the host's launch time included where it exceeds the kernel's)
    or ``graph`` (device time, the launches replayed from a CUDA graph).
    K2's ``ms`` is the path's variant (f32 strided views with each block's
@@ -180,6 +208,16 @@ def k1_gemms(c: int) -> list:
             (4 * c, c, 1, "bfloat16"), (c, 4 * c, 0, "float32")]
 FEATURE_TOL = 5e-2  # backbone feature maps, card vs CPU, relative to max
 PRED_TOL = 5e-2  # displacement and dense features, card vs CPU, relative to max
+# The PatchTST flagship end to end, card vs CPU at batch 1 (phase 7c).
+# RevIN divides each of its input channels by its spread over the 40
+# steps, and the visual channels vary little over time, so the prediction
+# is ill-conditioned in the visual features. PATCHTST_E2E_TOL is twice the
+# largest reading of ``CardVsCpu``'s three witnesses on the H100 and its
+# host, rounded up: the model's own movement when its video encoder's
+# output moves by a relative 2^-9 (half a bf16 ulp) of seeded noise, on
+# the CPU (2.4e-2, dense 8.7e-2) and on the card (4.1e-2, 8.4e-2), and the
+# card with the fused stack off against the CPU (3.8e-2, 1.4e-1).
+PATCHTST_E2E_TOL = {"displacement": 1e-1, "dense": 3e-1}
 
 # The Perceive stacks at the flagship train step, batch 16: (encoder, rows,
 # tokens, stack calls per step). Each encoder runs on the input and,
@@ -188,6 +226,22 @@ K3_GEOMS = [("frame", 384, 65, 1), ("frame target", 288, 65, 1),
             ("video", 16, 160, 1), ("video target", 16, 120, 1),
             ("gaze", 16, 40, 2)]
 K3_BACKWARD = {"frame", "video", "gaze"}  # the stacks that backpropagate
+# The zoo's stacks beyond those (phase 7c, batch 16, the same widths): the
+# scene-less model's (front view only: 8 and 6 frames a clip, video
+# tokens 80 and 60) and the gaze-less model's (two scene views: 16 and 12
+# frames, 120 and 90 tokens), input and target pass; AdaptedGIMO's and the
+# MultiModalTransformer's f32 frame encoder on one view of 40 frames,
+# three calls a model. K3b is checked at every one of them, the detached
+# target lengths too (each its own ragged 64-key tail).
+K3_ZOO_GEOMS = [("wout_scene frame", 128, 65, 1), ("wout_scene frame target", 96, 65, 1),
+                ("wout_scene video", 16, 80, 1), ("wout_scene video target", 16, 60, 1),
+                ("with_video frame", 256, 65, 1), ("with_video frame target", 192, 65, 1),
+                ("with_video video", 16, 120, 1), ("with_video video target", 16, 90, 1),
+                ("gimo/mmt frame", 640, 65, 6)]
+K3_F32 = {"gimo/mmt frame"}  # stacks that run in f32 (compute_dtype None)
+# Where K3b's selection and determinism are checked: the flagship's
+# backward stacks and every zoo stack.
+K3_BACKWARD_GEOMS = [g for g in K3_GEOMS if g[0] in K3_BACKWARD] + K3_ZOO_GEOMS
 # The DinoV2 frame encoder's stack at batch-1 serving (K3a only: K3b's
 # attention block takes at most 208 tokens), once per forward.
 K3_DINO = ("dinov2 frame", 24, 1370, 1)
@@ -1028,7 +1082,7 @@ def check_k3a(results: dict) -> None:
 
     worst = 0.0
     results["k3a_selections"] = traces = {}
-    for name, r, l, _ in K3_GEOMS + [K3_DINO]:
+    for name, r, l, _ in K3_GEOMS + K3_ZOO_GEOMS + [K3_DINO]:
         u = fs.prob_sparse_u(l, K3_FACTOR)
         for train in (False, True):
             x, w, masks, cnt = k3_inputs(r, l, seed=r * l + train, train=train)
@@ -1079,7 +1133,7 @@ def check_k3a_measure(results: dict) -> None:
     from routeformer_torch.ops import fusion_stack as fs
 
     out = {}
-    for name, r, l, _ in K3_GEOMS + [K3_DINO]:
+    for name, r, l, _ in K3_GEOMS + K3_ZOO_GEOMS + [K3_DINO]:
         u = fs.prob_sparse_u(l, K3_FACTOR)
         for train in (False, True):
             x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 13 + train, train=train)
@@ -1123,7 +1177,7 @@ def check_k3b(results: dict) -> None:
     from routeformer_torch.ops import fusion_stack as fs
 
     worst = 0.0
-    for name, r, l, _ in K3_GEOMS:
+    for name, r, l, _ in K3_GEOMS + K3_ZOO_GEOMS:
         u = fs.prob_sparse_u(l, K3_FACTOR)
         x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 7, train=True)
         g = torch.randn(x.shape, device="cuda",
@@ -1148,23 +1202,23 @@ def check_k3b(results: dict) -> None:
 
 
 def check_k3b_selection(results: dict) -> None:
-    """bf16 with the real u at every backward geometry, eval and train: the
-    selection K3b's recompute made and differentiated against K3a's on the
-    same layer input, through the 8 layers of a stack (each layer's input
-    the previous K3a output). Any flip fails."""
+    """With the real u at every backward geometry, in the precision its
+    stack runs (bf16; f32 for ``K3_F32``), eval and train: the selection
+    K3b's recompute made and differentiated against K3a's on the same layer
+    input, through the 8 layers of a stack (each layer's input the previous
+    K3a output). Any flip fails."""
     import torch
 
     from routeformer_torch.ops import fusion_stack as fs
 
     flips = {}
-    for name, r, l, _ in K3_GEOMS:
-        if name not in K3_BACKWARD:
-            continue
+    for name, r, l, _ in K3_BACKWARD_GEOMS:
         u = fs.prob_sparse_u(l, K3_FACTOR)
+        bf16 = name not in K3_F32
         for train in (False, True):
             x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 11 + train, train=train)
             p = K3_P if train else 0.0
-            kw = dict(heads=K3_H, u=u, dropout_rate=p, activation="gelu", compute_bf16=True)
+            kw = dict(heads=K3_H, u=u, dropout_rate=p, activation="gelu", compute_bf16=bf16)
             fwd = torch.empty(r, K3_H, l, dtype=torch.int8, device="cuda")
             bwd = torch.empty_like(fwd)
             n = 0
@@ -1176,7 +1230,8 @@ def check_k3b_selection(results: dict) -> None:
                 x = y
             key = f"{name} {'train' if train else 'eval'}"
             flips[key] = n
-            log(f"K3b vs K3a selections, {name} ({r}, {l}) {key.split()[-1]} bf16 u={u}, "
+            log(f"K3b vs K3a selections, {name} ({r}, {l}) {key.split()[-1]} "
+                f"{'bf16' if bf16 else 'f32'} u={u}, "
                 f"{K3_N} layers: {n} flips of {K3_N * r * K3_H * l}")
     results["k3b_selection_flips"] = flips
     if any(flips.values()):
@@ -1184,20 +1239,19 @@ def check_k3b_selection(results: dict) -> None:
 
 
 def check_k3b_determinism(results: dict) -> None:
-    """K3b twice on the same inputs at every backward geometry: the same
-    bits in dx and in all 16 weight grads (fixed-order sums, no atomics)."""
+    """K3b twice on the same inputs at every backward geometry, in the
+    precision its stack runs: the same bits in dx and in all 16 weight
+    grads (fixed-order sums, no atomics)."""
     import torch
 
     from routeformer_torch.ops import fusion_stack as fs
 
-    for name, r, l, _ in K3_GEOMS:
-        if name not in K3_BACKWARD:
-            continue
+    for name, r, l, _ in K3_BACKWARD_GEOMS:
         x, w, masks, cnt = k3_inputs(r, l, seed=r * l + 9, train=True)
         g = torch.randn(x.shape, device="cuda",
                         generator=torch.Generator(device="cuda").manual_seed(l))
         kw = dict(heads=K3_H, u=fs.prob_sparse_u(l, K3_FACTOR), dropout_rate=K3_P,
-                  activation="gelu", compute_bf16=True)
+                  activation="gelu", compute_bf16=name not in K3_F32)
         args = (x, g, layer_of(w, 0), cnt[0].contiguous(), layer_of(masks, 0))
         dx1, dw1 = fs.layer_backward_cuda(*args, **kw)
         dx2, dw2 = fs.layer_backward_cuda(*args, **kw)
@@ -1553,11 +1607,15 @@ RUN_DIR = ROOT / "build" / "smoke_run"
 RUN_ENV = {"DATASET": "GEM", "MODEL_SET": "flagship", "BATCH_SIZE": str(TRAIN_BATCH),
            "EPOCHS": "2", "SAVE_EVERY_STEPS": "1"}
 RUN_TRAIN, RUN_VAL = 3, 1
-# Launches per eval forward at batch 16 (the MC eval runs 5 a batch): one
-# backbone pass (24 K1, each with a K2) and 3 Perceive stacks (24 K3a).
-PER_EVAL_FORWARD = {"K1": 24, "K2": 24, "K3a": 24, "K3b": 0, "K4": 0}
+# The driver's flagship takes the JAX driver's exact-gelu SwinV2, whose
+# blocks run the unfused block: K2 in each of the 24 blocks, no K1. A cold
+# step runs two backbone passes (the input and the target pass, 48 K2) and
+# 6 Perceive stacks (48 K3a); an eval forward at batch 16 (the MC eval
+# runs 5 a batch) one backbone pass and 3 stacks.
+RUN_PER_STEP = {"K1": 0, "K2": 48, "K3a": 48, "K4": 0}
+PER_EVAL_FORWARD = {"K1": 0, "K2": 24, "K3a": 24, "K3b": 0, "K4": 0}
 MC_SAMPLES = 5
-MEMO_TOL = 1e-2  # memo features vs the backbone's, of max: the K1 limit (bf16 store)
+MEMO_TOL = 1e-2  # memo features vs the backbone's, of max (bf16 store)
 STEADY_LOSS_TOL = 1e-2  # steady vs cold loss, relative (bf16 features)
 
 
@@ -1705,7 +1763,7 @@ def trainer_vs_step(results: dict, dev) -> None:
     results["trainer_vs_step"] = report
     log("trainer vs build_flagship_training's step: " + json.dumps(report))
     del model, optimizer, step, mine, trainer, state_a, state_b
-    torch.cuda.empty_cache()
+    free_device()
 
 
 def cold_epochs(results: dict, dev, smi: str):
@@ -1745,7 +1803,7 @@ def cold_epochs(results: dict, dev, smi: str):
     steps, evals = s.epochs * RUN_TRAIN, s.epochs * RUN_VAL * MC_SAMPLES
     if dev.type == "cuda":
         for k in ("K1", "K2", "K3a", "K4"):
-            want = steps * PER_STEP[k][0] + evals * PER_EVAL_FORWARD[k]
+            want = steps * RUN_PER_STEP[k] + evals * PER_EVAL_FORWARD[k]
             assert launches[k] == want, f"cold epochs: {k} {launches[k]} launches, not {want}"
         assert steps * 16 <= launches["K3b"] <= steps * 24, launches
     for h in history:
@@ -1780,7 +1838,8 @@ def cold_epochs(results: dict, dev, smi: str):
     return trainer, ckpt, s, train, val
 
 
-def resume_check(results: dict, dev, smi: str, trainer, ckpt, s, train) -> None:
+def resume_check(results: dict, dev, smi: str, trainer, ckpt, s, train,
+                 key: str = "run_resume") -> None:
     """Snapshot after a step mid-epoch, take the next step; a fresh trainer
     restores the snapshot and takes the same step: its loss and parameters
     against the uninterrupted run's, bit for bit; else the loss within
@@ -1829,10 +1888,10 @@ def resume_check(results: dict, dev, smi: str, trainer, ckpt, s, train) -> None:
 
         report["nondeterminism"] = name_nondeterminism(again)
         assert report["nondeterminism"]["same_bits"], report
-    results["run_resume"] = report
-    log(f"{smi}: resume " + json.dumps(report))
+    results[key] = report
+    log(f"{smi}: {key} " + json.dumps(report))
     del fresh, want_p, got_p
-    torch.cuda.empty_cache()
+    free_device()
 
 
 def eval_twice(results: dict, trainer, val) -> None:
@@ -1848,7 +1907,7 @@ def eval_twice(results: dict, trainer, val) -> None:
 
 def unfrozen_step(results: dict, dev, smi: str, trainer, train) -> None:
     """One step past the unfreeze epoch: the backbone carries gradients
-    (K1/K2 through autograd over their plain f32 recompute). At batch 16,
+    (K2 through autograd over its plain f32 recompute). At batch 16,
     or, if it does not fit, the largest batch that does (halving)."""
     import torch
 
@@ -1923,13 +1982,14 @@ def steady_epochs(results: dict, dev, smi: str) -> dict:
     assert after["encoded"] == filled["encoded"], (filled, after)
     if dev.type == "cuda":
         assert launches["K1"] == 0 and launches["K2"] == 0, launches
-        want = RUN_TRAIN * PER_STEP["K3a"][0] + RUN_VAL * MC_SAMPLES * PER_EVAL_FORWARD["K3a"]
+        want = RUN_TRAIN * RUN_PER_STEP["K3a"] + RUN_VAL * MC_SAMPLES * PER_EVAL_FORWARD["K3a"]
         assert launches["K3a"] == want, f"steady epoch: K3a {launches['K3a']}, not {want}"
 
     warm = prepare(train[0])
     per_step = step_launches(lambda: trainer.training_step(warm))
     if dev.type == "cuda":
-        assert per_step["K1"] == 0 and per_step["K3a"] == PER_STEP["K3a"][0], per_step
+        assert per_step["K1"] == per_step["K2"] == 0, per_step
+        assert per_step["K3a"] == RUN_PER_STEP["K3a"], per_step
     reset_peak()
     step_ms = cuda_ms(lambda: trainer.training_step(warm), iters=3, warmup=1)
     step_peak = peak_gib()
@@ -1973,7 +2033,7 @@ def steady_epochs(results: dict, dev, smi: str) -> dict:
     results["run_steady"] = out
     log(f"{smi}: steady epochs {json.dumps(out)}")
     del trainer, models, model, memo
-    torch.cuda.empty_cache()
+    free_device()
     return launches
 
 
@@ -1990,10 +2050,541 @@ def training_run(results: dict, smi: str, dev=None) -> dict:
     unfrozen_step(results, dev, smi, trainer, train)
     cold = results["run_cold"]["launches"]
     del trainer, ckpt
-    torch.cuda.empty_cache()
+    free_device()
     steady = steady_epochs(results, dev, smi)
     log(f"training run phase: {time.perf_counter() - t0:.1f} s")
     return {"cold_epochs": cold, "steady_epoch": steady}
+
+
+# --------------------------------------------------------------- phase 7c #
+
+# The driver's whole model zoo (MODEL_SET=full) through its pieces at batch
+# 16, GEM geometry, full width, ROUTEFORMER_FUSION_KERNEL=1: one epoch of
+# FULL_TRAIN train batches and FULL_VAL val batch.
+FULL_ENV = {"DATASET": "GEM", "MODEL_SET": "full", "BATCH_SIZE": str(TRAIN_BATCH),
+            "EPOCHS": "1", "SAVE_EVERY_STEPS": "0"}
+FULL_TRAIN, FULL_VAL = 2, 1
+FLAGSHIP = "Routeformer_with_video_with_gaze_swinv2"
+# The JAX driver's 13 models (experiments/full_comparison.py), in its order.
+FULL_MODELS = (
+    FLAGSHIP, FLAGSHIP + "_autoreg_4s", FLAGSHIP + "_wout_scene", "AdaptedGIMO_swinv2",
+    "MultiModalTransformer_swinv2", "Routeformer_with_video_swinv2", "AutoBotEgo",
+    "Routeformer_without_video_informer", "Routeformer_without_video_transformer",
+    "Routeformer_without_video_dlinear", "Routeformer_without_video_nlinear",
+    "stationary_baseline", "linear_baseline",
+)
+SWIN_BLOCKS, PERCEIVE_LAYERS = 24, 8  # SwinV2-base's depth; the driver's encoder_layers
+# Per model with video: (backbone calls a train step, an eval forward;
+# Perceive stacks a train step, an eval forward; stacks that train in a
+# step). A Routeformer with dense prediction runs its input forward and the
+# target pass (one backbone call and its frame, video and gaze stacks
+# each); gaze dropout zeroes the gaze features of a whole batch, and then
+# the gaze encoder takes no gradient. AdaptedGIMO and the
+# MultiModalTransformer encode each of their three views by one backbone
+# call and one frame-encoder call and have no target pass. The GPS-only
+# models launch nothing; no model reaches K1 (the driver's SwinV2 takes the
+# exact gelu) or K4 (every attention is below 512 keys).
+FULL_SET_DESIGN = {
+    FLAGSHIP: (2, 1, 6, 3, (2, 3)),
+    FLAGSHIP + "_autoreg_4s": (2, 1, 6, 3, (2, 3)),
+    FLAGSHIP + "_wout_scene": (2, 1, 6, 3, (3,)),  # the front view; no gaze dropout
+    "AdaptedGIMO_swinv2": (3, 3, 3, 3, (3,)),
+    "MultiModalTransformer_swinv2": (3, 3, 3, 3, (3,)),
+    "Routeformer_with_video_swinv2": (2, 1, 4, 2, (2,)),  # no gaze encoder
+}
+# The models whose class or config path is new with the zoo: a batch-1
+# eval forward on the card against the CPU plain forward.
+FULL_NEW_MODELS = (
+    "AutoBotEgo", "Routeformer_without_video_transformer",
+    "Routeformer_without_video_dlinear", "Routeformer_without_video_nlinear",
+    "AdaptedGIMO_swinv2", "MultiModalTransformer_swinv2", FLAGSHIP + "_autoreg_4s",
+    FLAGSHIP + "_wout_scene", "Routeformer_with_video_swinv2",
+)
+FULL_RUN_DIR = ROOT / "build" / "smoke_full"
+
+
+def full_set_expected(name: str):
+    """``(per train step, per eval forward)`` launches of one model; a step's
+    K3b is a tuple of the counts gaze dropout allows."""
+    calls_s, calls_f, stacks_s, stacks_f, trained = FULL_SET_DESIGN.get(
+        name, (0, 0, 0, 0, (0,)))
+    step = {"K1": 0, "K2": SWIN_BLOCKS * calls_s, "K3a": PERCEIVE_LAYERS * stacks_s,
+            "K3b": tuple(PERCEIVE_LAYERS * t for t in trained), "K4": 0}
+    forward = {"K1": 0, "K2": SWIN_BLOCKS * calls_f, "K3a": PERCEIVE_LAYERS * stacks_f,
+               "K3b": 0, "K4": 0}
+    return step, forward
+
+
+class LaunchRecorder:
+    """Launches per model on a ``ParallelTrainer``: in a train step from
+    the start of one model's loss to the start of the next (its forward,
+    target pass and backward), in eval per forward (hooks on the model).
+    The counters are the wrappers' host-side counts, so no synchronisation
+    is needed. ``close`` takes the wrappers and hooks off."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        self.steps, self.metrics = [], []
+        self.forwards = {name: [] for name in trainer.model_names}
+        self._loss_fn, self._step = trainer._loss_fn, trainer.training_step
+        self._current = self._start = None
+        self._open = {}
+
+        def loss_fn(name, model, inp, tgt, epoch):
+            self._mark(name)
+            return self._loss_fn(name, model, inp, tgt, epoch)
+
+        def training_step(batch):
+            self._open = {}
+            metrics = self._step(batch)
+            self._mark(None)
+            self.steps.append(self._open)
+            self.metrics.append(metrics)
+            return metrics
+
+        trainer._loss_fn, trainer.training_step = loss_fn, training_step
+        self.hooks = []
+        for name, model in trainer.models.items():
+            self.hooks.append(model.register_forward_pre_hook(self._pre(name)))
+            self.hooks.append(model.register_forward_hook(self._post(name)))
+
+    @staticmethod
+    def _diff(now, start):
+        return {k: v - start[k] for k, v in now.items()}
+
+    def _mark(self, name):
+        now = launch_counts()
+        if self._current is not None:
+            self._open[self._current] = self._diff(now, self._start)
+        self._current, self._start = name, now
+
+    def _pre(self, name):
+        def hook(module, _args):
+            if not module.training:
+                module._launch_start = launch_counts()
+        return hook
+
+    def _post(self, name):
+        def hook(module, _args, _out):
+            if not module.training:
+                self.forwards[name].append(self._diff(launch_counts(), module._launch_start))
+        return hook
+
+    def close(self):
+        for h in self.hooks:
+            h.remove()
+        self.trainer._loss_fn = self._loss_fn
+        del self.trainer.training_step  # the class's method again
+
+
+def check_full_launches(rec, launches: dict, n_forwards: int) -> dict:
+    """Every model's launches per step and per eval forward against
+    ``full_set_expected``, and the run's totals against their sum."""
+    table, total = {}, {k: 0 for k in launches}
+    for name in FULL_MODELS:
+        want_s, want_f = full_set_expected(name)
+        steps = [step.get(name, {k: 0 for k in launches}) for step in rec.steps]
+        forwards = rec.forwards[name]
+        assert len(forwards) == n_forwards, (name, len(forwards))
+        for counts in steps:
+            for k, v in counts.items():
+                ok = v in want_s[k] if k == "K3b" else v == want_s[k]
+                assert ok, f"{name}: {k} {v} launches a step, not {want_s[k]}"
+                total[k] += v
+        for counts in forwards:
+            assert counts == want_f, f"{name}: eval forward {counts}, not {want_f}"
+            for k, v in counts.items():
+                total[k] += v
+        table[name] = {"per_step": steps, "per_eval_forward": forwards[0]}
+    assert total == launches, f"full set: run {launches}, per model {total}"
+    return table
+
+
+def rebuild_on_cpu(model):
+    """A CPU copy of a driver model (same class, config and weights)."""
+    from routeformer_torch.baselines import AutoBotAdapted
+
+    kwargs = {}
+    if not isinstance(model, AutoBotAdapted):
+        if hasattr(model, "gps_backbone"):
+            kwargs["gps_backbone"] = type(model.gps_backbone)
+        if hasattr(model, "video_backbone"):
+            kwargs["video_backbone"] = type(model.video_backbone)
+    cpu = type(model)(model.configs, **kwargs)
+    cpu.load_state_dict(model.state_dict())
+    return cpu.eval()
+
+
+def free_device() -> None:
+    """Collect the reference cycles a trainer keeps (its bound loss
+    function) before returning cached blocks to the card."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class CardVsCpu:
+    """Batch-1 eval forwards of driver models on the card against the CPU
+    plain forward of the same weights, exhaustive ProbSparse. The clip is
+    moved so that its last GPS fix is the origin: every model reads only
+    GPS differences and adds its motion onto the last fix, so the
+    prediction is then the motion itself, which f32 resolves in full (at
+    the synthetic fixes' 1e4 m an f32 ulp is 1e-3 m). ``card`` runs a
+    model's card forward now (its ProbSparse factors restored after) and
+    copies its weights to a CPU model; ``start`` runs the CPU forwards in a
+    thread (CPU_THREADS of the host's cores), so they overlap the card's
+    work; ``check`` joins it and holds max|diff|/max|cpu| of the
+    prediction and, where the model predicts them, the dense features to
+    PRED_TOL.
+
+    ``witness=True`` (the PatchTST flagship, whose prediction is
+    ill-conditioned in its visual features: ``PATCHTST_E2E_TOL``) also
+    takes, on both sides, the GPS backbone's input and output, the
+    forward with the video encoder's output moved by a relative 2^-9 of
+    one seeded noise (the model's own movement), the CPU GPS backbone on
+    the card's input, and the card forward with the fused stack off; it
+    holds the GPS backbone's input and PatchTST on the card's input to
+    PRED_TOL and the prediction to ``PATCHTST_E2E_TOL``."""
+
+    CPU_THREADS = 6
+    NOISE = 2 ** -9
+
+    def __init__(self, batch: dict, place):
+        import numpy as np
+
+        self.one = {k: v[:1] for k, v in batch.items()}
+        gps = self.one["gps"]
+        self.one["gps"] = (gps.astype(np.float64) - gps[:, -1:]).astype(gps.dtype)
+        self.place = place
+        self.cards, self.cpus, self.refs, self.seconds = {}, {}, {}, {}
+        self.witness = {}
+        self.thread = self.error = None
+
+    @staticmethod
+    def _forward(model, batch, hooks=()):
+        import torch
+
+        handles = [module.register_forward_hook(fn) for module, fn in hooks]
+        try:
+            with torch.inference_mode():
+                out = model(batch)
+        finally:
+            for h in handles:
+                h.remove()
+        return tuple(o.float().cpu() for o in (out if isinstance(out, tuple) else (out,)))
+
+    def _hooks(self, model, seen: dict, key: str, noise: bool):
+        """Forward hooks: the GPS backbone's input and output into
+        ``seen[key]``, or the video encoder's output moved by the noise."""
+        import torch
+
+        if not noise:
+            def capture(_module, args, out):
+                seen[key] = (args[0].float().cpu(), out.float().cpu())
+            return [(model.gps_backbone, capture)]
+
+        def perturb(_module, _args, out):
+            gen = torch.Generator().manual_seed(0)  # the same noise on both sides
+            n = torch.randn(out.shape, generator=gen).to(out.device)
+            return (out.float() * (1 + self.NOISE * n)).to(out.dtype)
+        return [(model.video_encoder, perturb)]
+
+    def card(self, name: str, model, witness: bool = False) -> None:
+        import torch
+
+        from routeformer_torch.models.layers import ProbAttention
+
+        layers = [m for m in model.modules() if isinstance(m, ProbAttention)]
+        factors = [m.factor for m in layers]
+        set_exhaustive(model)
+        was_training = model.training
+        model.eval()
+        batch = self.place(self.one)
+        w = {}
+        try:
+            hooks = self._hooks(model, w, "card", noise=False) if witness else ()
+            out = self._forward(model, batch, hooks)
+            if witness:
+                w["card_moved"] = self._forward(model, batch,
+                                                self._hooks(model, w, "", noise=True))
+                fusion = os.environ.get("ROUTEFORMER_FUSION_KERNEL", "0")
+                set_fusion("0")
+                try:
+                    w["card_plain_stack"] = self._forward(model, batch)
+                finally:
+                    set_fusion(fusion)
+        finally:
+            model.train(was_training)
+            for m, f in zip(layers, factors):
+                m.factor = f
+        assert all(torch.isfinite(o).all() for o in out), name
+        self.cards[name] = out
+        cpu = rebuild_on_cpu(model)
+        set_exhaustive(cpu)
+        self.cpus[name] = cpu
+        if witness:
+            self.witness[name] = w
+
+    def _run(self) -> None:
+        import torch
+
+        try:
+            batch = {k: torch.from_numpy(v) for k, v in self.one.items()}
+            for name, cpu in self.cpus.items():
+                t0 = time.perf_counter()
+                w = self.witness.get(name)
+                hooks = self._hooks(cpu, w, "cpu", noise=False) if w is not None else ()
+                self.refs[name] = self._forward(cpu, batch, hooks)
+                self.seconds[name] = time.perf_counter() - t0
+                if w is not None:
+                    w["cpu_moved"] = self._forward(cpu, batch,
+                                                   self._hooks(cpu, w, "", noise=True))
+                    with torch.inference_mode():
+                        w["head"] = cpu.gps_backbone(w["card"][0]).float()
+        except BaseException as e:  # re-raised by check
+            self.error = e
+
+    def start(self) -> None:
+        import threading
+
+        import torch
+
+        self.threads_before = torch.get_num_threads()
+        torch.set_num_threads(min(self.CPU_THREADS, os.cpu_count() or 1))
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    @staticmethod
+    def _gaps(got, want) -> dict:
+        e = {"displacement": rel_err(got[0], want[0])}
+        if len(want) > 1:
+            e["dense"] = rel_err(got[1], want[1])
+        return e
+
+    def check(self) -> dict:
+        import torch
+
+        if self.thread is not None:
+            self.thread.join()
+            torch.set_num_threads(self.threads_before)
+        if self.error is not None:
+            raise self.error
+        errs = {}
+        for name, card in self.cards.items():
+            ref = self.refs[name]
+            assert card[0].shape == ref[0].shape, (name, card[0].shape, ref[0].shape)
+            e = dict(self._gaps(card, ref), cpu_s=self.seconds[name])
+            w = self.witness.get(name)
+            if w is None:
+                tol = {"displacement": PRED_TOL, "dense": PRED_TOL}
+            else:
+                tol = PATCHTST_E2E_TOL
+                e["gps_backbone_input"] = rel_err(w["card"][0], w["cpu"][0])
+                e["patchtst_on_the_cards_input"] = rel_err(w["card"][1], w["head"])
+                for label, (got, want) in {"own_movement_card": (w["card_moved"], card),
+                                           "own_movement_cpu": (w["cpu_moved"], ref),
+                                           "plain_stack_card": (w["card_plain_stack"], ref),
+                                           }.items():
+                    e.update({f"{label}_{k}": v for k, v in self._gaps(got, want).items()})
+                assert e["gps_backbone_input"] <= PRED_TOL, (name, e)
+                assert e["patchtst_on_the_cards_input"] <= PRED_TOL, (name, e)
+            assert all(e[k] <= tol[k] for k in ("displacement", "dense") if k in e), (name, e)
+            errs[name] = e
+        self.cpus.clear()
+        return errs
+
+
+class StackShapes:
+    """The ``(rows, tokens, bf16)`` of every K3a and K3b call while open
+    (the wrappers are wrapped, so nothing is launched more), held against
+    the geometries phase 6 checks each kernel at."""
+
+    def __init__(self):
+        from routeformer_torch.ops import fusion_stack as fs
+
+        self.fs, self.fwd, self.bwd = fs, set(), set()
+        self._orig = fs.stack_forward_cuda, fs.layer_backward_cuda
+
+        def record(seen, fn):
+            def wrapper(x, *args, compute_bf16, **kwargs):
+                seen.add((x.shape[0], x.shape[1], compute_bf16))
+                return fn(x, *args, compute_bf16=compute_bf16, **kwargs)
+            return wrapper
+
+        fs.stack_forward_cuda = record(self.fwd, self._orig[0])
+        fs.layer_backward_cuda = record(self.bwd, self._orig[1])
+
+    def close(self) -> dict:
+        self.fs.stack_forward_cuda, self.fs.layer_backward_cuda = self._orig
+        checked = {(r, l) for _, r, l, _ in K3_GEOMS + K3_ZOO_GEOMS}  # both precisions
+        backward = {(r, l, name not in K3_F32) for name, r, l, _ in K3_BACKWARD_GEOMS}
+        assert {(r, l) for r, l, _ in self.fwd} <= checked, (self.fwd, checked)
+        assert self.bwd <= backward, (self.bwd, backward)
+        return {"K3a": sorted(self.fwd), "K3b": sorted(self.bwd)}
+
+
+def full_set_run(results: dict, smi: str, dev=None) -> dict:
+    """Phase 7c. Returns each kernel's launches per full-set step and per
+    eval forward."""
+    import torch
+
+    from routeformer_torch.experiments import full_comparison as fc
+    from routeformer_torch.train import CheckpointManager, MetricsLogger
+
+    dev = torch.device("cuda") if dev is None else dev
+    t0 = time.perf_counter()
+    set_fusion("1")
+    s = fc.Settings.from_env(dict(FULL_ENV, RESULTS_DIR=str(FULL_RUN_DIR)))
+    shutil.rmtree(FULL_RUN_DIR, ignore_errors=True)
+    train_data, val_data = fc.build_data(s)
+    train = [train_data[i] for i in range(FULL_TRAIN)]
+    val = [val_data[i] for i in range(FULL_VAL)]
+    models = fc.build_models(s)
+    assert tuple(models) == FULL_MODELS, list(models)
+    trainer = fc.build_trainer(s, models, dev)
+    baselines = [n for n in FULL_MODELS if "baseline" in n]
+    assert list(trainer.trained) == [n for n in FULL_MODELS if n not in baselines]
+    assert not any(list(models[n].parameters()) for n in baselines)
+    assert len(trainer.optimizer.params) == len(list(trainer.trained.parameters()))
+    build_s = time.perf_counter() - t0
+    # the new paths' card forwards now; their CPU references overlap the run
+    card_cpu = CardVsCpu(val[0]["train"], trainer._place)
+    for name in FULL_NEW_MODELS:
+        card_cpu.card(name, trainer.models[name])
+    card_cpu.start()
+    frozen = {n: p.detach().clone() for n, p in trainer.trained.named_parameters()
+              if ".video_backbone." in f".{n}"}
+    rest = {n: p.detach().clone() for n, p in trainer.trained.named_parameters()
+            if n not in frozen}
+
+    rec = LaunchRecorder(trainer)
+    ckpt = CheckpointManager(s.results_dir / "checkpoints")
+    metrics_logger = MetricsLogger(s.results_dir / "logs", experiment="smoke_full")
+    shapes = StackShapes() if dev.type == "cuda" else None
+    reset_peak()
+    reset_counts()  # the main path: counts set to 0 just before, read just after
+    history = fc.run_epochs(trainer, ckpt, metrics_logger, train, val, lambda b: b,
+                            epochs=s.epochs)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    run_peak = peak_gib()
+    stack_shapes = shapes.close() if shapes is not None else None
+    metrics_logger.close()
+    rec.close()
+    if dev.type == "cuda":  # on the CPU the wrappers run their plain versions, uncounted
+        table = check_full_launches(rec, launches, FULL_VAL * MC_SAMPLES)
+    else:
+        table = {n: {"per_step": [st.get(n) for st in rec.steps],
+                     "per_eval_forward": rec.forwards[n][0]} for n in FULL_MODELS}
+    for metrics in rec.metrics:
+        values = {k: v.item() for k, v in metrics.items()}
+        assert all(math.isfinite(v) for v in values.values()), values
+        assert {f"train_loss_{n}" for n in trainer.trained} <= set(values)
+    for h in history:
+        assert all(math.isfinite(float(v)) for v in h["val"].values()), h
+    assert set(ckpt.best) == set(FULL_MODELS), ckpt.best
+    params = dict(trainer.trained.named_parameters())
+    assert all(torch.equal(params[n], p) for n, p in frozen.items()), "a frozen backbone moved"
+    moved = {name: any(not torch.equal(params[n], p) for n, p in rest.items()
+                       if n.startswith(name + "."))
+             for name in trainer.trained}
+    assert all(moved.values()), f"trained parameters that did not move: {moved}"
+    del frozen, rest, params
+    per_step = {k: [sum(c[k] for c in step.values()) for step in rec.steps] for k in launches}
+    per_forward = {k: sum(table[n]["per_eval_forward"][k] for n in FULL_MODELS)
+                   for k in launches}
+    log("full set launches per model (per step, per eval forward): " + json.dumps(
+        {n: {"step": t["per_step"], "forward": t["per_eval_forward"]}
+         for n, t in table.items()}))
+
+    resume_check(results, dev, smi, trainer, ckpt, s, train, key="full_resume")
+    card_cpu = card_cpu.check()  # the CPU references, joined before the timings
+
+    b0 = train[0]
+    reset_peak()
+    step_ms = cuda_ms(lambda: trainer.training_step(b0), iters=2, warmup=1)
+    step_peak = peak_gib()
+    profile = profile_step(lambda: trainer.training_step(b0), step_ms, results,
+                           key="full_step_profile")
+    reset_peak()
+    eval_ms = cuda_ms(lambda: trainer.eval_batch_raw(val[0]), iters=1, warmup=0)
+    eval_peak = peak_gib()
+
+    # the autoregressive model's MC eval, twice: the same bits
+    autoreg = FLAGSHIP + "_autoreg_4s"
+    first, second = (trainer.eval_batch_raw(val[0], names=[autoreg])[1][autoreg]
+                     for _ in range(2))
+    autoreg_bits = all(torch.equal(a, b) for a, b in zip(first, second))
+    assert autoreg_bits, "the autoregressive model's MC eval differs between two runs"
+    assert models[autoreg].gps_backbone.pred_len == s.pred_len
+    del trainer, ckpt, models, rec
+    free_device()
+    patch = patchtst_step(results, dev, smi)
+    card_cpu["PatchTST " + FLAGSHIP] = patch.pop("card_vs_cpu")
+    log("full set, card vs CPU (batch 1, exhaustive), max|diff|/max|cpu|: "
+        + json.dumps(card_cpu))
+
+    out = {
+        "models": list(FULL_MODELS), "build_s": build_s,
+        "epoch_seconds": history[0]["seconds"], "launches": launches,
+        "run_peak_gib": run_peak, "step_ms": step_ms, "step_peak_gib": step_peak,
+        "step_device_busy_ms": profile["device_busy_ms_per_step"],
+        "step_idle_share": profile["idle_share"],
+        "mc_eval_ms_per_batch": eval_ms, "mc_eval_peak_gib": eval_peak,
+        "launches_per_step": per_step, "launches_per_eval_forward": per_forward,
+        "autoreg_eval_twice_same_bits": autoreg_bits,
+        "save_latest_s": results["full_resume"]["save_latest_s"],
+        "restore_latest_s": results["full_resume"]["restore_latest_s"],
+        "resume_same_bits": results["full_resume"]["same_bits"],
+        "card_vs_cpu": card_cpu, "patchtst": patch, "stack_shapes": stack_shapes,
+        "allocated_gib_after": (torch.cuda.memory_allocated() / 2 ** 30
+                                if dev.type == "cuda" else None),
+        "seconds": time.perf_counter() - t0,
+    }
+    results["full_set"] = out
+    log(f"{smi}: full set {json.dumps(out)}")
+    return {k: {"per_step": per_step[k], "per_eval_forward": per_forward[k]}
+            for k in launches}
+
+
+def patchtst_step(results: dict, dev, smi: str) -> dict:
+    """``USE_PATCHTST_BACKBONE=1``: the flagship over PatchTST through the
+    driver, one train step at batch 16: finite metrics, its BatchNorm
+    running statistics moved; then its batch-1 card forward against the CPU
+    plain forward (``CardVsCpu`` with its witnesses)."""
+    import torch
+
+    from routeformer_torch.experiments import full_comparison as fc
+
+    s = fc.Settings.from_env(dict(FULL_ENV, MODEL_SET="flagship", USE_PATCHTST_BACKBONE="1",
+                                  RESULTS_DIR=str(FULL_RUN_DIR)))
+    models = fc.build_models(s)
+    model = models[FLAGSHIP]
+    assert type(model.gps_backbone).__name__ == "PatchTST"
+    trainer = fc.build_trainer(s, models, dev)
+    trainer.epoch = TRAIN_EPOCH
+    train, val = fc.build_data(s)
+    stats = {n: b.clone() for n, b in model.named_buffers() if "running_" in n}
+    # two BatchNorm sublayers of two buffers in each encoder layer
+    assert len(stats) == 4 * model.configs.gps_backbone_config.e_layers, len(stats)
+    metrics = trainer.training_step(train[0])
+    values = {k: v.item() for k, v in metrics.items()}
+    assert all(math.isfinite(v) for v in values.values()), values
+    buffers = dict(model.named_buffers())
+    unmoved = [n for n, b in stats.items() if torch.equal(buffers[n], b)]
+    assert not unmoved, f"BatchNorm statistics that did not move: {unmoved}"
+    card_cpu = CardVsCpu(val[0]["train"], trainer._place)
+    card_cpu.card(FLAGSHIP, model, witness=True)
+    card_cpu._run()
+    out = {"loss": values[f"train_loss_{FLAGSHIP}"], "batchnorm_buffers_moved": len(stats),
+           "card_vs_cpu": card_cpu.check()[FLAGSHIP]}
+    log(f"{smi}: PatchTST flagship step {json.dumps(out)}")
+    del trainer, models, model
+    free_device()
+    return out
 
 
 # ---------------------------------------------------------------- phase 8 #
@@ -2293,6 +2884,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
             "launches_per_forward": per_forward[name],
             "training_run_launches": {run: counts[name] for run, counts
                                       in results["training_run_launches"].items()},
+            "full_set_launches": results["full_set_launches"][name],
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -2408,6 +3000,7 @@ def main() -> int:
     launches["K4"] = k4_launches  # K4's path is DinoV2 serving
     train_parity(results)
     results["training_run_launches"] = training_run(results, smi)
+    results["full_set_launches"] = full_set_run(results, smi)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

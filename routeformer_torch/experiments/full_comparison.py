@@ -1,7 +1,7 @@
 """Full-comparison training driver (counterpart of
 ``experiments/full_comparison.py``).
 
-    MODEL_SET=flagship python -m routeformer_torch.experiments.full_comparison
+    MODEL_SET=full python -m routeformer_torch.experiments.full_comparison
 
 Builds the candidate models, trains them in lockstep on identical batches
 with one optimizer (``train/trainer.ParallelTrainer``), evaluates every
@@ -14,16 +14,22 @@ driver's environment variables, read when ``main`` runs:
   BATCH_SIZE  RESULTS_DIR (default build/full_comparison)  MODEL_SET
   DISCOUNTED_FACTOR=default|<other: {0: 1.0}>  LIMIT_TRAIN_BATCHES
   COMPUTE_DTYPE=bfloat16|float32  USE_EMBEDDING_CACHE=0|1|host|device
-  RESUME=0|1  SAVE_EVERY_STEPS  ROUTEFORMER_FORCE_CPU=1 (run on the CPU;
-  otherwise CUDA, and without it the driver raises)
+  RESUME=0|1  SAVE_EVERY_STEPS  USE_PATCHTST_BACKBONE=0|1
+  ROUTEFORMER_FORCE_CPU=1 (run on the CPU; otherwise CUDA, and without it
+  the driver raises)
 
-Only ``MODEL_SET=flagship`` is ported: the flagship Routeformer (SwinV2-base
-with tanh gelu, whose blocks run K1, as ``flagship.flagship_config``; the
-JAX driver's exact-gelu SwinV2 would take the unfused block). ``gps`` and
-``full`` need the rest of the model zoo, a ``*_DATASET_DIR`` the data
-layer, ``USE_PATCHTST_BACKBONE=1`` PatchTST and ``FSDP=1`` the multi-card
-mesh: each raises ``NotImplementedError`` naming its ``ROADMAP.md`` item.
-The data are the synthetic GEM-geometry batches of ``io/synthetic.py``.
+``MODEL_SET`` builds the JAX driver's models with its names, classes,
+configs (``driver_configs``) and seeds: ``flagship`` the SwinV2 Routeformer
+with video and gaze; ``gps`` AutoBotEgo, the video-less Routeformers over
+the Informer, Transformer, DLinear and NLinear, and the stationary and
+linear baselines; ``full`` (the default) both and the autoregressive,
+scene-less and gaze-less variants, AdaptedGIMO and the
+MultiModalTransformer. ``USE_PATCHTST_BACKBONE=1`` puts PatchTST under the
+flagship. The SwinV2 blocks use the exact gelu (the unfused block, K2), as
+the JAX driver's do. A ``*_DATASET_DIR`` needs the data layer and
+``FSDP=1`` the multi-card mesh: each raises ``NotImplementedError`` naming
+its ``ROADMAP.md`` item. The data are the synthetic GEM-geometry batches of
+``io/synthetic.py``.
 """
 
 import functools
@@ -36,6 +42,7 @@ from typing import Callable, Optional
 import numpy as np
 
 ROOT = Path(__file__).resolve().parents[2]
+STEP_SIZE_SECONDS = 2
 INPUT_LENGTH_SECONDS = 8
 TARGET_LENGTH_SECONDS = 6
 VIDEO_FPS = 1
@@ -63,15 +70,13 @@ class Settings:
     save_every_steps: int = 0
     force_cpu: bool = False
     dataset_dir: Optional[str] = None
+    use_patchtst_backbone: bool = False
 
     @classmethod
     def from_env(cls, env=None) -> "Settings":
         env = os.environ if env is None else env
         debug = env.get("DEBUG", "0") == "1"
         dataset = env.get("DATASET", "DREYEVE")
-        if env.get("USE_PATCHTST_BACKBONE", "0") == "1":
-            raise NotImplementedError(
-                "USE_PATCHTST_BACKBONE=1: PatchTST is not ported (ROADMAP.md §1 item 7)")
         if env.get("FSDP", "0") == "1":
             raise NotImplementedError(
                 "FSDP=1: the multi-card mesh is not ported (ROADMAP.md §1 item 6)")
@@ -95,6 +100,7 @@ class Settings:
             resume=env.get("RESUME", "0") == "1",
             save_every_steps=int(env.get("SAVE_EVERY_STEPS", "0")),
             force_cpu=env.get("ROUTEFORMER_FORCE_CPU", "0") == "1",
+            use_patchtst_backbone=env.get("USE_PATCHTST_BACKBONE", "0") == "1",
             dataset_dir=env.get("DREYEVE_DATASET_DIR" if dataset == "DREYEVE"
                                 else "ROUTEFORMER_DATASET_DIR"),
         )
@@ -108,69 +114,165 @@ class Settings:
         return TARGET_LENGTH_SECONDS * self.output_fps
 
     @property
+    def gopro_scaling_factor(self) -> float:
+        return 0.4 if self.dataset == "DREYEVE" else 0.1
+
+    @property
+    def front_scaling_factor(self) -> float:
+        return 1 / 3.0 if self.dataset == "DREYEVE" else 0.3
+
+    @property
+    def with_video(self) -> bool:
+        return self.model_set in ("full", "flagship")
+
+    @property
+    def embedding_cache_on(self) -> bool:
+        """The JAX driver's rule: the embedding cache serves the flagship
+        set only."""
+        return self.use_embedding_cache != "0" and self.model_set == "flagship"
+
+    @property
     def quartiles(self) -> dict:
         from routeformer_torch.train.metrics import DREYEVE_QUARTILES, GEM_QUARTILES
 
         return DREYEVE_QUARTILES if self.dataset == "DREYEVE" else GEM_QUARTILES
 
 
-def routeformer_config(s: Settings):
-    """The flagship's config under the driver's settings (``DEBUG`` cuts
-    its widths as the JAX driver does)."""
+def driver_configs(s: Settings) -> dict:
+    """The JAX driver's configs (``experiments/full_comparison.py``), field
+    for field, by their names there. ``DEBUG`` cuts the widths and takes the
+    ``vit_tiny_test`` SwinV2 preset as the JAX driver does. The SwinV2 uses
+    the exact gelu, so the driver's blocks run the unfused block (K2 for
+    window attention), as the JAX driver's do; the tanh-gelu flagship of
+    ``flagship.py`` (K1) is serving's and ``build_flagship_training``'s."""
     from routeformer_torch.models import RouteformerConfig
-    from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+    from routeformer_torch.models.gps_backbone import (
+        GPSBackboneConfig,
+        LinearBackboneConfig,
+        PatchTSTBackboneConfig,
+    )
     from routeformer_torch.models.video_backbone import TimmBackboneConfig
 
     gps = dict(seq_len=s.seq_len, label_len=s.seq_len, pred_len=s.pred_len,
                embed="timeF", freq="m", moving_avg=25, factor=4, distil=True,
                dropout=0.0, activation="relu", individual=False,
                d_model=832, n_heads=8, e_layers=6, d_layers=1, d_ff=832 * 4)
-    widths = dict(image_embedding_size=64, encoder_hidden_size=64, encoder_layers=8,
-                  encoder_d_ff=64 * 4)
-    model_type = "swinv2_base_window12to16_192to256.ms_in22k_ft_in1k"
     if s.debug:
         gps.update(d_model=64, e_layers=2, d_ff=128)
-        widths = dict(image_embedding_size=16, encoder_hidden_size=16, encoder_layers=2,
-                      encoder_d_ff=32)
-        model_type = "swinv2_tiny_test"
-    return RouteformerConfig(
-        gps_backbone_config=GPSBackboneConfig(**gps),
-        video_backbone_config=TimmBackboneConfig(
-            model_type=model_type, train_backbone=False, cache_enabled=False,
-            pad_to_square=True, gelu="tanh"),
+    c = {"GPS_BACKBONE_CONFIG": GPSBackboneConfig(**gps),
+         "LINEAR_BACKBONE_CONFIG": LinearBackboneConfig(**gps, kernel_size=25),
+         "PATCHTST_BACKBONE_CONFIG": PatchTSTBackboneConfig(
+             **gps, fc_dropout=0.1, head_dropout=0.0, patch_len_ratio=0.25,
+             stride_ratio=0.125, padding_patch="end", revin=True, affine=False,
+             subtract_last=False, decomposition=False, kernel_size=25)}
+    c["ROUTEFORMER_CONFIG"] = RouteformerConfig(
+        gps_backbone_config=c["GPS_BACKBONE_CONFIG"], lr=1e-5, wd=1e-4,
         discount_factor=s.discount_factor, epsilon=1.0, visual_epsilon=0.3,
-        normalize_motion=False, rotate_motion=s.dataset == "DREYEVE",
-        decoder_mode="smart", compute_dtype=s.compute_dtype,
-        with_video=True, with_gaze=True, video_fps=VIDEO_FPS, gaze_fps=GAZE_FPS,
-        output_fps=s.output_fps, dense_prediction=True, dense_loss_ratio=0.5,
-        view_dropout=0.6, gaze_dropout=0.2, motion_noise=0.0, feature_dropout=0.05,
-        encoder_heads=8, cross_modal_decoder_heads=8, cross_modal_decoder_layers=2,
-        **widths,
-    )
+        optimizer="AdamW", batch_size=s.batch_size, min_pci=s.min_pci,
+        step_size=STEP_SIZE_SECONDS, epochs=s.epochs, output_fps=s.output_fps,
+        gopro_scaling_factor=s.gopro_scaling_factor,
+        front_scaling_factor=s.front_scaling_factor, normalize_motion=False,
+        rotate_motion=s.dataset == "DREYEVE", decoder_mode="smart",
+        compute_dtype=s.compute_dtype)
+    c["SWINV2_BACKBONE_CONFIG"] = TimmBackboneConfig(
+        model_type="vit_tiny_test" if s.debug
+        else "swinv2_base_window12to16_192to256.ms_in22k_ft_in1k",
+        train_backbone=False, cache_enabled=False, pad_to_square=True)
+    swinv2 = c["ROUTEFORMER_CONFIG"].override(
+        video_backbone_config=c["SWINV2_BACKBONE_CONFIG"], with_video=True,
+        video_fps=VIDEO_FPS, gaze_fps=GAZE_FPS, dense_prediction=True,
+        dense_loss_ratio=0.5, image_embedding_size=64, view_dropout=0.6, gaze_dropout=0.2,
+        motion_noise=0.0, feature_dropout=0.05, encoder_hidden_size=64, encoder_heads=8,
+        encoder_layers=8, encoder_d_ff=64 * 4, cross_modal_decoder_heads=8,
+        cross_modal_decoder_layers=2)
+    if s.debug:
+        swinv2 = swinv2.override(image_embedding_size=16, encoder_hidden_size=16,
+                                 encoder_layers=2, encoder_d_ff=32)
+    c["ROUTEFORMER_CONFIG_SWINV2"] = swinv2
+    gaze = c["ROUTEFORMER_CONFIG_SWINV2_GAZE"] = swinv2.override(with_gaze=True)
+    c["ROUTEFORMER_CONFIG_SWINV2_GAZE_AUTOREG"] = gaze.override(
+        autoregressive=True, autoregressive_step_size=int(4 * s.output_fps))
+    c["ROUTEFORMER_CONFIG_SWINV2_GAZE_WOUT_SCENE"] = gaze.override(
+        with_scene=False, gaze_dropout=0.0)
+    c["GIMO_CONFIG_SWINV2"] = gaze.override(dense_prediction=False)
+    c["MULTIMODAL_TRANSFORMER_CONFIG_SWINV2"] = c["GIMO_CONFIG_SWINV2"]
+    return c
+
+
+# The JAX driver's models, in its order: name -> (model sets, seed (its
+# ``rngs(i)``), class, config, GPS backbone and, where it replaces the
+# config's, its GPS backbone config). Classes and backbones are named here
+# and resolved when ``build_models`` imports them.
+MODELS = {
+    FLAGSHIP: (("full", "flagship"), 0, "Routeformer", "ROUTEFORMER_CONFIG_SWINV2_GAZE",
+               "Informer", None),
+    FLAGSHIP + "_autoreg_4s": (("full",), 1, "Routeformer",
+                               "ROUTEFORMER_CONFIG_SWINV2_GAZE_AUTOREG", "Informer", None),
+    FLAGSHIP + "_wout_scene": (("full",), 2, "Routeformer",
+                               "ROUTEFORMER_CONFIG_SWINV2_GAZE_WOUT_SCENE", "Informer", None),
+    "AdaptedGIMO_swinv2": (("full",), 3, "AdaptedGIMO", "GIMO_CONFIG_SWINV2", None, None),
+    "MultiModalTransformer_swinv2": (("full",), 4, "MultiModalTransformer",
+                                     "MULTIMODAL_TRANSFORMER_CONFIG_SWINV2", None, None),
+    "Routeformer_with_video_swinv2": (("full",), 5, "Routeformer",
+                                      "ROUTEFORMER_CONFIG_SWINV2", "Informer", None),
+    "AutoBotEgo": (("full", "gps"), 6, "AutoBotAdapted", "ROUTEFORMER_CONFIG", None, None),
+    "Routeformer_without_video_informer": (("full", "gps"), 7, "Routeformer",
+                                           "ROUTEFORMER_CONFIG", "Informer", None),
+    "Routeformer_without_video_transformer": (("full", "gps"), 8, "Routeformer",
+                                              "ROUTEFORMER_CONFIG", "Transformer", None),
+    "Routeformer_without_video_dlinear": (("full", "gps"), 9, "Routeformer",
+                                          "ROUTEFORMER_CONFIG", "DLinear",
+                                          "LINEAR_BACKBONE_CONFIG"),
+    "Routeformer_without_video_nlinear": (("full", "gps"), 10, "Routeformer",
+                                          "ROUTEFORMER_CONFIG", "NLinear",
+                                          "LINEAR_BACKBONE_CONFIG"),
+    "stationary_baseline": (("full", "gps"), 11, "Routeformer", "ROUTEFORMER_CONFIG",
+                            "StationaryBaseline", None),
+    "linear_baseline": (("full", "gps"), 12, "Routeformer", "ROUTEFORMER_CONFIG",
+                        "LinearBaseline", None),
+}
+
+
+def model_names(model_set: str) -> list:
+    """The names ``build_models`` gives for a model set, in order."""
+    if model_set not in ("full", "gps", "flagship"):
+        raise ValueError(f"MODEL_SET={model_set!r}: expected full, gps or flagship")
+    return [name for name, (sets, *_) in MODELS.items() if model_set in sets]
 
 
 def build_models(s: Settings) -> dict:
-    """The candidate models: the flagship alone (seeded weights)."""
+    """The candidate models of ``MODEL_SET``, with the JAX driver's names,
+    classes and configs; model ``i`` of the JAX driver's list takes
+    ``init_weights(model, seed=i)`` where the JAX driver takes ``rngs(i)``.
+    ``USE_PATCHTST_BACKBONE=1`` puts PatchTST under the flagship."""
+    from routeformer_torch import baselines
     from routeformer_torch.flagship import init_weights
-    from routeformer_torch.models import Routeformer
-    from routeformer_torch.models.gps_backbone import Informer
-    from routeformer_torch.models.video_backbone import SwinV2Backbone
+    from routeformer_torch.models import Routeformer, gps_backbone
 
-    if s.model_set != "flagship":
-        raise NotImplementedError(
-            f"MODEL_SET={s.model_set}: the gps and full sets need the rest of the "
-            "model zoo (ROADMAP.md §1 item 7); MODEL_SET=flagship is ported")
-    model = Routeformer(routeformer_config(s), gps_backbone=Informer,
-                        video_backbone=SwinV2Backbone)
-    init_weights(model, seed=0)
-    return {FLAGSHIP: model}
+    c = driver_configs(s)
+    models = {}
+    for name in model_names(s.model_set):
+        _, seed, cls, config, gps, gps_config = MODELS[name]
+        if name == FLAGSHIP and s.use_patchtst_backbone:
+            gps, gps_config = "PatchTST", "PATCHTST_BACKBONE_CONFIG"
+        config = c[config]
+        if gps_config is not None:
+            config = config.override(gps_backbone_config=c[gps_config])
+        if cls == "Routeformer":
+            model = Routeformer(config, gps_backbone=getattr(gps_backbone, gps))
+        else:
+            model = getattr(baselines, cls)(config)
+        init_weights(model, seed=seed)
+        models[name] = model
+    return models
 
 
-def build_data(s: Settings, with_video: bool = True):
+def build_data(s: Settings, with_video: Optional[bool] = None):
     """``(train, val)`` synthetic datasets (a real dataset directory needs
     the data layer, which is not ported)."""
     from routeformer_torch.io.synthetic import SyntheticDataset
 
+    with_video = s.with_video if with_video is None else with_video
     if s.dataset_dir and Path(s.dataset_dir).exists():
         raise NotImplementedError(
             f"{s.dataset_dir}: the GEM/DR(eye)VE data layer is not ported "
@@ -185,9 +287,10 @@ def build_data(s: Settings, with_video: bool = True):
 
 def build_precompute(s: Settings, models: dict, device):
     """The embedding cache's batch transform for ``USE_EMBEDDING_CACHE``
-    (None when off): ``device`` the device memo, ``1``/``host`` the host
-    RAM cache."""
-    if s.use_embedding_cache == "0":
+    (None when off, and for the ``gps`` and ``full`` sets, whose baselines
+    take pixels): ``device`` the device memo, ``1``/``host`` the host RAM
+    cache."""
+    if not s.embedding_cache_on:
         return None
     from routeformer_torch.models.video_backbone.cache import (
         DeviceVideoFeaturePrecomputer,
@@ -201,19 +304,22 @@ def build_precompute(s: Settings, models: dict, device):
 
 
 def build_trainer(s: Settings, models: dict, device):
-    """The lockstep trainer with the JAX driver's optimizer (AdamW 1e-5,
-    weight decay 1e-4, backbone 1e-6, warmup 2 epochs, clip 2.5); an
+    """The lockstep trainer with the JAX driver's optimizer (AdamW at
+    ``ROUTEFORMER_CONFIG``'s ``lr`` and ``wd``, backbone 1e-6, warmup 2
+    epochs, clip 2.5) and its losses from ``ROUTEFORMER_CONFIG``; an
     embedding cache keeps the backbone frozen for the whole run."""
     from routeformer_torch.optimizers import build_optimizer
     from routeformer_torch.train.trainer import ParallelTrainer
 
-    cache_on = s.use_embedding_cache != "0"
+    cache_on = s.embedding_cache_on
+    config = driver_configs(s)["ROUTEFORMER_CONFIG"]
     return ParallelTrainer(
         models,
-        functools.partial(build_optimizer, learning_rate=1e-5, weight_decay=1e-4,
+        functools.partial(build_optimizer, learning_rate=config.lr, weight_decay=config.wd,
                           video_backbone_lr=1e-6, warmup_epochs=2, max_epochs=s.epochs,
                           gradient_clip_val=2.5),
-        models[FLAGSHIP].configs, quartiles=s.quartiles, feature_cache_active=cache_on,
+        config, quartiles=s.quartiles,
+        feature_cache_active=cache_on,
         unfreeze_epoch=None if cache_on else 10, device=device,
     )
 
@@ -273,8 +379,8 @@ def main(env=None) -> list:
     set_logger_config("DEBUG" if s.debug else "ERROR")
     device = resolve_device("cpu" if s.force_cpu else None)
     models = build_models(s)
-    config = models[FLAGSHIP].configs
-    if s.use_embedding_cache != "0":
+    config = driver_configs(s)["ROUTEFORMER_CONFIG"]
+    if s.embedding_cache_on:
         print("USE_EMBEDDING_CACHE active: video backbones stay frozen for the "
               "entire run (epoch-10 unfreeze disabled)")
     trainer = build_trainer(s, models, device)

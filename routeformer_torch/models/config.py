@@ -21,6 +21,7 @@ class RouteformerConfig(BaseConfig):
     discount_factor: dict = field(default_factory=lambda: {0: 0.9})
     decoder_mode: str = "vanilla"
     rotate_motion: bool = False
+    loss_function: str = "smooth_l1"
     epsilon: Optional[float] = None
     visual_epsilon: Optional[float] = None
     autoregressive: bool = False
@@ -43,7 +44,20 @@ class RouteformerConfig(BaseConfig):
     gaze_dropout: float = 0.0
     feature_dropout: float = 0.0
     image_embedding_size: int = 128
+    # Training-run settings the JAX driver records in the config.
+    lr: float = 5e-4
+    wd: float = 0
+    optimizer: str = "Adam"
+    batch_size: int = 32
+    min_pci: float = 0.0
+    step_size: int = 1
+    epochs: int = 100
     output_fps: int = 5
+    gopro_scaling_factor: float = 1.0
+    front_scaling_factor: float = 1.0
+    num_workers: int = 0
+    use_cache: bool = False
+    cache_dir: Optional[str] = None
     # "float32" or "bfloat16": Perceive Linear layers compute in this dtype.
     compute_dtype: str = "float32"
     _only_motion: bool = False
@@ -67,4 +81,6 @@ class RouteformerConfig(BaseConfig):
         g.image_embedding_size = self.image_embedding_size
         g.encoder_hidden_size = self.encoder_hidden_size
         g.output_fps = self.output_fps
+        g.dense_loss_ratio = self.dense_loss_ratio
+        g.discount_factor = self.discount_factor
         g.smart_decoder = self.decoder_mode == "smart"

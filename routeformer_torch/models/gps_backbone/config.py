@@ -1,5 +1,6 @@
-"""GPS backbone config (the port's copy of
-``routeformer_tpu/models/gps_backbone/config.py:GPSBackboneConfig``)."""
+"""GPS backbone configs (the port's copy of
+``routeformer_tpu/models/gps_backbone/config.py``): the base config, and
+PatchTST's and DLinear/NLinear's."""
 
 from dataclasses import dataclass, field
 from typing import Optional
@@ -33,6 +34,8 @@ class GPSBackboneConfig(BaseConfig):
     encoder_hidden_size: int = field(init=False, default=64)
     image_embedding_size: int = field(init=False, default=128)
     output_fps: int = field(init=False, default=5)
+    dense_loss_ratio: float = field(init=False, default=0.25)
+    discount_factor: dict = field(init=False, default_factory=lambda: {0: 0.9})
     smart_decoder: bool = field(init=False, default=False)
     _enc_in: Optional[int] = None
     _c_out: Optional[int] = None
@@ -57,3 +60,30 @@ class GPSBackboneConfig(BaseConfig):
     @property
     def dec_in(self) -> int:
         return self.enc_in
+
+
+@dataclass
+class PatchTSTBackboneConfig(GPSBackboneConfig):
+    fc_dropout: float = 0.1
+    head_dropout: float = 0.0
+    patch_len_ratio: float = 0.25
+    stride_ratio: float = 0.125
+    padding_patch: str = "end"
+    revin: bool = True
+    affine: bool = False
+    subtract_last: bool = False
+    decomposition: bool = False
+    kernel_size: int = 25
+
+    @property
+    def patch_len(self) -> int:
+        return int(self.patch_len_ratio * self.seq_len)
+
+    @property
+    def stride(self) -> int:
+        return int(self.stride_ratio * self.seq_len)
+
+
+@dataclass
+class LinearBackboneConfig(GPSBackboneConfig):
+    kernel_size: int = 25

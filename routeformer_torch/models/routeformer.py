@@ -20,8 +20,14 @@ autograd unless its ``unfreeze`` attribute (or ``train_backbone``) is set.
 A batch may carry the frozen backbone's feature maps instead of pixels
 (``left_video_features`` etc., full timeline, zeros where no frame is
 sampled; ``models/video_backbone/cache.py`` makes them): those streams skip
-the backbone. The autoregressive decode (off in the flagship config) is not
-ported.
+the backbone.
+
+With ``autoregressive`` the eval forward decodes in chunks of
+``autoregressive_step_size`` (the JAX package's two ``lax.scan``s, here one
+Python loop): the GPS backbone's ``pred_len`` is rebound to the step (and
+restored), each chunk's motion and dense features are rolled into the
+inputs of the next, and the chunks are concatenated and cut to
+``pred_len``. Training runs the plain forward over the whole horizon.
 """
 
 import math
@@ -50,8 +56,6 @@ class Routeformer(nn.Module):
                  video_backbone: type = SwinV2Backbone):
         super().__init__()
         self.configs = cfg = configs.copy()
-        if cfg.autoregressive:
-            raise NotImplementedError("the autoregressive decode is not ported yet")
         self.with_video = cfg.with_video
         self.with_scene = cfg.with_scene
         self.with_gaze = cfg.with_gaze
@@ -97,11 +101,46 @@ class Routeformer(nn.Module):
         """
         motion_dynamics, visual_features = self.preprocess_batch(batch)
         last_input_gps = batch["gps"][:, -1:, :]
-        output = self._forward(motion_dynamics, visual_features)
-        gps, dense = self.postprocess_batch(last_input_gps, output)
+        if self.configs.autoregressive and not self.training:
+            gps, dense = self._autoregressive_decode(motion_dynamics, visual_features,
+                                                     last_input_gps)
+        else:
+            output = self._forward(motion_dynamics, visual_features)
+            gps, dense = self.postprocess_batch(last_input_gps, output)
         if self.configs.dense_prediction:
             return gps, dense
         return gps
+
+    def _autoregressive_decode(self, motion_dynamics, visual_features, last_input_gps):
+        """``(future_gps, future_dense)`` decoded ``autoregressive_step_size``
+        steps at a time."""
+        cfg = self.configs
+        step = cfg.autoregressive_step_size
+        backbone = self.gps_backbone
+        pred_len = backbone.pred_len
+        if self.with_video:
+            assert cfg.dense_prediction, (
+                "Autoregressive decoding with video requires dense_prediction "
+                "(the visual feature stream must be re-fed each step).")
+        backbone.pred_len = step
+        try:
+            md, vf, last_gps = motion_dynamics, visual_features, last_input_gps
+            gps_steps, dense_steps = [], []
+            for _ in range(-(-pred_len // step)):
+                output = self._forward(md, vf)
+                motion = self._future_motion(output)
+                gps, dense = self.postprocess_batch(last_gps, output)
+                # the carry keeps its dtype, as the scan's carry must
+                md = torch.cat([md[:, step:], motion.to(md.dtype)], dim=1)
+                if self.with_video:
+                    vf = torch.cat([vf[:, step:], dense.to(vf.dtype)], dim=1)
+                    dense_steps.append(dense)
+                last_gps = gps[:, -1:]
+                gps_steps.append(gps)
+        finally:
+            backbone.pred_len = pred_len
+        future_dense = torch.cat(dense_steps, dim=1)[:, :pred_len] if dense_steps else None
+        return torch.cat(gps_steps, dim=1)[:, :pred_len], future_dense
 
     def _forward(self, motion_dynamics, visual_features):
         angle, norm = estimate_angle_and_norm(motion_dynamics)
@@ -203,11 +242,16 @@ class Routeformer(nn.Module):
         drop_right = (drop_one and not drop_left) or not has_right
         return drop_left, drop_right
 
-    def postprocess_batch(self, last_input_gps, output):
+    def _future_motion(self, output):
         cfg = self.configs
         motion = output[..., :2]
         if cfg.normalize_motion:
             motion = motion * cfg.motion_std + cfg.motion_mean
+        return motion
+
+    def postprocess_batch(self, last_input_gps, output):
+        cfg = self.configs
+        motion = self._future_motion(output)
         gps = (last_input_gps + torch.cumsum(motion, dim=1)).to(last_input_gps.dtype)
         dense = None
         if self.with_video and cfg.dense_prediction:

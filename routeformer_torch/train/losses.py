@@ -2,7 +2,10 @@
 ``routeformer_tpu/train/losses.py``): future-discounted smooth-l1 on the
 GPS, and with ``dense_prediction`` the same loss on the predicted against
 the detached target visual features, weighted by the detached
-``ratio * traj / max(dense, 1e-6)`` from epoch 10 on (0 before)."""
+``ratio * traj / max(dense, 1e-6)`` from epoch 10 on (0 before). An
+autoregressive model with dense prediction is trained on its first
+``autoregressive_step_size`` steps: both losses on those steps, the
+trajectory loss scaled by ``pred_len / step``."""
 
 from dataclasses import dataclass
 from typing import Optional
@@ -35,10 +38,8 @@ def routeformer_training_loss(model, input_batch: dict, target_batch: dict, epoc
 
     The target pass runs without autograd but with the model still in
     training mode, so its Perceive stacks drop out and sample keys as the
-    JAX package's does. The autoregressive decode is not ported."""
+    JAX package's does."""
     cfg = model.configs
-    if cfg.autoregressive:
-        raise NotImplementedError("the autoregressive decode is not ported")
     losses = losses or TrainingLosses.from_config(cfg)
     target_gps = target_batch["gps"].float()
     metrics = {}
@@ -47,7 +48,13 @@ def routeformer_training_loss(model, input_batch: dict, target_batch: dict, epoc
         with torch.no_grad():
             _, target_visual = model.preprocess_batch(target_batch, training=False)
         target_visual = target_visual[:, : future_visual.shape[1]]
+        if cfg.autoregressive:
+            step = cfg.autoregressive_step_size
+            future_gps, target_gps = future_gps[:, :step], target_gps[:, :step]
+            future_visual, target_visual = future_visual[:, :step], target_visual[:, :step]
         traj = losses.trajectory_loss(future_gps, target_gps, epoch)
+        if cfg.autoregressive:
+            traj = traj * (cfg.gps_backbone_config.pred_len / step)
         dense = losses.dense_loss(future_visual, target_visual, epoch)
         weight = (cfg.dense_loss_ratio * traj / torch.clamp(dense, min=1e-6)).detach()
         if epoch < 10:

@@ -1,10 +1,14 @@
 """Multi-model lockstep trainer on one device (counterpart of
 ``routeformer_tpu/train/trainer.py``).
 
-A dict of candidate models trains on identical batches with one optimizer
-(one summed loss; the global gradient clip spans every model), and is
-evaluated with the 5-forward Monte-Carlo protocol under a fixed seed, with
-PCI-bucketed reporting (``train/metrics.py``). Models whose name contains
+A dict of candidate models trains on identical batches with one optimizer,
+and is evaluated with the 5-forward Monte-Carlo protocol under a fixed
+seed, with PCI-bucketed reporting (``train/metrics.py``). A step is the JAX
+trainer's: one backward per model, its gradients left in its parameters,
+then one clipped AdamW step over all trained models (the global gradient
+clip spans every model). The math is that of one summed loss, but each
+model's graph is freed by its own backward, so the step holds one model's
+activations at a time, not all of them. Models whose name contains
 ``baseline`` are left out of the loss and out of the optimizer, so nothing
 updates or decays their parameters (the JAX package zeroes their updates).
 
@@ -151,36 +155,38 @@ class ParallelTrainer:
         logger.info("epoch %d: video-backbone unfreeze -> %s", self.epoch, want)
 
     def training_step(self, batch: dict) -> Dict[str, torch.Tensor]:
-        """One lockstep update on one batch: the summed loss of the trained
-        models, one backward, one clipped AdamW step. Returns detached
-        ``train_{metric}_{model}`` and ``train_total_loss``."""
+        """One lockstep update on one batch: each trained model's loss and
+        its backward in turn, then one clipped AdamW step over all of them.
+        Returns detached ``train_{metric}_{model}`` and ``train_total_loss``
+        (the sum of the losses)."""
         self._apply_unfreeze()
         inp, tgt = self._place(batch["train"]), self._place(batch["target"])
-        metrics, total = {}, None
+        metrics = {}
+        total = torch.zeros((), device=self.device)
         if self.optimizer is not None:
             self.optimizer.zero_grad()
         for name, model in self.trained.items():
             loss, model_metrics = self._loss_fn(name, model, inp, tgt, self.epoch)
-            total = loss if total is None else total + loss
+            loss.backward()
+            total = total + loss.detach()
             for k, v in model_metrics.items():
                 metrics[f"train_{k}_{name}"] = v.detach()
-        if total is None:
-            total = torch.zeros((), device=self.device)
-        else:
-            total.backward()
+        if self.optimizer is not None:
             self.optimizer.step()
-        metrics["train_total_loss"] = total.detach()
+        metrics["train_total_loss"] = total
         return metrics
 
-    def eval_batch_raw(self, batch: dict):
+    def eval_batch_raw(self, batch: dict, names: Optional[list] = None):
         """``(pcis, {model: (losses, ades, fdes)})``, one value per sample:
         each model's prediction is the mean of ``MC_SAMPLES`` eval forwards
-        with fresh key samples from the generator reseeded to ``EVAL_SEED``."""
+        with fresh key samples from the generator reseeded to ``EVAL_SEED``.
+        ``names`` evaluates only those models (default: all)."""
         inp = self._place(batch["train"])
         target_gps = torch.as_tensor(batch["target"]["gps"]).to(self.device).float()
         pcis = torch.as_tensor(batch["pci"]).float().cpu()
         raw = {}
-        for name, model in self.models.items():
+        for name in self.model_names if names is None else names:
+            model = self.models[name]
             was_training = model.training
             model.eval()
             set_mc_sampling(model, self.eval_generator)

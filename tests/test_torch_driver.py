@@ -1,16 +1,37 @@
 """The port's training driver (``python -m
 routeformer_torch.experiments.full_comparison``) on the CPU at the DEBUG
 widths: the epoch lines and ``best:``, resume, the device feature memo,
-the refusals of what is not ported, and no CUDA without
-``ROUTEFORMER_FORCE_CPU``."""
+the ``gps`` and ``full`` model sets and PatchTST under the flagship, the
+refusals of what is not ported, and no CUDA without
+``ROUTEFORMER_FORCE_CPU``; and against the JAX driver
+(``experiments/full_comparison.py``, loaded through ``importlib`` with the
+environment set): every config field for field, and the driver-built
+flagship's eval forward."""
 
+import dataclasses
+import importlib.util
 import json
+from pathlib import Path
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
+from flax import nnx
 
+from routeformer_torch.convert import load_flax_params
 from routeformer_torch.experiments import full_comparison as fc
+from routeformer_torch.io.synthetic import synthetic_batch_numpy
+from routeformer_torch.models import Routeformer
+from test_torch_models import export_params
 from test_torch_trainer import one_torch_thread  # noqa: F401  (autouse)
+
+JAX_DRIVER = Path(__file__).resolve().parents[1] / "experiments" / "full_comparison.py"
+# TimmBackboneConfig knobs of the JAX package that the port does not carry:
+# the TPU's frame minibatching, its persistent disk cache, checkpoint
+# import, block remat and the Pallas window-kernel switch.
+JAX_ONLY_FIELDS = {"backbone_minibatch_size", "max_persistent_cache_size", "checkpoint_path",
+                   "remat", "window_flash"}
 
 BASE = {"ROUTEFORMER_FORCE_CPU": "1", "DEBUG": "1", "EPOCHS": "2", "BATCH_SIZE": "2",
         "MODEL_SET": "flagship", "DATASET": "GEM"}
@@ -53,12 +74,60 @@ def test_driver_with_the_device_memo(capsys, tmp_path):
     assert len(history) == 1 and lines[-1].startswith("best:")
 
 
-@pytest.mark.parametrize("extra,match", [
-    ({"MODEL_SET": "gps"}, "ROADMAP.md §1 item 7"),
-    ({"MODEL_SET": "full"}, "ROADMAP.md §1 item 7"),
-    ({"USE_PATCHTST_BACKBONE": "1"}, "ROADMAP.md §1 item 7"),
-    ({"FSDP": "1"}, "ROADMAP.md §1 item 6"),
-])
+@pytest.mark.parametrize("extra,n_models", [
+    ({"MODEL_SET": "gps"}, 7),
+    ({"MODEL_SET": "full"}, 13),
+    ({"USE_PATCHTST_BACKBONE": "1"}, 1),
+], ids=["gps", "full", "patchtst"])
+def test_driver_trains_the_model_sets_and_resumes(capsys, tmp_path, extra, n_models):
+    """Two epochs with a snapshot every step, a ``best:`` line naming every
+    model of the set (the JAX driver's names), then a resume."""
+    history, lines = _run(capsys, tmp_path, SAVE_EVERY_STEPS="1", **extra)
+    names = fc.model_names(extra.get("MODEL_SET", "flagship"))
+    assert len(names) == n_models
+    assert [line.split(":")[0] for line in lines if line.startswith("epoch ")] == [
+        "epoch 0", "epoch 1"]
+    best = lines[-1]
+    assert best.startswith("best: {") and all(f"'{n}'" in best for n in names)
+    for record in history:
+        assert all(np.isfinite(record["val"][f"val_{n}_ade"].item()) for n in names)
+    history, lines = _run(capsys, tmp_path, EPOCHS="3", RESUME="1", **extra)
+    assert "resumed latest snapshot: epoch 2 batch 0" in lines
+    assert [h["epoch"] for h in history] == [2]
+
+
+def test_driver_builds_the_jax_drivers_models():
+    """Names, classes, backbones and seeds of the three sets; PatchTST under
+    the flagship with ``USE_PATCHTST_BACKBONE``; the driver's SwinV2 blocks
+    take the exact gelu (the unfused block)."""
+    s = fc.Settings.from_env(dict(BASE, MODEL_SET="full"))
+    models = fc.build_models(s)
+    assert list(models) == fc.model_names("full") == list(fc.MODELS)
+    assert fc.model_names("gps") == fc.model_names("full")[6:]
+    assert fc.model_names("flagship") == [fc.FLAGSHIP]
+    kinds = {n: (type(m).__name__, type(getattr(m, "gps_backbone", None)).__name__)
+             for n, m in models.items()}
+    assert kinds["AdaptedGIMO_swinv2"][0] == "AdaptedGIMO"
+    assert kinds["MultiModalTransformer_swinv2"][0] == "MultiModalTransformer"
+    assert kinds["AutoBotEgo"][0] == "AutoBotAdapted"
+    assert kinds["Routeformer_without_video_transformer"][1] == "Transformer"
+    assert kinds["Routeformer_without_video_dlinear"][1] == "DLinear"
+    assert kinds["Routeformer_without_video_nlinear"][1] == "NLinear"
+    assert kinds["stationary_baseline"][1] == "StationaryBaseline"
+    assert models[fc.FLAGSHIP + "_autoreg_4s"].configs.autoregressive_step_size == 20
+    for m in models.values():
+        backbone = getattr(m, "video_backbone", None)
+        if backbone is not None:
+            blocks = [b for b in backbone.modules() if type(b).__name__ == "SwinBlock"]
+            assert blocks and not any(b.gelu_approximate for b in blocks)
+    patch = fc.build_models(fc.Settings.from_env(dict(BASE, USE_PATCHTST_BACKBONE="1")))
+    assert type(patch[fc.FLAGSHIP].gps_backbone).__name__ == "PatchTST"
+
+
+# The gps and full sets and PatchTST, refused before the zoo was ported,
+# now train (above); the multi-card mesh is still refused.
+@pytest.mark.parametrize("extra,match", [({"FSDP": "1"}, "ROADMAP.md §1 item 6")],
+                         ids=["extra3-ROADMAP.md §1 item 6"])
 def test_driver_refuses_what_is_not_ported(tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         fc.main(dict(BASE, RESULTS_DIR=str(tmp_path), **extra))
@@ -76,3 +145,85 @@ def test_driver_needs_cuda_without_force_cpu(tmp_path):
     env = {k: v for k, v in BASE.items() if k != "ROUTEFORMER_FORCE_CPU"}
     with pytest.raises(RuntimeError, match="CUDA"):
         fc.main(dict(env, RESULTS_DIR=str(tmp_path)))
+
+
+def _jax_driver(monkeypatch, env: dict):
+    """The JAX driver module, executed afresh with ``env`` set."""
+    for key in ("DEBUG", "DATASET", "MODEL_SET", "USE_PATCHTST_BACKBONE", "COMPUTE_DTYPE",
+                "ROUTEFORMER_FORCE_CPU", "EPOCHS", "BATCH_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    spec = importlib.util.spec_from_file_location("jax_full_comparison", JAX_DRIVER)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _assert_same_config(port, want, path):
+    assert type(port).__name__ == type(want).__name__, path
+    port_fields = {f.name for f in dataclasses.fields(port)}
+    want_fields = {f.name for f in dataclasses.fields(want)}
+    assert port_fields - want_fields == set(), path
+    assert want_fields - port_fields <= JAX_ONLY_FIELDS, (path, want_fields - port_fields)
+    for name in sorted(port_fields):
+        a, b = getattr(port, name), getattr(want, name)
+        if dataclasses.is_dataclass(b):
+            _assert_same_config(a, b, f"{path}.{name}")
+        else:
+            assert a == b, (f"{path}.{name}", a, b)
+    for prop in ("enc_in", "c_out", "dec_in", "patch_len", "stride"):
+        if hasattr(want, prop):
+            assert getattr(port, prop) == getattr(want, prop), (path, prop)
+
+
+@pytest.mark.parametrize("dataset", ["DREYEVE", "GEM"])
+@pytest.mark.parametrize("debug", ["0", "1"], ids=["full-width", "debug"])
+def test_driver_configs_match_the_jax_driver(monkeypatch, debug, dataset):
+    env = {"DEBUG": debug, "DATASET": dataset}
+    jax_driver = _jax_driver(monkeypatch, env)
+    configs = fc.driver_configs(fc.Settings.from_env(env))
+    assert len(configs) == 11
+    for name, config in configs.items():
+        _assert_same_config(config, getattr(jax_driver, name), name)
+    assert configs["SWINV2_BACKBONE_CONFIG"].gelu == "exact"
+
+
+def test_driver_flagship_matches_the_jax_drivers(monkeypatch, rng):
+    """The flagship of ``MODEL_SET=flagship`` at the DEBUG widths, as each
+    driver builds it, with the backbone computing in f32 on both sides
+    (``COMPUTE_DTYPE=float32`` sets the rest): the same weights through
+    ``load_flax_params``, one synthetic batch: the backbone's feature maps
+    of one view and the eval forward at atol and rtol 1e-4. A tanh-gelu
+    SwinV2 against the JAX driver's exact gelu parts the feature maps by
+    2.2e-3 (of 3.4), and this test fails."""
+    env = dict(BASE, COMPUTE_DTYPE="float32")
+    jax_driver = _jax_driver(monkeypatch, env)
+    # the JAX driver's flagship: its config and classes (_build_models)
+    jax_cfg = jax_driver.ROUTEFORMER_CONFIG_SWINV2_GAZE
+    jax_cfg = jax_cfg.override(
+        video_backbone_config=jax_cfg.video_backbone_config.override(compute_dtype="float32"))
+    jax_model = jax_driver.Routeformer(jax_cfg, gps_backbone=jax_driver.Informer,
+                                       video_backbone=jax_driver.SwinV2,
+                                       rngs=nnx.Rngs(0, dropout=1000))
+    port_model = fc.build_models(fc.Settings.from_env(env))[fc.FLAGSHIP]
+    cfg = port_model.configs.copy()
+    cfg.video_backbone_config.compute_dtype = "float32"
+    port = Routeformer(cfg, gps_backbone=type(port_model.gps_backbone),
+                       video_backbone=type(port_model.video_backbone))
+    load_flax_params(port, export_params(jax_model, rng))
+    jax_model.eval()
+    port.eval()
+    batch = synthetic_batch_numpy(3, 2, seq_len=40, pred_len=30, with_video=True,
+                                  with_gaze=True, frame_hw=(24, 32))["train"]
+    frames = batch["left_video"][:, -1]
+    want = np.asarray(jax_model.video_backbone(jnp.asarray(frames)))
+    with torch.no_grad():
+        got = port.video_backbone(torch.from_numpy(frames)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    j_gps, j_dense = nnx.jit(lambda m, b: m(b))(
+        jax_model, {k: jnp.asarray(v) for k, v in batch.items()})
+    with torch.no_grad():
+        gps, dense = port({k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(gps.numpy(), np.asarray(j_gps), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(dense.numpy(), np.asarray(j_dense), atol=1e-4, rtol=1e-4)
