@@ -119,13 +119,37 @@ Phases (any failure exits non-zero):
    ``PATCHTST_E2E_TOL``; the card's and the CPU's own movement under a
    relative 2^-9 change of the visual features, and the card with the
    fused stack off, are reported).
+7d. The GEM data path (``DATASET=GEM``, ``ROUTEFORMER_FUSION_KERNEL=1``,
+   batch 16): a recording written by ``io/gem_fixture.py`` into a temporary
+   directory (subjects 001 and 003 train, 002 val, 62 s each at 5 fps,
+   GoPro (540, 960) and world (544, 540) as raw RGB24 MP4s, 3.7 GB; the
+   duration halved while the disk cannot hold it twice), indexed through
+   the driver's ``build_data`` at scaling 0.4 and 0.6 (the model sees the
+   driver's real GEM geometry, GoPro crop (216, 153) and front (326, 324)):
+   the train and val counts equal the windows the durations and the PCI
+   filter predict. The loader alone (``to_device``, ``h2d_dedup``), two
+   epochs: every batch against ``torch.from_numpy`` of the numpy collate
+   of its samples, the same bits; samples/s, ms a batch, bytes copied a
+   batch, shipped share; each window's frames give distinct content keys
+   and no key is shared between subjects; host ms a source frame for the
+   raw read, the undistort and the resize; a batch's pinned and pageable
+   copy rates. Then a cold epoch of the driver's flagship through
+   ``run_epochs`` on ``build_data``'s loaders (3 train batches, 1 val batch,
+   MC eval; launches counted from 0 just before and read just after: 0 K1,
+   48 K2 and K3a a step, 24 per eval forward, 16-24 K3b a step; finite
+   metrics; peak memory; profiled copy and busy device time), and the
+   steps again on the loader's pinned batches and on the same batches as
+   numpy through the trainer's pageable copy: step ms, device busy, idle
+   share, copy device time, launches per step.
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
    step, K4 per batch-1 DinoV2 forward; bound and library time.
    ``training_run_launches`` gives K1-K4's launches in phase 7b's cold
    and steady epochs, ``full_set_launches`` those of phase 7c per full-set
-   step and per eval forward (one MC sample of every model). ``ms_timing`` says how each ``ms`` was taken: ``eager`` (back-to-back
+   step and per eval forward (one MC sample of every model),
+   ``gem_data_path_launches`` those of phase 7d's cold epoch. ``ms_timing``
+   says how each ``ms`` was taken: ``eager`` (back-to-back
    calls, the host's launch time included where it exceeds the kernel's)
    or ``graph`` (device time, the launches replayed from a CUDA graph).
    K2's ``ms`` is the path's variant (f32 strided views with each block's
@@ -2587,6 +2611,375 @@ def patchtst_step(results: dict, dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 7d #
+
+# The GEM data path: a recording written by the port's writer
+# (``io/gem_fixture.py``), read by its readers, loaded by its loader and
+# trained on by the driver's flagship. Subjects 001 and 003 are the train
+# split, 002 the val split; 62 s each so that the train split has 48
+# windows (three batches of 16). The GoPro pair at (540, 960) and the
+# world camera at (544, 540), scaled 0.4 and 0.6, reach the model at the
+# driver's real GEM geometry: GoPro crop (216, 153), front (326, 324).
+GEM_SUBJECTS = (("001", 0), ("003", 20), ("002", 10))  # (subject, seed)
+GEM = {"duration_s": 62.0, "gopro_hw": (540, 960), "world_hw": (544, 540), "fps": 5.0,
+       "scaling": (0.4, 0.6), "turn": 1.0, "batch": TRAIN_BATCH, "env": {}}
+GEM_RUN_DIR = ROOT / "build" / "smoke_gem"
+GEM_TIMED_FRAMES = 12  # frames per host-op timing
+
+
+def gem_windows(duration_s: float) -> int:
+    """Windows the indexer makes of one subject: starts 0, 2, ... s while
+    the 14 s window fits the aligned duration (the world video starts
+    0.35 s late)."""
+    from routeformer_torch.experiments import full_comparison as fc
+    from routeformer_torch.io.gem_fixture import WORLD_LAG_S
+
+    span = (duration_s - WORLD_LAG_S
+            - (fc.INPUT_LENGTH_SECONDS + fc.TARGET_LENGTH_SECONDS))
+    return int(span // fc.STEP_SIZE_SECONDS) + 1 if span >= 0 else 0
+
+
+def write_gem_recording(root: Path, geo: dict) -> dict:
+    """The three subjects, halving the duration while the disk cannot
+    hold them twice over."""
+    from routeformer_torch.io.gem_fixture import build_gem_fixture
+
+    n = int(geo["duration_s"] * geo["fps"])
+    need = len(GEM_SUBJECTS) * n * 3 * (2 * math.prod(geo["gopro_hw"])
+                                        + math.prod(geo["world_hw"]))
+    free = shutil.disk_usage(root).free
+    cuts = []
+    while 2 * need > free and geo["duration_s"] > 30:
+        geo = dict(geo, duration_s=geo["duration_s"] / 2)
+        need //= 2
+        cuts.append(f"duration halved to {geo['duration_s']} s: {free / 1e9:.1f} GB free")
+    t0 = time.perf_counter()
+    for subject, seed in GEM_SUBJECTS:
+        build_gem_fixture(root, duration_s=geo["duration_s"], subject=subject,
+                          hw=geo["gopro_hw"], world_hw=geo["world_hw"], fps=geo["fps"],
+                          seed=seed, turn=geo["turn"])
+    nbytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+    return {"geo": geo, "seconds": time.perf_counter() - t0, "bytes": nbytes,
+            "disk_free_bytes": free, "cuts": cuts}
+
+
+def same_bits(placed: dict, want: dict, where: str) -> None:
+    """A placed batch against ``torch.from_numpy`` of the numpy batch it
+    was collated from (float64 placed as float32): the same bits."""
+    import numpy as np
+    import torch
+
+    from routeformer_torch.io.loader import canonical
+
+    for k, v in want.items():
+        if isinstance(v, dict):
+            same_bits(placed[k], v, f"{where}.{k}")
+            continue
+        ref = torch.from_numpy(np.ascontiguousarray(canonical(np.asarray(v))))
+        got = placed[k].cpu()
+        assert got.dtype == ref.dtype and torch.equal(got, ref), f"{where}.{k} differs"
+
+
+def synchronize(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def loader_epoch(loader, epoch: int) -> dict:
+    """One epoch of ``loader`` with no model: the batches (kept on the
+    card), the wall time, bytes copied and the frame store's counts."""
+    loader.set_epoch(epoch)
+    order = loader.batch_indices()
+    before = {k: dict(v) for k, v in loader.frame_store_stats().items()}
+    copied = loader.bytes_copied
+    t0 = time.perf_counter()
+    batches = list(loader)
+    synchronize(loader.device)
+    seconds = time.perf_counter() - t0
+    stats = loader.frame_store_stats()
+    seen = sum(v["seen"] - before.get(k, {}).get("seen", 0) for k, v in stats.items())
+    shipped = sum(v["shipped"] - before.get(k, {}).get("shipped", 0) for k, v in stats.items())
+    store_bytes = sum(v["bytes_shipped"] - before.get(k, {}).get("bytes_shipped", 0)
+                      for k, v in stats.items())
+    n = len(batches)
+    return {"batches": batches, "order": order, "seconds": seconds,
+            "samples_per_s": n * loader.batch_size / seconds, "ms_per_batch": 1e3 * seconds / n,
+            "bytes_copied_per_batch": (loader.bytes_copied - copied + store_bytes) / n,
+            "frames_seen": seen, "frames_shipped": shipped,
+            "shipped_share": shipped / max(seen, 1),
+            "per_stream": {k: {"seen": v["seen"] - before.get(k, {}).get("seen", 0),
+                               "shipped": v["shipped"] - before.get(k, {}).get("shipped", 0),
+                               "capacity": v["capacity"]} for k, v in stats.items()}}
+
+
+def check_epoch_bits(loader, epoch: dict) -> None:
+    """Every batch of an epoch against ``default_collate`` of its samples
+    (served again from the dataset's memory tier, the same arrays)."""
+    from routeformer_torch.io.loader import default_collate
+
+    for b, (placed, idx) in enumerate(zip(epoch["batches"], epoch["order"])):
+        same_bits(placed, default_collate([loader.dataset[int(i)] for i in idx]),
+                  f"batch {b}")
+
+
+def check_distinct_keys(dataset, order) -> dict:
+    """Distinct source frames give distinct content keys after the
+    transforms: each window's frames (train and target) are pairwise
+    distinct, and no key is shared between two subjects."""
+    import numpy as np
+
+    from routeformer_torch.io.frame_store import hash_frames
+
+    keys_of = {}
+    for i in (int(i) for idx in order for i in idx):
+        sample, subject = dataset[i], dataset._indexer[i]["subject"]
+        for stream in ("left_video", "right_video", "front_video"):
+            frames = np.concatenate([sample["train"][stream], sample["target"][stream]])
+            keys = hash_frames(np.ascontiguousarray(frames))
+            assert len(set(keys)) == len(keys), f"sample {i} {stream}: repeated frames"
+            keys_of.setdefault(subject, set()).update(keys)
+    subjects = sorted(keys_of)
+    for a in range(len(subjects)):
+        for b in range(a + 1, len(subjects)):
+            assert not keys_of[subjects[a]] & keys_of[subjects[b]], "subjects share frames"
+    return {s: len(k) for s, k in keys_of.items()}
+
+
+def host_op_times(dataset, root: Path, geo: dict) -> dict:
+    """Host ms per source frame, one thread: the raw read, the undistort
+    (GoPro: only the columns the crop keeps) and the resize, for a GoPro
+    and the world video."""
+    from routeformer_torch.io.video import open_capture
+    from routeformer_torch.ops.image import crop_columns, remap_table, resize_table
+
+    meta = next(iter(dataset.subject_sample_metadatas["001"].values()))["gaze_metadata"]
+    cams = {"gopro": (root / "01GoPro" / "001" / "left" / "GH010008.MP4",
+                      dataset.LEFT_VIDEO_CAMERA_INTRINSICS,
+                      dataset.LEFT_VIDEO_DISTORTION_COEFFICIENTS, True, geo["scaling"][0]),
+            "front": (root / "02EyeTracker" / "001" / "world.mp4", meta["camera_matrix"],
+                      meta["dist_coefs"], False, geo["scaling"][1])}
+    out = {}
+    for name, (path, k, d, crop, scale) in cams.items():
+        cap = open_capture(path)
+        t0 = time.perf_counter()
+        frames = [cap.read()[1] for _ in range(GEM_TIMED_FRAMES)]
+        read_ms = 1e3 * (time.perf_counter() - t0) / GEM_TIMED_FRAMES
+        cap.release()
+        h, w = frames[0].shape[:2]
+        table = remap_table(k, d, h, w)
+        cols = crop_columns(w) if crop else slice(None)
+        t0 = time.perf_counter()
+        und = [table.apply(f[None], cols) for f in frames]
+        und_ms = 1e3 * (time.perf_counter() - t0) / GEM_TIMED_FRAMES
+        uh, uw = und[0].shape[1:3]
+        resize = resize_table((uh, uw), (int(uh * scale), int(uw * scale)))
+        t0 = time.perf_counter()
+        for f in und:
+            resize.apply(f)
+        out[name] = {"read_ms": read_ms, "undistort_ms": und_ms,
+                     "resize_ms": 1e3 * (time.perf_counter() - t0) / GEM_TIMED_FRAMES,
+                     "source_hw": [h, w], "model_hw": [int(uh * scale), int(uw * scale)]}
+    return out
+
+
+def h2d_ms(groups: dict) -> float:
+    """Device time of host-to-device copies in a profile's groups."""
+    return sum(t for name, t in groups.items() if "HtoD" in name)
+
+
+def profiled_steps(trainer, batches, dev) -> dict:
+    """``training_step`` over ``batches`` under torch.profiler, each step
+    synchronised: host ms per step (``step_ms`` the mean after the first,
+    whose batch the loader had no step to prepare behind), device busy and
+    host-to-device copy device time per step, the idle share over the whole
+    run, and the launches of each step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    launches, losses, times = [], [], []
+    synchronize(dev)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            before = launch_counts()
+            losses.append(float(trainer.training_step(batch)["train_total_loss"]))
+            synchronize(dev)
+            times.append(time.perf_counter())
+            after = launch_counts()
+            launches.append({k: after[k] - before[k] for k in after})
+    n = len(launches)
+    steps = [1e3 * (b - a) for a, b in zip([t0] + times[:-1], times)]
+    groups, count = device_groups(prof, n)
+    busy = sum(groups.values())
+    assert all(math.isfinite(v) for v in losses), losses
+    return {"step_ms": sum(steps[1:]) / max(n - 1, 1), "step_ms_each": steps,
+            "device_busy_ms": busy, "idle_share": 1 - busy * n / sum(steps) if busy else None,
+            "h2d_copy_device_ms": h2d_ms(groups), "kernels_per_step": count,
+            "launches_per_step": launches, "losses": losses}
+
+
+def copy_rates(nbytes: int) -> dict:
+    """Host-to-device GB/s of one ``nbytes`` uint8 copy from pinned and from
+    pageable memory (CUDA events): the yardstick for the copy device times
+    the profiles report."""
+    import torch
+
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for kind, src in (("pinned", torch.ones(nbytes, dtype=torch.uint8, pin_memory=True)),
+                      ("pageable", torch.ones(nbytes, dtype=torch.uint8))):
+        ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), iters=5, warmup=1)
+        out[kind] = {"ms": ms, "gb_s": nbytes / ms / 1e6}
+    del dst
+    return out
+
+
+def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
+    """Phase 7d. Returns the launches of the cold epoch's run."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from routeformer_torch.experiments import full_comparison as fc
+    from routeformer_torch.io.dataset import GEMDataset
+    from routeformer_torch.io.loader import DataLoader, default_collate
+    from routeformer_torch.train import CheckpointManager, MetricsLogger
+
+    dev = torch.device("cuda") if dev is None else dev
+    geo = dict(GEM if geo is None else geo)
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="gem_smoke_"))
+    out = {"card": smi}
+    try:
+        data_root = tmp / "gem"
+        data_root.mkdir()
+        written = write_gem_recording(data_root, geo)
+        geo = written.pop("geo")
+        out["recording"] = written
+        log(f"{smi}: GEM recording {json.dumps(written)}")
+
+        # 2. Index, through the driver's build_data.
+        env = dict({"DATASET": "GEM", "MODEL_SET": "flagship", "EPOCHS": "1",
+                    "BATCH_SIZE": str(geo["batch"]), "ROUTEFORMER_DATASET_DIR": str(data_root),
+                    "USE_MEMORY_CACHE": "1", "RESULTS_DIR": str(GEM_RUN_DIR)}, **geo["env"])
+        s = dataclasses.replace(fc.Settings.from_env(env),
+                                gopro_scaling_factor=geo["scaling"][0],
+                                front_scaling_factor=geo["scaling"][1])
+        shutil.rmtree(GEM_RUN_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        train, val = fc.build_data(s, device=dev)
+        index_s = time.perf_counter() - t0
+        ds_train, ds_val = train.dataset, val.dataset
+        unfiltered = GEMDataset(root=data_root, split=["002"], min_pci=None, with_video=False,
+                                with_gaze=False)
+        pcis = [item["pci"] for item in unfiltered._indexer.values()]
+        want = {"train": 2 * gem_windows(geo["duration_s"]),
+                "val_unfiltered": gem_windows(geo["duration_s"]),
+                "val": sum(p >= s.min_pci for p in pcis)}
+        got = {"train": len(ds_train), "val_unfiltered": len(unfiltered), "val": len(ds_val)}
+        out["index"] = {"seconds": index_s, "samples": got, "predicted": want}
+        log(f"GEM index: {json.dumps(out['index'])}")
+        assert got == want, out["index"]
+        assert len(train) == 3 and len(val) >= 1, (len(train), len(val))
+
+        # 3. The loader alone: two epochs, every batch's bits checked.
+        loader = DataLoader(ds_train, batch_size=s.batch_size, shuffle=True, to_device=True,
+                            h2d_dedup=True, device=dev)
+        epochs = [loader_epoch(loader, 0), loader_epoch(loader, 1)]
+        for e in epochs:
+            check_epoch_bits(loader, e)
+        distinct = check_distinct_keys(ds_train, epochs[0]["order"])
+        out["loader"] = [{k: v for k, v in e.items() if k not in ("batches", "order")}
+                         for e in epochs]
+        out["distinct_keys_per_subject"] = distinct
+        out["host_ms_per_frame"] = host_op_times(ds_train, data_root, geo)
+        log(f"{smi}: GEM loader alone {json.dumps(out['loader'])}; host ms per frame "
+            f"{json.dumps(out['host_ms_per_frame'])}; distinct keys {distinct}")
+        numpy_batches = [default_collate([ds_train[int(i)] for i in idx])
+                         for idx in epochs[0]["order"]]
+        if dev.type == "cuda":
+            batch_bytes = sum(v.nbytes for part in ("train", "target")
+                              for v in numpy_batches[0][part].values())
+            out["copy_rates"] = copy_rates(batch_bytes)
+            log(f"{smi}: host-to-device copy of one batch ({batch_bytes} B) "
+                f"{json.dumps(out['copy_rates'])}")
+        del epochs, loader
+        free_device()
+
+        # 4. The driver's flagship on the recording: a cold epoch through
+        # run_epochs on build_data's loaders (a cold frame store; samples
+        # from the memory tier step 3 filled, val decoded here).
+        set_fusion("1")
+        trainer = fc.build_trainer(s, fc.build_models(s), dev)
+        ckpt = CheckpointManager(s.results_dir / "checkpoints")
+        metrics_logger = MetricsLogger(s.results_dir / "logs", experiment="smoke_gem")
+        prepare = fc.make_prepare(None)  # no embedding cache: main() attaches no stage
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        if dev.type == "cuda":
+            reset_peak()
+        reset_counts()  # the main path: counts set to 0 just before, read just after
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            history = fc.run_epochs(trainer, ckpt, metrics_logger, train, val, prepare,
+                                    epochs=1)
+            synchronize(dev)
+            epoch_s = time.perf_counter() - t0
+        launches = launch_counts()
+        metrics_logger.close()
+        steps, evals = len(train), len(val) * MC_SAMPLES
+        if dev.type == "cuda":
+            for k in ("K1", "K2", "K3a", "K4"):
+                expect = steps * RUN_PER_STEP[k] + evals * PER_EVAL_FORWARD[k]
+                assert launches[k] == expect, f"GEM epoch: {k} {launches[k]}, not {expect}"
+            assert steps * 16 <= launches["K3b"] <= steps * 24, launches
+        values = [float(v) for v in history[0]["val"].values()]
+        assert values and all(math.isfinite(v) for v in values), history
+        groups, _ = device_groups(prof, steps + len(val))
+        cold = {"epoch_s": epoch_s, "launches": launches,
+                "peak_gib": peak_gib() if dev.type == "cuda" else None,
+                "h2d_copy_device_ms_per_batch": h2d_ms(groups),
+                "device_busy_ms_per_batch": sum(groups.values()),
+                "frame_store": {"train": train.frame_store_stats(),
+                                "val": val.frame_store_stats()},
+                "bytes_copied_per_batch": (train.bytes_copied + val.bytes_copied
+                                           + sum(v["bytes_shipped"] for d in (train, val)
+                                                 for v in d.frame_store_stats().values()))
+                / (steps + len(val)),
+                "val_ade": float(history[0]["val"][f"val_{fc.FLAGSHIP}_ade"])}
+        out["cold_epoch"] = cold
+        log(f"{smi}: GEM cold epoch {json.dumps(cold)}")
+
+        # The steps again, timed: the loader's pinned batches (warm frame
+        # store), then the same batches as numpy through the trainer's
+        # pageable copy on the consumer thread.
+        if dev.type == "cuda":
+            reset_peak()
+        train.set_epoch(1)
+        pinned = profiled_steps(trainer, train, dev)
+        pinned["peak_gib"] = peak_gib() if dev.type == "cuda" else None
+        pageable = profiled_steps(trainer, numpy_batches, dev)
+        if dev.type == "cuda":
+            for step in pinned["launches_per_step"] + pageable["launches_per_step"]:
+                assert all(step[k] == RUN_PER_STEP[k] for k in RUN_PER_STEP), step
+                assert step["K3b"] in PER_STEP["K3b"], step
+        out["pinned_steps"], out["pageable_steps"] = pinned, pageable
+        log(f"{smi}: GEM steps, loader (pinned, frame store) {json.dumps(pinned)}")
+        log(f"{smi}: GEM steps, numpy (pageable) {json.dumps(pageable)}")
+        del trainer, ckpt, train, val, numpy_batches
+        free_device()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(GEM_RUN_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["gem_data_path"] = out
+    log(f"GEM data path phase: {out['phase_s']:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 8 #
 
 
@@ -2885,6 +3278,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
             "training_run_launches": {run: counts[name] for run, counts
                                       in results["training_run_launches"].items()},
             "full_set_launches": results["full_set_launches"][name],
+            "gem_data_path_launches": results["gem_data_path_launches"][name],
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -3001,6 +3395,7 @@ def main() -> int:
     train_parity(results)
     results["training_run_launches"] = training_run(results, smi)
     results["full_set_launches"] = full_set_run(results, smi)
+    results["gem_data_path_launches"] = gem_data_path(results, smi)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

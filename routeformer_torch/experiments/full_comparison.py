@@ -15,6 +15,10 @@ driver's environment variables, read when ``main`` runs:
   DISCOUNTED_FACTOR=default|<other: {0: 1.0}>  LIMIT_TRAIN_BATCHES
   COMPUTE_DTYPE=bfloat16|float32  USE_EMBEDDING_CACHE=0|1|host|device
   RESUME=0|1  SAVE_EVERY_STEPS  USE_PATCHTST_BACKBONE=0|1
+  ROUTEFORMER_DATASET_DIR (DATASET=GEM) / DREYEVE_DATASET_DIR  and
+  ROUTEFORMER_DATASET_CACHE_DIR / DREYEVE_DATASET_CACHE_DIR
+  VIDEO_DTYPE=uint8|float16  USE_MEMORY_CACHE=0|1  MAX_MEMORY_CACHE_SIZE
+  H2D_DEDUP=1|0  LOADER_PRODUCERS
   ROUTEFORMER_FORCE_CPU=1 (run on the CPU; otherwise CUDA, and without it
   the driver raises)
 
@@ -26,10 +30,20 @@ linear baselines; ``full`` (the default) both and the autoregressive,
 scene-less and gaze-less variants, AdaptedGIMO and the
 MultiModalTransformer. ``USE_PATCHTST_BACKBONE=1`` puts PatchTST under the
 flagship. The SwinV2 blocks use the exact gelu (the unfused block, K2), as
-the JAX driver's do. A ``*_DATASET_DIR`` needs the data layer and
-``FSDP=1`` the multi-card mesh: each raises ``NotImplementedError`` naming
-its ``ROADMAP.md`` item. The data are the synthetic GEM-geometry batches of
-``io/synthetic.py``.
+the JAX driver's do.
+
+With ``DATASET=GEM`` and ``ROUTEFORMER_DATASET_DIR`` set to a directory,
+the data are that recording's (``build_data``, the JAX driver's
+``:286-353``): ``io/dataset.GEMDataset`` splits (train at ``min_pci=0``,
+val at ``MIN_PCI``) behind ``io/loader.DataLoader``s that place each batch
+on the card from the producer thread (pinned, non-blocking, on a side
+stream) and, with ``H2D_DEDUP=1`` (the default), ship each distinct video
+frame once through the frame store; the ``prepare`` stage (the embedding
+cache) runs inside the loaders. Without a directory the data are the
+synthetic GEM-geometry batches of ``io/synthetic.py``. A
+``DREYEVE_DATASET_DIR`` needs the DR(eye)VE reader and ``FSDP=1`` the
+multi-card mesh: each raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item before any work.
 """
 
 import functools
@@ -71,6 +85,14 @@ class Settings:
     force_cpu: bool = False
     dataset_dir: Optional[str] = None
     use_patchtst_backbone: bool = False
+    dataset_cache_dir: Optional[str] = None
+    video_dtype: str = "uint8"
+    use_memory_cache: bool = False
+    max_memory_cache_size: int = int(100e9)
+    h2d_dedup: bool = True
+    loader_producers: Optional[int] = None
+    gopro_scaling_factor: float = 0.4  # the JAX driver's: DREYEVE 0.4, GEM 0.1
+    front_scaling_factor: float = 1 / 3.0  # DREYEVE 1/3, GEM 0.3
 
     @classmethod
     def from_env(cls, env=None) -> "Settings":
@@ -83,6 +105,15 @@ class Settings:
         cache = env.get("USE_EMBEDDING_CACHE", "0")
         if cache not in ("0", "1", "host", "device"):
             raise ValueError(f"USE_EMBEDDING_CACHE={cache!r}: expected 0, 1, host or device")
+        prefix = "DREYEVE" if dataset == "DREYEVE" else "ROUTEFORMER"
+        dataset_dir = env.get(f"{prefix}_DATASET_DIR")
+        if dataset == "DREYEVE" and dataset_dir and Path(dataset_dir).exists():
+            raise NotImplementedError(
+                f"{dataset_dir}: DR(eye)VE recordings need the DR(eye)VE reader "
+                "(io/dataset_dreyeve.py, its JPEG and .avi frames), which is not ported "
+                "(ROADMAP.md §1 item 4); unset DREYEVE_DATASET_DIR to train on synthetic "
+                "batches")
+        producers = env.get("LOADER_PRODUCERS")
         return cls(
             dataset=dataset, debug=debug,
             epochs=int(env.get("EPOCHS", 1 if debug else 200)),
@@ -101,8 +132,15 @@ class Settings:
             save_every_steps=int(env.get("SAVE_EVERY_STEPS", "0")),
             force_cpu=env.get("ROUTEFORMER_FORCE_CPU", "0") == "1",
             use_patchtst_backbone=env.get("USE_PATCHTST_BACKBONE", "0") == "1",
-            dataset_dir=env.get("DREYEVE_DATASET_DIR" if dataset == "DREYEVE"
-                                else "ROUTEFORMER_DATASET_DIR"),
+            dataset_dir=dataset_dir,
+            dataset_cache_dir=env.get(f"{prefix}_DATASET_CACHE_DIR"),
+            video_dtype=env.get("VIDEO_DTYPE", "uint8"),
+            use_memory_cache=env.get("USE_MEMORY_CACHE", "0") == "1",
+            max_memory_cache_size=int(float(env.get("MAX_MEMORY_CACHE_SIZE", "100e9"))),
+            h2d_dedup=env.get("H2D_DEDUP", "1") == "1",
+            loader_producers=None if producers is None else int(producers),
+            gopro_scaling_factor=0.4 if dataset == "DREYEVE" else 0.1,
+            front_scaling_factor=1 / 3.0 if dataset == "DREYEVE" else 0.3,
         )
 
     @property
@@ -112,14 +150,6 @@ class Settings:
     @property
     def pred_len(self) -> int:
         return TARGET_LENGTH_SECONDS * self.output_fps
-
-    @property
-    def gopro_scaling_factor(self) -> float:
-        return 0.4 if self.dataset == "DREYEVE" else 0.1
-
-    @property
-    def front_scaling_factor(self) -> float:
-        return 1 / 3.0 if self.dataset == "DREYEVE" else 0.3
 
     @property
     def with_video(self) -> bool:
@@ -267,22 +297,65 @@ def build_models(s: Settings) -> dict:
     return models
 
 
-def build_data(s: Settings, with_video: Optional[bool] = None):
-    """``(train, val)`` synthetic datasets (a real dataset directory needs
-    the data layer, which is not ported)."""
-    from routeformer_torch.io.synthetic import SyntheticDataset
-
+def build_data(s: Settings, with_video: Optional[bool] = None, device=None,
+               host_arrays: bool = False):
+    """``(train, val)``: ``DataLoader``s over a GEM recording when
+    ``ROUTEFORMER_DATASET_DIR`` is a directory, else synthetic datasets of
+    pre-collated batches. The loaders place batches on ``device`` from
+    their producer thread (with the frame store when ``H2D_DEDUP=1``)
+    unless ``host_arrays`` (the embedding cache's precompute takes host
+    pixels)."""
     with_video = s.with_video if with_video is None else with_video
     if s.dataset_dir and Path(s.dataset_dir).exists():
-        raise NotImplementedError(
-            f"{s.dataset_dir}: the GEM/DR(eye)VE data layer is not ported "
-            "(ROADMAP.md §1 item 4); unset the dataset directory to train on "
-            "synthetic batches")
+        from routeformer_torch.io.dataset import GEMDataset
+        from routeformer_torch.io.loader import DataLoader
+
+        common = dict(
+            root=s.dataset_dir, input_length=INPUT_LENGTH_SECONDS,
+            target_length=TARGET_LENGTH_SECONDS, step_size=STEP_SIZE_SECONDS,
+            output_fps=s.output_fps, gopro_scaling_factor=s.gopro_scaling_factor,
+            front_scaling_factor=s.front_scaling_factor, with_video=with_video,
+            with_gaze=with_video, use_cache=s.dataset_cache_dir is not None,
+            cache_dir=s.dataset_cache_dir, video_dtype=s.video_dtype,
+            use_memory_cache=s.use_memory_cache,
+            max_memory_cache_size=s.max_memory_cache_size)
+        ds_train = GEMDataset(split="train", min_pci=0, **common)
+        ds_val = GEMDataset(split="val", min_pci=s.min_pci, **common)
+        place = dict(to_device=not host_arrays, h2d_dedup=not host_arrays and s.h2d_dedup,
+                     device=None if host_arrays else device)
+        return (DataLoader(ds_train, batch_size=s.batch_size, shuffle=True, **place),
+                DataLoader(ds_val, batch_size=s.batch_size, shuffle=False, **place))
+    from routeformer_torch.io.synthetic import SyntheticDataset
+
     common = dict(batch_size=s.batch_size, seq_len=s.seq_len, pred_len=s.pred_len,
                   fps=s.output_fps, with_video=with_video, with_gaze=with_video,
                   frame_hw=(24, 32) if s.debug else (54, 96))
     return (SyntheticDataset(n_batches=2 if s.debug else 64, seed=1, **common),
             SyntheticDataset(n_batches=1 if s.debug else 8, seed=2, **common))
+
+
+def attach_prepare(s: Settings, data, prepare: Callable, device_memo: bool) -> None:
+    """Run ``prepare`` inside each loader's prefetch pipeline (the JAX
+    driver's ``set_batch_stage``): two pipelined producers when the device
+    memo is active, else one; ``LOADER_PRODUCERS`` overrides."""
+    from routeformer_torch.io.loader import DataLoader
+
+    producers = s.loader_producers or (2 if device_memo else 1)
+    for d in data:
+        if isinstance(d, DataLoader):
+            d.set_batch_stage(prepare, producers=producers)
+
+
+def iter_prepared(data, epoch: int, prepare: Callable, skip: int = 0):
+    """An epoch's batches with ``prepare`` applied once: by the loader's
+    stage for a ``DataLoader`` (``set_epoch`` reshuffles and resumes at
+    ``skip``), here for a dataset of pre-collated batches."""
+    if hasattr(data, "set_epoch"):
+        data.set_epoch(epoch, start_batch=skip)
+        yield from data
+    else:
+        for i in range(skip, len(data)):
+            yield prepare(data[i])
 
 
 def build_precompute(s: Settings, models: dict, device):
@@ -347,15 +420,16 @@ def run_epochs(trainer, ckpt, metrics_logger, train_data, val_data, prepare, *,
         trainer.epoch = epoch
         skip = start_batch if epoch == start_epoch else 0
         n_train = len(train_data)
-        stop = n_train if max_train_batches is None else min(n_train, max_train_batches)
-        for i in range(skip, stop):
-            metrics = trainer.training_step(prepare(train_data[i]))
+        for j, batch in enumerate(iter_prepared(train_data, epoch, prepare, skip)):
+            i = skip + j
+            if max_train_batches is not None and i >= max_train_batches:
+                break
+            metrics = trainer.training_step(batch)
             if i % 10 == 0:
                 metrics_logger.log(metrics, epoch * n_train + i, "train")
             if save_every and (i + 1) % save_every == 0:
                 ckpt.save_latest(trainer, epoch, next_batch=i + 1)
-        val_metrics = trainer.evaluate((prepare(val_data[i]) for i in range(len(val_data))),
-                                       "val")
+        val_metrics = trainer.evaluate(iter_prepared(val_data, epoch, prepare), "val")
         metrics_logger.log(val_metrics, epoch, "val")
         ckpt.maybe_save(trainer, val_metrics, epoch)
         if save_every:
@@ -388,8 +462,12 @@ def main(env=None) -> list:
     metrics_logger = MetricsLogger(s.results_dir / "logs",
                                    experiment=f"{s.dataset.lower()}_full_comparison",
                                    config=config.to_dict())
-    train_data, val_data = build_data(s)
-    prepare = make_prepare(build_precompute(s, models, device))
+    precompute = build_precompute(s, models, device)
+    train_data, val_data = build_data(s, device=device, host_arrays=precompute is not None)
+    prepare = make_prepare(precompute)
+    if precompute is not None:  # else prepare is the identity: loaders collate into pinned memory
+        attach_prepare(s, (train_data, val_data), prepare,
+                       device_memo=s.use_embedding_cache == "device")
     start_epoch, start_batch = 0, 0
     if s.resume:
         latest = ckpt.restore_latest(trainer)

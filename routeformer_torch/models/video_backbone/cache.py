@@ -7,9 +7,10 @@ bytes. With ``*_video_features`` in a batch the model skips its backbone
 (``models/routeformer.py``): steady epochs then run no backbone in the
 step at all.
 
-- ``EmbeddingCache``: the host RAM tier, LRU by bytes. The JAX package's
-  zstd disk tier needs ``io/cache.py`` (not ported, ``ROADMAP.md`` §1
-  item 4), so a ``cache_dir`` raises.
+- ``EmbeddingCache``: the host RAM tier, LRU by bytes, in front of a
+  disk tier (``cache_dir``) in ``io/cache.SampleCache``'s zlib format
+  under ``torch_embcache_<module hash>``: one file per frame, kept across
+  runs.
 - ``CachedBackbone`` and ``VideoFeaturePrecomputer``: host features
   (``USE_EMBEDDING_CACHE=1|host``), CPU tensors the trainer moves.
 - ``DeviceCachedBackbone`` and ``DeviceVideoFeaturePrecomputer``: the
@@ -34,6 +35,7 @@ import copy
 import hashlib
 import threading
 from collections import OrderedDict
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -70,23 +72,28 @@ def module_content_hash(module) -> str:
 
 
 class EmbeddingCache:
-    """RAM cache of per-frame embeddings, least recently used evicted first.
+    """Two-tier (RAM, then disk) cache of per-frame embeddings; the RAM
+    tier evicts the least recently used first.
 
     Frame hashing runs outside the lock; the cache mutation and the
     backbone call inside it."""
 
     def __init__(self, cache_dir: Optional[str] = None, module_hash: str = "",
-                 max_memory_bytes: float = 20e9, dtype: str = "bfloat16"):
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "the embedding cache's zstd disk tier needs io/cache.py, which is "
-                "not ported (ROADMAP.md §1 item 4); pass cache_dir=None")
+                 max_memory_bytes: float = 20e9, max_persistent_bytes: float = 200e9,
+                 dtype: str = "bfloat16"):
         self.module_hash = module_hash
         self.max_memory_bytes = max_memory_bytes
         self.dtype = _DTYPES[dtype]
         self._memory: OrderedDict = OrderedDict()
         self._memory_bytes = 0
         self._lock = threading.RLock()
+        self._disk = None
+        if cache_dir is not None:
+            from routeformer_torch.io.cache import SampleCache
+
+            self._disk = SampleCache(Path(cache_dir) / f"torch_embcache_{module_hash[:16]}",
+                                     params_repr=module_hash,
+                                     max_size_bytes=max_persistent_bytes)
 
     def key(self, frame: np.ndarray) -> str:
         h = hashlib.blake2b(digest_size=20)
@@ -117,13 +124,21 @@ class EmbeddingCache:
                 if k in self._memory:
                     self._memory.move_to_end(k)
                     out[i] = self._memory[k]
-                else:
-                    missing.append(i)
+                    continue
+                if self._disk is not None:
+                    hit = self._disk.fetch(k)
+                    if hit is not None:
+                        out[i] = hit
+                        self._remember(k, hit)
+                        continue
+                missing.append(i)
             if missing:
                 computed = compute(frames[np.asarray(missing)]).detach().cpu().to(self.dtype)
                 for j, i in enumerate(missing):
                     out[i] = computed[j].clone()
                     self._remember(keys[i], out[i])
+                    if self._disk is not None:
+                        self._disk.push(keys[i], out[i])
         return torch.stack(out)
 
     @property

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from routeformer_torch.io.loader import canonical
 from routeformer_torch.models.layers.attention import ProbAttention
 from routeformer_torch.ops.image import dequantize_videos
 from routeformer_torch.optimizers.optimizer import Optimizer
@@ -125,10 +126,15 @@ class ParallelTrainer:
         self.epoch = 0
 
     def _place(self, part: dict) -> dict:
+        """A phase of a batch on the trainer's device, videos dequantized.
+        Numpy leaves (the synthetic sets, a loader without ``to_device``)
+        are copied here from pageable memory, float64 as float32 as JAX
+        places them; tensors already on the device (a placing loader's)
+        are used as they are, with no copy."""
         out = {}
         for k, v in part.items():
             if isinstance(v, np.ndarray):
-                v = torch.from_numpy(np.ascontiguousarray(v))
+                v = torch.from_numpy(np.ascontiguousarray(canonical(v)))
             out[k] = v.to(self.device)
         return dequantize_videos(out)
 

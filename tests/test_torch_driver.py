@@ -134,9 +134,39 @@ def test_driver_refuses_what_is_not_ported(tmp_path, extra, match):
 
 
 def test_driver_refuses_a_dataset_directory(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 4"):
-        fc.main(dict(BASE, RESULTS_DIR=str(tmp_path / "r"),
-                     ROUTEFORMER_DATASET_DIR=str(tmp_path)))
+    """A DR(eye)VE directory needs the DR(eye)VE reader, which is not
+    ported: it raises naming it before any work (a GEM directory trains,
+    below)."""
+    with pytest.raises(NotImplementedError, match=r"DR\(eye\)VE reader.*ROADMAP.md §1 item 4"):
+        fc.main(dict(BASE, RESULTS_DIR=str(tmp_path / "r"), DATASET="DREYEVE",
+                     DREYEVE_DATASET_DIR=str(tmp_path)))
+
+
+@pytest.fixture(scope="module")
+def gem_dir(tmp_path_factory):
+    """The port's raw recording: subject 001 (train) and 002 (val), 20 s,
+    weaving enough for the val windows to pass MIN_PCI=20."""
+    from routeformer_torch.io.gem_fixture import build_gem_fixture
+
+    root = tmp_path_factory.mktemp("gem")
+    build_gem_fixture(root, duration_s=20.0, subject="001", seed=0, turn=1.0)
+    build_gem_fixture(root, duration_s=20.0, subject="002", seed=10, turn=1.0)
+    return root
+
+
+def test_driver_trains_on_a_gem_recording(capsys, tmp_path, gem_dir):
+    """``ROUTEFORMER_DATASET_DIR`` points at a recording: the driver builds
+    the GEM splits behind placing loaders (frame store on), trains and
+    evaluates to its ``best:`` line; the loaders hold the index the
+    dataset predicts."""
+    s = fc.Settings.from_env(dict(BASE, ROUTEFORMER_DATASET_DIR=str(gem_dir)))
+    train, val = fc.build_data(s, device=torch.device("cpu"))
+    assert (len(train.dataset), len(train)) == (3, 1) and len(val.dataset) >= 2
+    assert train.to_device and train.h2d_dedup and train.shuffle and not val.shuffle
+    history, lines = _run(capsys, tmp_path, EPOCHS="1", ROUTEFORMER_DATASET_DIR=str(gem_dir))
+    assert [line.split(":")[0] for line in lines if line.startswith("epoch ")] == ["epoch 0"]
+    assert lines[-1].startswith("best: {") and fc.FLAGSHIP in lines[-1]
+    assert np.isfinite(float(history[0]["val"][f"val_{fc.FLAGSHIP}_ade"]))
 
 
 def test_driver_needs_cuda_without_force_cpu(tmp_path):

@@ -124,9 +124,10 @@ def test_device_memo_matches_backbone_and_counts_as_jax():
                                atol=1e-5 * np.abs(j_all).max())
 
 
-def test_embedding_cache_ram_tier():
+def test_embedding_cache_ram_tier(tmp_path):
     """Only missing frames are computed; the byte budget evicts the least
-    recently used entry; a cache directory (the disk tier) raises."""
+    recently used entry; with a cache directory, a fresh cache (a new run)
+    serves every frame from the disk tier, the same bits, computing none."""
     frames = _frames(3)
     calls = []
 
@@ -144,8 +145,13 @@ def test_embedding_cache_ram_tier():
     assert calls == [2, 1]
     cache.get_or_compute(frames[1:2], compute)
     assert calls == [2, 1, 1]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EmbeddingCache(cache_dir="somewhere")
+    disk = EmbeddingCache(cache_dir=str(tmp_path), module_hash="m", dtype="bfloat16")
+    stored = disk.get_or_compute(frames, compute)
+    assert calls == [2, 1, 1, 3]
+    fresh = EmbeddingCache(cache_dir=str(tmp_path), module_hash="m", dtype="bfloat16")
+    assert torch.equal(fresh.get_or_compute(frames[::-1], compute), stored.flip(0))
+    assert calls == [2, 1, 1, 3]
+    assert [p.parent.name for p in tmp_path.rglob("*.rfz")] == ["torch_embcache_m"] * 3
 
 
 @pytest.mark.parametrize("kind", ["host", "device"])

@@ -57,6 +57,43 @@ def test_port_and_chip_smoke_import_no_jax():
     assert int(out.stdout.split()[0]) >= 25
 
 
+_HOST_BLOCKER = _BLOCKER.replace(
+    'BLOCKED = ("jax", "jaxlib", "flax", "routeformer_tpu")',
+    'BLOCKED = ("jax", "jaxlib", "flax", "routeformer_tpu", "cv2", "msgpack", "zstandard", '
+    '"pandas")') + r"""
+import tempfile
+from pathlib import Path
+from routeformer_torch.io.dataset import GEMDataset
+from routeformer_torch.io.gem_fixture import build_gem_fixture
+from routeformer_torch.io.loader import DataLoader
+root = Path(tempfile.mkdtemp())
+build_gem_fixture(root, duration_s=16.0, subject="002", turn=1.0)
+ds = GEMDataset(root=root, split="val", min_pci=None, gopro_scaling_factor=0.5,
+                front_scaling_factor=0.5, use_cache=True, cache_dir=root / "cache")
+item = ds[0]
+shapes = {k: v.shape for k, v in item["train"].items()}
+assert shapes == {"left_video": (40, 24, 12, 3), "right_video": (40, 24, 12, 3),
+                  "front_video": (40, 24, 32, 3), "gps": (40, 2), "gaze": (1600, 2)}, shapes
+batch = next(iter(DataLoader(ds, batch_size=1, to_device=True, h2d_dedup=True,
+                             device="cpu")))
+assert tuple(batch["target"]["front_video"].shape) == (1, 30, 24, 32, 3)
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("item read")
+"""
+
+
+def test_gem_data_path_needs_no_host_package():
+    """With jax, cv2, msgpack, zstandard and pandas all blocked (the card's
+    machine has none of the last four), the port builds a ``GEMDataset``
+    over its raw recording (sample cache on), reads a multimodal item and
+    places a deduplicated batch."""
+    out = subprocess.run([sys.executable, "-c", _HOST_BLOCKER], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["item", "read"]
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
