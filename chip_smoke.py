@@ -141,6 +141,27 @@ Phases (any failure exits non-zero):
    steps again on the loader's pinned batches and on the same batches as
    numpy through the trainer's pageable copy: step ms, device busy, idle
    share, copy device time, launches per step.
+7e. The DR(eye)VE data path (``DATASET=DREYEVE``, batch 16): sessions
+   written by ``io/dreyeve_fixture.py`` into a temporary directory (01 and
+   02 train, 45 val, 62 s each; only the frames the windows read, as BMP
+   content under ``.jpg`` names: the garmin view at (540, 960), the ETG at
+   (720, 960), 3.4 GB; the duration halved while the disk cannot hold it
+   twice), indexed through the driver's ``build_data`` with garmin scaling
+   0.8 (the general ``INTER_AREA`` path, as the real 0.4 takes it) and ETG
+   1/3 (the integer one): the model sees the driver's real DR(eye)VE
+   geometry, garmin (432, 768) cropped to 216 rows and split into two
+   (216, 384) halves, ETG (240, 320). Windows per session and the val count
+   at ``MIN_PCI``; the loader alone with the driver's placed split stage,
+   two epochs: every batch the same bits as the numpy collate of its
+   samples, split in numpy; the halves views of one placed tensor; each
+   window's frames distinct keys, none shared between sessions; host ms a
+   source frame (the read, ``INTER_AREA`` per view); the loader's rates and
+   shipped share. Then a cold epoch of the driver's flagship (3 train
+   batches, MC eval of 1 val batch; launches from 0 just before and read
+   just after, 0/48/48/16-24 K1/K2/K3a/K3b a step), the steps again on the
+   loader's batches (step ms, busy, idle share, launches per step), and
+   the card's ``ops/image.remap`` against the CPU's on a batch of frames
+   warped by a fixed homography (the stitcher's warp), timed.
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
@@ -148,7 +169,8 @@ Phases (any failure exits non-zero):
    ``training_run_launches`` gives K1-K4's launches in phase 7b's cold
    and steady epochs, ``full_set_launches`` those of phase 7c per full-set
    step and per eval forward (one MC sample of every model),
-   ``gem_data_path_launches`` those of phase 7d's cold epoch. ``ms_timing``
+   ``gem_data_path_launches`` those of phase 7d's cold epoch,
+   ``dreyeve_data_path_launches`` those of phase 7e's. ``ms_timing``
    says how each ``ms`` was taken: ``eager`` (back-to-back
    calls, the host's launch time included where it exceeds the kernel's)
    or ``graph`` (device time, the launches replayed from a CUDA graph).
@@ -2980,6 +3002,267 @@ def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
     return launches
 
 
+# --------------------------------------------------------------- phase 7e #
+
+# The DR(eye)VE data path: sessions written by the port's writer
+# (``io/dreyeve_fixture.py``), read by ``io/dataset_dreyeve.py``, loaded
+# with the driver's placed split stage and trained on by the driver's
+# flagship. 62 s sessions give 24 windows each: 01 and 02 (train) three
+# batches of 16, 45 (val) >= 16 at MIN_PCI 20.
+DREYEVE_SESSIONS = (1, 2, 45)
+DREYEVE = {"duration_s": 62.0, "garmin_hw": (540, 960), "etg_hw": (720, 960),
+           "scaling": (0.8, 1 / 3.0), "turn": 1.0, "batch": TRAIN_BATCH, "env": {}}
+DREYEVE_RUN_DIR = ROOT / "build" / "smoke_dreyeve"
+DREYEVE_TIMED_FRAMES = 12
+REMAP_TOL = 1e-3  # card vs CPU remap of [0, 255] frames, absolute: f32 lerps, FMA or not
+REMAP_H = ((0.98, 0.03, 12.5), (-0.02, 1.01, -4.0), (2e-5, -1e-5, 1.0))
+
+
+def dreyeve_windows(duration_s: float) -> int:
+    """Windows of one session: starts every 60 rows while 420 rows fit."""
+    n = int(duration_s * 30)
+    return len(range(0, n - 420, 60))
+
+
+def write_dreyeve_recording(root: Path, geo: dict) -> dict:
+    """The three sessions (windows' frames only), halving the duration
+    while the disk cannot hold them twice over."""
+    from routeformer_torch.io.dreyeve_fixture import build_dreyeve_fixture
+
+    frame_bytes = 3 * (math.prod(geo["garmin_hw"]) + math.prod(geo["etg_hw"]))
+    need = len(DREYEVE_SESSIONS) * int(geo["duration_s"] * 5) * frame_bytes
+    free = shutil.disk_usage(root).free
+    cuts = []
+    while 2 * need > free and geo["duration_s"] > 30:
+        geo = dict(geo, duration_s=geo["duration_s"] / 2)
+        need //= 2
+        cuts.append(f"duration halved to {geo['duration_s']} s: {free / 1e9:.1f} GB free")
+    t0 = time.perf_counter()
+    build_dreyeve_fixture(root, session_ids=DREYEVE_SESSIONS, duration_s=geo["duration_s"],
+                          garmin_hw=geo["garmin_hw"], etg_hw=geo["etg_hw"], turn=geo["turn"],
+                          sparse=True)
+    nbytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+    return {"geo": geo, "seconds": time.perf_counter() - t0, "bytes": nbytes,
+            "disk_free_bytes": free, "cuts": cuts}
+
+
+def check_split_views(batch: dict) -> None:
+    """Each phase's halves are views of one placed tensor: one storage,
+    both inside it, the right half starting half a row in."""
+    for phase in ("train", "target"):
+        left, right = batch[phase]["left_video"], batch[phase]["right_video"]
+        storage = left.untyped_storage()
+        assert storage.data_ptr() == right.untyped_storage().data_ptr(), f"{phase}: copies"
+        end = storage.data_ptr() + storage.nbytes()
+        for half in (left, right):
+            assert storage.data_ptr() <= half.data_ptr() < end, f"{phase}: outside the storage"
+        assert right.data_ptr() - left.data_ptr() == left.shape[3] * left.shape[4], phase
+
+
+def dreyeve_host_times(dataset, root: Path, geo: dict) -> dict:
+    """Host ms a source frame, one thread: the frame file's read and the
+    ``INTER_AREA`` scaling, for the garmin and the ETG view."""
+    from routeformer_torch.io.frames import read_frame
+    from routeformer_torch.ops.image import resize_area
+
+    ids = [int(i) for i in dataset.metadata[DREYEVE_SESSIONS[0]]["frame_gar"][
+        : 6 * DREYEVE_TIMED_FRAMES: 6]]
+    out = {}
+    for name, folder, scale in (("garmin", "video_garmin_frames", geo["scaling"][0]),
+                                ("etg", "video_etg_frames", geo["scaling"][1])):
+        paths = [root / f"{DREYEVE_SESSIONS[0]:02d}" / folder / f"{i:06d}.jpg" for i in ids]
+        t0 = time.perf_counter()
+        frames = [read_frame(p) for p in paths]
+        read_ms = 1e3 * (time.perf_counter() - t0) / len(paths)
+        t0 = time.perf_counter()
+        scaled = [resize_area(f, scale) for f in frames]
+        out[name] = {"read_ms": read_ms,
+                     "inter_area_ms": 1e3 * (time.perf_counter() - t0) / len(paths),
+                     "source_hw": list(frames[0].shape[:2]),
+                     "model_hw": list(scaled[0].shape[:2])}
+    return out
+
+
+def remap_check(dataset, dev, smi: str) -> dict:
+    """``ops/image.remap`` of 16 fixture garmin frames at the stitcher's
+    canvas grid for ``REMAP_H`` (source coordinates in the frame, border
+    clamped): the card against the CPU, and the card's time."""
+    import numpy as np
+    import torch
+
+    from routeformer_torch.ops.image import remap
+
+    sample = dataset[0]["train"]["left_video"][:16]
+    frames = torch.from_numpy(np.ascontiguousarray(sample))
+    h, w = frames.shape[1:3]
+    hinv = np.linalg.inv(np.array(REMAP_H))
+    ys, xs = np.mgrid[0:h, 0:2 * w].astype(np.float64)
+    coords = np.stack([xs, ys, np.ones_like(xs)], axis=-1) @ hinv.T
+    grid = torch.from_numpy((coords[..., :2] / coords[..., 2:3]).astype(np.float32))
+    want = remap(frames, grid)
+    frames_d, grid_d = frames.to(dev), grid.to(dev)
+    got = remap(frames_d, grid_d)
+    err = float((got.cpu() - want).abs().max())
+    ms = cuda_ms(lambda: remap(frames_d, grid_d)) if dev.type == "cuda" else None
+    out = {"shape": list(got.shape), "max_abs_err": err, "tol": REMAP_TOL, "ms": ms,
+           "card": smi}
+    assert err <= REMAP_TOL, out
+    return out
+
+
+def dreyeve_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
+    """Phase 7e. Returns the launches of the cold epoch's run."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from routeformer_torch.experiments import full_comparison as fc
+    from routeformer_torch.io.dataset_dreyeve import DreyeveDataset
+    from routeformer_torch.io.frame_store import hash_frames
+    from routeformer_torch.io.loader import DataLoader, default_collate
+    from routeformer_torch.train import CheckpointManager, MetricsLogger
+    from routeformer_torch.train.trainer import maybe_split_video
+
+    dev = torch.device("cuda") if dev is None else dev
+    geo = dict(DREYEVE if geo is None else geo)
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="dreyeve_smoke_"))
+    out = {"card": smi}
+    try:
+        data_root = tmp / "dreyeve"
+        data_root.mkdir()
+        written = write_dreyeve_recording(data_root, geo)
+        geo = written.pop("geo")
+        out["recording"] = written
+        log(f"{smi}: DR(eye)VE recording {json.dumps(written)}")
+
+        # Index, through the driver's build_data.
+        env = {"DATASET": "DREYEVE", "MODEL_SET": "flagship", "EPOCHS": "1",
+               "BATCH_SIZE": str(geo["batch"]), "DREYEVE_DATASET_DIR": str(data_root),
+               "VIDEO_DTYPE": "uint8", "H2D_DEDUP": "1", "ENABLE_LEFT_VIDEO_SPLIT": "1",
+               "USE_MEMORY_CACHE": "1", "RESULTS_DIR": str(DREYEVE_RUN_DIR), **geo["env"]}
+        s = dataclasses.replace(fc.Settings.from_env(env),
+                                gopro_scaling_factor=geo["scaling"][0],
+                                front_scaling_factor=geo["scaling"][1])
+        assert s.split_video, "the driver does not split the DR(eye)VE view"
+        shutil.rmtree(DREYEVE_RUN_DIR, ignore_errors=True)
+        t0 = time.perf_counter()
+        train, val = fc.build_data(s, device=dev)
+        index_s = time.perf_counter() - t0
+        prepare = fc.make_prepare(None, split_video=True)
+        fc.attach_prepare(s, (train, val), prepare, device_memo=False, host_stage=False)
+        ds_train, ds_val = train.dataset, val.dataset
+        unfiltered = DreyeveDataset(data_root, split=[DREYEVE_SESSIONS[2]], min_pci=None,
+                                    with_video=False)
+        per_session = {sid: sum(e["session_id"] == sid for e in ds_train.data)
+                       for sid in DREYEVE_SESSIONS[:2]}
+        n = dreyeve_windows(geo["duration_s"])
+        want = {"per_session": {sid: n for sid in DREYEVE_SESSIONS[:2]},
+                "val_unfiltered": n,
+                "val": sum(e["pci"] >= s.min_pci for e in unfiltered.data)}
+        got = {"per_session": per_session, "val_unfiltered": len(unfiltered.data),
+               "val": len(ds_val)}
+        out["index"] = {"seconds": index_s, "samples": got, "predicted": want}
+        log(f"DR(eye)VE index: {json.dumps(out['index'], default=str)}")
+        assert got == want, out["index"]
+        assert len(train) == 3 and len(val) >= 1, (len(train), len(val))
+
+        # The loader alone, with the driver's placed split: two epochs.
+        loader = DataLoader(ds_train, batch_size=s.batch_size, shuffle=True, to_device=True,
+                            h2d_dedup=True, device=dev)
+        loader.set_placed_stage(prepare)
+        epochs = [loader_epoch(loader, 0), loader_epoch(loader, 1)]
+        for e in epochs:
+            for b, (placed, idx) in enumerate(zip(e["batches"], e["order"])):
+                check_split_views(placed)
+                want_batch = maybe_split_video(
+                    default_collate([ds_train[int(i)] for i in idx]), True)
+                same_bits(placed, want_batch, f"batch {b}")
+        keys_of = {}
+        for i in (int(i) for idx in epochs[0]["order"] for i in idx):
+            sample, entry = ds_train.get_with_info(i)
+            for stream in ("left_video", "front_video"):
+                frames = np.concatenate([sample["train"][stream], sample["target"][stream]])
+                keys = hash_frames(np.ascontiguousarray(frames))
+                assert len(set(keys)) == len(keys), f"sample {i} {stream}: repeated frames"
+                keys_of.setdefault(entry["session_id"], set()).update(keys)
+        assert not keys_of[DREYEVE_SESSIONS[0]] & keys_of[DREYEVE_SESSIONS[1]], "shared frames"
+        out["distinct_keys_per_session"] = {k: len(v) for k, v in keys_of.items()}
+        out["loader"] = [{k: v for k, v in e.items() if k not in ("batches", "order")}
+                         for e in epochs]
+        out["frame_memo"] = {"hits": ds_train._frame_memo.hits,
+                             "misses": ds_train._frame_memo.misses}
+        out["host_ms_per_frame"] = dreyeve_host_times(ds_train, data_root, geo)
+        log(f"{smi}: DR(eye)VE loader alone {json.dumps(out['loader'])}; host ms per frame "
+            f"{json.dumps(out['host_ms_per_frame'])}; frame memo {out['frame_memo']}; "
+            f"distinct keys {out['distinct_keys_per_session']}")
+        del epochs, loader
+        free_device()
+
+        # The driver's flagship: a cold epoch through run_epochs on
+        # build_data's loaders (cold frame store; train samples from the
+        # memory tier filled above, val decoded here).
+        set_fusion("1")
+        trainer = fc.build_trainer(s, fc.build_models(s), dev)
+        ckpt = CheckpointManager(s.results_dir / "checkpoints")
+        metrics_logger = MetricsLogger(s.results_dir / "logs", experiment="smoke_dreyeve")
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        if dev.type == "cuda":
+            reset_peak()
+        reset_counts()  # the main path: counts set to 0 just before, read just after
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            history = fc.run_epochs(trainer, ckpt, metrics_logger, train, val, prepare,
+                                    epochs=1)
+            synchronize(dev)
+            epoch_s = time.perf_counter() - t0
+        launches = launch_counts()
+        metrics_logger.close()
+        steps, evals = len(train), len(val) * MC_SAMPLES
+        if dev.type == "cuda":
+            for k in ("K1", "K2", "K3a", "K4"):
+                expect = steps * RUN_PER_STEP[k] + evals * PER_EVAL_FORWARD[k]
+                assert launches[k] == expect, f"DR(eye)VE epoch: {k} {launches[k]}, not {expect}"
+            assert steps * 16 <= launches["K3b"] <= steps * 24, launches
+        values = [float(v) for v in history[0]["val"].values()]
+        assert values and all(math.isfinite(v) for v in values), history
+        groups, _ = device_groups(prof, steps + len(val))
+        out["cold_epoch"] = {
+            "epoch_s": epoch_s, "launches": launches,
+            "peak_gib": peak_gib() if dev.type == "cuda" else None,
+            "h2d_copy_device_ms_per_batch": h2d_ms(groups),
+            "device_busy_ms_per_batch": sum(groups.values()),
+            "frame_store": {"train": train.frame_store_stats(), "val": val.frame_store_stats()},
+            "val_ade": float(history[0]["val"][f"val_{fc.FLAGSHIP}_ade"])}
+        log(f"{smi}: DR(eye)VE cold epoch {json.dumps(out['cold_epoch'])}")
+
+        if dev.type == "cuda":
+            reset_peak()
+        train.set_epoch(1)
+        steps_run = profiled_steps(trainer, train, dev)
+        steps_run["peak_gib"] = peak_gib() if dev.type == "cuda" else None
+        if dev.type == "cuda":
+            for step in steps_run["launches_per_step"]:
+                assert all(step[k] == RUN_PER_STEP[k] for k in RUN_PER_STEP), step
+                assert step["K3b"] in PER_STEP["K3b"], step
+        out["steps"] = steps_run
+        log(f"{smi}: DR(eye)VE steps on the loader's batches {json.dumps(steps_run)}")
+        del trainer, ckpt, train, val
+        free_device()
+        out["remap"] = remap_check(ds_train, dev, smi)
+        log(f"{smi}: remap card vs CPU {json.dumps(out['remap'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(DREYEVE_RUN_DIR, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    results["dreyeve_data_path"] = out
+    log(f"DR(eye)VE data path phase: {out['phase_s']:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 8 #
 
 
@@ -3279,6 +3562,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
                                       in results["training_run_launches"].items()},
             "full_set_launches": results["full_set_launches"][name],
             "gem_data_path_launches": results["gem_data_path_launches"][name],
+            "dreyeve_data_path_launches": results["dreyeve_data_path_launches"][name],
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -3396,6 +3680,7 @@ def main() -> int:
     results["training_run_launches"] = training_run(results, smi)
     results["full_set_launches"] = full_set_run(results, smi)
     results["gem_data_path_launches"] = gem_data_path(results, smi)
+    results["dreyeve_data_path_launches"] = dreyeve_data_path(results, smi)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -18,7 +18,8 @@ driver's environment variables, read when ``main`` runs:
   ROUTEFORMER_DATASET_DIR (DATASET=GEM) / DREYEVE_DATASET_DIR  and
   ROUTEFORMER_DATASET_CACHE_DIR / DREYEVE_DATASET_CACHE_DIR
   VIDEO_DTYPE=uint8|float16  USE_MEMORY_CACHE=0|1  MAX_MEMORY_CACHE_SIZE
-  H2D_DEDUP=1|0  LOADER_PRODUCERS
+  H2D_DEDUP=1|0  LOADER_PRODUCERS  ENABLE_PCI_SPLIT=0|1 (DREYEVE)
+  PCI_SPLIT_N_SAMPLES_PER_BIN  ENABLE_LEFT_VIDEO_SPLIT=1|0 (DREYEVE)
   ROUTEFORMER_FORCE_CPU=1 (run on the CPU; otherwise CUDA, and without it
   the driver raises)
 
@@ -32,18 +33,22 @@ MultiModalTransformer. ``USE_PATCHTST_BACKBONE=1`` puts PatchTST under the
 flagship. The SwinV2 blocks use the exact gelu (the unfused block, K2), as
 the JAX driver's do.
 
-With ``DATASET=GEM`` and ``ROUTEFORMER_DATASET_DIR`` set to a directory,
-the data are that recording's (``build_data``, the JAX driver's
-``:286-353``): ``io/dataset.GEMDataset`` splits (train at ``min_pci=0``,
+With ``ROUTEFORMER_DATASET_DIR`` (``DATASET=GEM``) or
+``DREYEVE_DATASET_DIR`` (``DATASET=DREYEVE``, the default) set to a
+directory, the data are that recording's (``build_data``, the JAX driver's
+``:286-353``): ``io/dataset.GEMDataset`` or ``io/dataset_dreyeve.
+DreyeveDataset`` splits (train at ``min_pci=0``, DR(eye)VE's with the
+PCI-balanced bins under ``ENABLE_PCI_SPLIT=1``, which replace shuffling;
 val at ``MIN_PCI``) behind ``io/loader.DataLoader``s that place each batch
 on the card from the producer thread (pinned, non-blocking, on a side
 stream) and, with ``H2D_DEDUP=1`` (the default), ship each distinct video
-frame once through the frame store; the ``prepare`` stage (the embedding
-cache) runs inside the loaders. Without a directory the data are the
-synthetic GEM-geometry batches of ``io/synthetic.py``. A
-``DREYEVE_DATASET_DIR`` needs the DR(eye)VE reader and ``FSDP=1`` the
-multi-card mesh: each raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item before any work.
+frame once through the frame store. DR(eye)VE's single garmin view is cut
+into left and right halves (``ENABLE_LEFT_VIDEO_SPLIT=1``, the default,
+``train/trainer.maybe_split_video``): on the placed batch, as two views of
+its tensor, or before the embedding cache's host stage when that is on.
+Without a directory the data are the synthetic GEM-geometry batches of
+``io/synthetic.py``. ``FSDP=1`` needs the multi-card mesh: it raises
+``NotImplementedError`` naming its ``ROADMAP.md`` item before any work.
 """
 
 import functools
@@ -93,6 +98,9 @@ class Settings:
     loader_producers: Optional[int] = None
     gopro_scaling_factor: float = 0.4  # the JAX driver's: DREYEVE 0.4, GEM 0.1
     front_scaling_factor: float = 1 / 3.0  # DREYEVE 1/3, GEM 0.3
+    enable_pci_split: bool = False  # DREYEVE only
+    pci_split_n_samples_per_bin: int = 200
+    enable_left_video_split: bool = True
 
     @classmethod
     def from_env(cls, env=None) -> "Settings":
@@ -107,12 +115,6 @@ class Settings:
             raise ValueError(f"USE_EMBEDDING_CACHE={cache!r}: expected 0, 1, host or device")
         prefix = "DREYEVE" if dataset == "DREYEVE" else "ROUTEFORMER"
         dataset_dir = env.get(f"{prefix}_DATASET_DIR")
-        if dataset == "DREYEVE" and dataset_dir and Path(dataset_dir).exists():
-            raise NotImplementedError(
-                f"{dataset_dir}: DR(eye)VE recordings need the DR(eye)VE reader "
-                "(io/dataset_dreyeve.py, its JPEG and .avi frames), which is not ported "
-                "(ROADMAP.md §1 item 4); unset DREYEVE_DATASET_DIR to train on synthetic "
-                "batches")
         producers = env.get("LOADER_PRODUCERS")
         return cls(
             dataset=dataset, debug=debug,
@@ -141,6 +143,9 @@ class Settings:
             loader_producers=None if producers is None else int(producers),
             gopro_scaling_factor=0.4 if dataset == "DREYEVE" else 0.1,
             front_scaling_factor=1 / 3.0 if dataset == "DREYEVE" else 0.3,
+            enable_pci_split=dataset == "DREYEVE" and env.get("ENABLE_PCI_SPLIT", "0") == "1",
+            pci_split_n_samples_per_bin=int(env.get("PCI_SPLIT_N_SAMPLES_PER_BIN", 200)),
+            enable_left_video_split=env.get("ENABLE_LEFT_VIDEO_SPLIT", "1") == "1",
         )
 
     @property
@@ -154,6 +159,18 @@ class Settings:
     @property
     def with_video(self) -> bool:
         return self.model_set in ("full", "flagship")
+
+    @property
+    def recording(self) -> bool:
+        """Whether the data come from a recording (a ``*_DATASET_DIR`` that
+        exists), not the synthetic batches."""
+        return bool(self.dataset_dir) and Path(self.dataset_dir).exists()
+
+    @property
+    def split_video(self) -> bool:
+        """The JAX driver's rule for DR(eye)VE's left-video split."""
+        return (self.dataset == "DREYEVE" and self.with_video and self.enable_left_video_split
+                and self.recording)
 
     @property
     def embedding_cache_on(self) -> bool:
@@ -299,31 +316,45 @@ def build_models(s: Settings) -> dict:
 
 def build_data(s: Settings, with_video: Optional[bool] = None, device=None,
                host_arrays: bool = False):
-    """``(train, val)``: ``DataLoader``s over a GEM recording when
-    ``ROUTEFORMER_DATASET_DIR`` is a directory, else synthetic datasets of
+    """``(train, val)``: ``DataLoader``s over a GEM or DR(eye)VE recording
+    when its ``*_DATASET_DIR`` is a directory, else synthetic datasets of
     pre-collated batches. The loaders place batches on ``device`` from
     their producer thread (with the frame store when ``H2D_DEDUP=1``)
     unless ``host_arrays`` (the embedding cache's precompute takes host
     pixels)."""
     with_video = s.with_video if with_video is None else with_video
-    if s.dataset_dir and Path(s.dataset_dir).exists():
-        from routeformer_torch.io.dataset import GEMDataset
+    if s.recording:
         from routeformer_torch.io.loader import DataLoader
 
         common = dict(
-            root=s.dataset_dir, input_length=INPUT_LENGTH_SECONDS,
-            target_length=TARGET_LENGTH_SECONDS, step_size=STEP_SIZE_SECONDS,
-            output_fps=s.output_fps, gopro_scaling_factor=s.gopro_scaling_factor,
+            input_length=INPUT_LENGTH_SECONDS, target_length=TARGET_LENGTH_SECONDS,
+            step_size=STEP_SIZE_SECONDS, output_fps=s.output_fps,
+            gopro_scaling_factor=s.gopro_scaling_factor,
             front_scaling_factor=s.front_scaling_factor, with_video=with_video,
-            with_gaze=with_video, use_cache=s.dataset_cache_dir is not None,
-            cache_dir=s.dataset_cache_dir, video_dtype=s.video_dtype,
-            use_memory_cache=s.use_memory_cache,
+            use_cache=s.dataset_cache_dir is not None, cache_dir=s.dataset_cache_dir,
+            video_dtype=s.video_dtype, use_memory_cache=s.use_memory_cache,
             max_memory_cache_size=s.max_memory_cache_size)
-        ds_train = GEMDataset(split="train", min_pci=0, **common)
-        ds_val = GEMDataset(split="val", min_pci=s.min_pci, **common)
+        if s.dataset == "DREYEVE":
+            from routeformer_torch.io.dataset_dreyeve import DreyeveDataset
+
+            ds_train = DreyeveDataset(
+                root_dir=s.dataset_dir, split="train", min_pci=0,
+                enable_pci_split=s.enable_pci_split,
+                pci_split_n_samples_per_bin=s.pci_split_n_samples_per_bin, **common)
+            ds_val = DreyeveDataset(root_dir=s.dataset_dir, split="val", min_pci=s.min_pci,
+                                    **common)
+        else:
+            from routeformer_torch.io.dataset import GEMDataset
+
+            ds_train = GEMDataset(root=s.dataset_dir, split="train", min_pci=0,
+                                  with_gaze=with_video, **common)
+            ds_val = GEMDataset(root=s.dataset_dir, split="val", min_pci=s.min_pci,
+                                with_gaze=with_video, **common)
         place = dict(to_device=not host_arrays, h2d_dedup=not host_arrays and s.h2d_dedup,
                      device=None if host_arrays else device)
-        return (DataLoader(ds_train, batch_size=s.batch_size, shuffle=True, **place),
+        # the PCI split draws its own balanced sample, so it replaces shuffling
+        return (DataLoader(ds_train, batch_size=s.batch_size, shuffle=not s.enable_pci_split,
+                           **place),
                 DataLoader(ds_val, batch_size=s.batch_size, shuffle=False, **place))
     from routeformer_torch.io.synthetic import SyntheticDataset
 
@@ -334,16 +365,23 @@ def build_data(s: Settings, with_video: Optional[bool] = None, device=None,
             SyntheticDataset(n_batches=1 if s.debug else 8, seed=2, **common))
 
 
-def attach_prepare(s: Settings, data, prepare: Callable, device_memo: bool) -> None:
+def attach_prepare(s: Settings, data, prepare: Callable, device_memo: bool,
+                   host_stage: bool = True) -> None:
     """Run ``prepare`` inside each loader's prefetch pipeline (the JAX
-    driver's ``set_batch_stage``): two pipelined producers when the device
-    memo is active, else one; ``LOADER_PRODUCERS`` overrides."""
+    driver's ``set_batch_stage``): as the host stage before placement (two
+    pipelined producers when the device memo is active, else one;
+    ``LOADER_PRODUCERS`` overrides), or, with ``host_stage=False``, on the
+    placed batch."""
     from routeformer_torch.io.loader import DataLoader
 
     producers = s.loader_producers or (2 if device_memo else 1)
     for d in data:
-        if isinstance(d, DataLoader):
+        if not isinstance(d, DataLoader):
+            continue
+        if host_stage:
             d.set_batch_stage(prepare, producers=producers)
+        else:
+            d.set_placed_stage(prepare)
 
 
 def iter_prepared(data, epoch: int, prepare: Callable, skip: int = 0):
@@ -397,8 +435,13 @@ def build_trainer(s: Settings, models: dict, device):
     )
 
 
-def make_prepare(precompute: Optional[Callable]) -> Callable:
+def make_prepare(precompute: Optional[Callable], split_video: bool = False) -> Callable:
+    """The batch stage: DR(eye)VE's left-video split, then the embedding
+    cache's precompute (either may be off)."""
+    from routeformer_torch.train.trainer import maybe_split_video
+
     def prepare(batch: dict) -> dict:
+        batch = maybe_split_video(batch, split_video)
         if precompute is None:
             return batch
         return dict(batch, train=precompute(batch["train"]),
@@ -464,10 +507,14 @@ def main(env=None) -> list:
                                    config=config.to_dict())
     precompute = build_precompute(s, models, device)
     train_data, val_data = build_data(s, device=device, host_arrays=precompute is not None)
-    prepare = make_prepare(precompute)
-    if precompute is not None:  # else prepare is the identity: loaders collate into pinned memory
+    prepare = make_prepare(precompute, split_video=s.split_video)
+    if precompute is not None:
         attach_prepare(s, (train_data, val_data), prepare,
                        device_memo=s.use_embedding_cache == "device")
+    elif s.split_video:  # the halves as views of the placed tensor
+        attach_prepare(s, (train_data, val_data), prepare, device_memo=False,
+                       host_stage=False)
+    # else prepare is the identity: the loaders collate into pinned memory
     start_epoch, start_batch = 0, 0
     if s.resume:
         latest = ckpt.restore_latest(trainer)

@@ -23,9 +23,12 @@ undistort, crop and resize through ``ops/image.py``, and the sample cache
 in zlib (``io/cache.py``, under ``routeformer_torch_dataset/``; the PCI
 index cache is ``torch_gem_pci_step<step>_fps<fps>.json``). Samples,
 indices and values are the JAX dataset's; videos are THWC (or TCHW), uint8
-or float16. ``stitch_videos`` and ``with_audio`` need ``io/stitcher.py``
-and ``io/audio.py``, which are not ported (``ROADMAP.md`` §1 item 4): they
-raise ``NotImplementedError`` before any work.
+or float16. ``stitch_videos`` adds the JAX dataset's ``stitched_video``
+(``io/stitcher.py``: the left and right views as float32 in [0, 1] onto one
+double-width canvas, float16 out), warped on ``stitch_device`` (the card
+unless ``"cpu"``); it needs cv2 for the homography. ``with_audio`` needs
+``io/audio.py``, which is not ported (``ROADMAP.md`` §1 item 4): it raises
+``NotImplementedError`` before any work.
 """
 
 import csv
@@ -156,13 +159,12 @@ class GEMDataset:
         video_dtype: str = "float16",
         use_memory_cache: bool = False,
         max_memory_cache_size: int = int(100e9),
+        stitch_device=None,
     ):
-        for flag, on, module in (("stitch_videos", stitch_videos, "io/stitcher.py"),
-                                 ("with_audio", with_audio, "io/audio.py")):
-            if on:
-                raise NotImplementedError(
-                    f"{flag}=True needs {module}, which the port has not ported yet "
-                    "(ROADMAP.md §1 item 4)")
+        if with_audio:
+            raise NotImplementedError(
+                "with_audio=True needs io/audio.py, which the port has not ported yet "
+                "(ROADMAP.md §1 item 4)")
         self.root = Path(root)
         self.split = split if isinstance(split, list) else self.DATA_SPLIT[split]
         self.input_length = input_length
@@ -236,6 +238,11 @@ class GEMDataset:
         self.alternative_target_gaze_frame_count = int(
             self.target_length * self.ALTERNATIVE_GAZE_FPS
         )
+
+        if self.stitch_videos:
+            from routeformer_torch.io.stitcher import ImageStitcher
+
+            self.stitcher = ImageStitcher(device=stitch_device)
 
         # --- discovery ------------------------------------------------- #
         self.subjects = [s for s in self._gather_subjects() if s in self.split]
@@ -747,6 +754,15 @@ class GEMDataset:
             # (undistort/crop/resize/f16), shared across windows
             data = self._apply_scaling(data)
             data = self._convert_to_float16(data)
+        if self.stitch_videos:
+            # the stitcher takes float32 in [0, 1] (uint8 wire frames scaled
+            # here); the stitched stream is float16
+            def f32(v):
+                v = v.astype(np.float32)
+                return v / 255.0 if data["left_video"].dtype == np.uint8 else v
+
+            data["stitched_video"] = self.stitcher.stitch_sequence(
+                f32(data["left_video"]), f32(data["right_video"])).astype(np.float16)
         data = self._apply_transforms(data)
         return self._train_target_split(data, subject)
 
@@ -1000,20 +1016,20 @@ class GEMDataset:
     def _convert_to_float16(self, data):
         if self.video_dtype == "uint8":
             return data
-        for key in ("left_video", "right_video", "front_video"):
+        for key in ("left_video", "right_video", "front_video", "stitched_video"):
             if key in data and data[key].dtype == np.uint8:
                 data[key] = data[key].astype(np.float16) / 255.0
         return data
 
     def _apply_transforms(self, data):
         if self.frame_transform is not None:
-            for key in ("left_video", "right_video", "front_video"):
+            for key in ("left_video", "right_video", "front_video", "stitched_video"):
                 if key in data:
                     data[key] = np.stack(
                         [self.frame_transform(f) for f in data[key]]
                     )
         if self.video_transform is not None:
-            for key in ("left_video", "right_video", "front_video"):
+            for key in ("left_video", "right_video", "front_video", "stitched_video"):
                 if key in data:
                     data[key] = self.video_transform(data[key])
         return data

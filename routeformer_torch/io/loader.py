@@ -6,7 +6,9 @@ and kept in a bounded queue, so host work overlaps the consumer's step. Batch or
 per-epoch shuffle from ``np.random.default_rng(seed + epoch)``, the same
 per-process stride, ``set_epoch(start_batch=)`` to resume, and
 ``set_batch_stage`` to run a host stage (``producers > 1`` pipelines it
-over batches, in order).
+over batches, in order), and ``set_placed_stage`` to run one on the placed
+batch (on the producer thread, before the batch is handed out: e.g.
+views of the placed tensors, with no copy).
 
 Placement (``to_device=True``) is the port's own: each leaf is collated
 into a pinned host tensor and copied with ``non_blocking=True`` on a CUDA
@@ -15,10 +17,11 @@ batch's copies, and the consumer's stream waits on it before the batch is
 handed out, so no batch is read before its copy lands (the tensors are
 also recorded on the consumer's stream, so the allocator keeps them until
 the consumer is done). ``h2d_dedup=True`` sends every 5-D ``*video*``
-leaf through a ``FrameStoreRouter`` (``io/frame_store.py``): its frames
-are hashed on the sample pool (hashlib releases the interpreter lock) and
-only the frames not yet on the card are staged in pinned memory and
-copied. Float64 leaves (GPS, gaze, PCI) are
+leaf through a ``FrameStoreRouter`` (``io/frame_store.py``), its byte
+budget split over the video streams of the first batch placed: their
+frames are hashed on the sample pool (hashlib releases the interpreter
+lock) and only the frames not yet on the card are staged in pinned
+memory and copied. Float64 leaves (GPS, gaze, PCI) are
 placed as float32, as JAX places them. On the CPU device placement is a
 plain conversion. ``mesh=`` (placement over several cards) waits for the
 multi-card port (``ROADMAP.md`` §1 item 6).
@@ -91,6 +94,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.collate_fn = collate_fn
         self.batch_transform = None
+        self.placed_transform: Optional[Callable] = None
         self.producers = 1
         self.set_batch_stage(batch_transform, producers, _h2d_dedup=h2d_dedup and to_device)
         self.process_index = process_index
@@ -98,8 +102,8 @@ class DataLoader:
         self.to_device = to_device
         self.h2d_dedup = h2d_dedup and to_device
         self.device = resolve_device(device) if to_device else None
-        self._router = (FrameStoreRouter(budget_bytes=dedup_budget_bytes, device=self.device)
-                        if self.h2d_dedup else None)
+        self.dedup_budget_bytes = dedup_budget_bytes
+        self._router: Optional[FrameStoreRouter] = None  # built at the first batch placed
         self._bytes_lock = threading.Lock()
         self.bytes_copied = 0  # host -> device bytes of the leaves placed whole
         self._epoch = 0
@@ -122,6 +126,13 @@ class DataLoader:
         self.batch_transform = transform
         self.producers = producers
 
+    def set_placed_stage(self, transform: Optional[Callable]) -> None:
+        """(Re)attach a stage run on each placed batch (after the host stage
+        and the copies), on the producer thread; ``to_device`` only."""
+        if transform is not None and not self.to_device:
+            raise ValueError("a placed stage needs to_device=True; use set_batch_stage")
+        self.placed_transform = transform
+
     def frame_store_stats(self) -> dict:
         """``{stream: {seen, shipped, capacity, bytes_shipped}}`` of the
         frame store (empty without ``h2d_dedup``)."""
@@ -138,15 +149,22 @@ class DataLoader:
         the video leaves stay numpy: only their novel frames are staged)."""
         if self.collate_fn is not None:
             return self.collate_fn(samples)
-        if self.to_device and self.batch_transform is None and self._router is None:
+        if self.to_device and self.batch_transform is None and not self.h2d_dedup:
             return default_collate(samples, empty=self._empty)
         return default_collate(samples)
 
     def _place(self, batch: dict, pool: Optional[ThreadPool] = None) -> dict:
+        if self.h2d_dedup and self._router is None:
+            self._router = FrameStoreRouter(budget_bytes=self.dedup_budget_bytes,
+                                            n_streams_hint=_video_streams(batch),
+                                            device=self.device)
+        return self._place_leaves(batch, pool)
+
+    def _place_leaves(self, batch: dict, pool: Optional[ThreadPool]) -> dict:
         out = {}
         for k, v in batch.items():
             if isinstance(v, dict):
-                out[k] = self._place(v, pool)
+                out[k] = self._place_leaves(v, pool)
                 continue
             if self._router is not None and "video" in k and getattr(v, "ndim", 0) == 5:
                 # one store per stream name: a frame in one sample's train
@@ -168,6 +186,9 @@ class DataLoader:
                 self.bytes_copied += v.numel() * v.element_size()
             out[k] = v.to(self.device, non_blocking=True)
         return out
+
+    def _placed(self, batch: dict) -> dict:
+        return batch if self.placed_transform is None else self.placed_transform(batch)
 
     def set_epoch(self, epoch: int, start_batch: int = 0) -> None:
         """Reshuffle for ``epoch`` (DistributedSampler's role);
@@ -229,9 +250,9 @@ class DataLoader:
                         if not self.to_device:
                             return batch, None
                         if side is None:
-                            return self._place(batch, pool), None
+                            return self._placed(self._place(batch, pool)), None
                         with torch.cuda.stream(side):
-                            batch = self._place(batch, pool)
+                            batch = self._placed(self._place(batch, pool))
                             done = torch.cuda.Event()
                             done.record(side)
                         return batch, done
@@ -290,6 +311,22 @@ class DataLoader:
                 except queue.Empty:
                     continue
             worker.join()
+
+
+def _video_streams(batch: dict) -> int:
+    """The 5-D ``*video*`` leaves of a batch, by name (the frame store's
+    streams; at least 1)."""
+    names = set()
+
+    def walk(d):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif "video" in k and getattr(v, "ndim", 0) == 5:
+                names.add(k)
+
+    walk(batch)
+    return max(len(names), 1)
 
 
 def _record_stream(batch: dict, stream) -> None:

@@ -1,8 +1,10 @@
 """Frame conversion and conditioning (counterpart of
 ``routeformer_tpu/ops/image.py``): ``to_float16`` and ``dequantize_videos``
 on the card; the backbones' shared input conditioning (pad to square,
-resize to the native size, normalise); and the dataset's host
-preprocessing in numpy, with no ``cv2``.
+resize to the native size, normalise); the JAX package's device image ops
+(``remap``, ``undistort_video``, ``resize_video``) as torch ops on the
+frames' device; and the datasets' host preprocessing in numpy, with no
+``cv2``.
 
 The host ops are the JAX package's ``undistort_video_numpy`` and
 ``resize_video_numpy``, which call ``cv2.remap`` and ``cv2.resize``
@@ -15,9 +17,13 @@ horizontal then a vertical pass; each interpolation is a lerp
 ``fma(t, b - a, a)`` with one rounding (``_fma32``). Each camera's remap
 table and each resize's coefficient table is built once and cached by
 (K, D, h, w) or (h, w, out), so a frame costs one uint8 gather and three
-(remap) or two (resize) lerps.
+(remap) or two (resize) lerps. ``AreaTable`` is DR(eye)VE's
+``cv2.resize(INTER_AREA)`` on uint8 frames, also bit for bit: cv2's box sum
+for integer factors, its area-weight tables with float32 accumulation
+otherwise (the mode is chosen as cv2 chooses it).
 """
 
+import math
 import threading
 from typing import Tuple
 
@@ -52,12 +58,8 @@ def dequantize_videos(batch: dict) -> dict:
 
 
 def resize_bilinear(images: torch.Tensor, size: int) -> torch.Tensor:
-    """``jax.image.resize(..., "bilinear")`` on (N, H, W, C): half-pixel
-    centres, antialiased when downsampling; computed in f32."""
-    x = images.float().permute(0, 3, 1, 2)
-    x = F.interpolate(x, size=(size, size), mode="bilinear",
-                      align_corners=False, antialias=True)
-    return x.permute(0, 2, 3, 1).to(images.dtype)
+    """``resize_video`` to (size, size), cast back to the images' dtype."""
+    return resize_video(images, (size, size)).to(images.dtype)
 
 
 def condition_frames(images: torch.Tensor, size: int, mean=IMAGENET_MEAN,
@@ -76,6 +78,46 @@ def condition_frames(images: torch.Tensor, size: int, mean=IMAGENET_MEAN,
     mean = torch.tensor(mean, dtype=images.dtype, device=images.device)
     std = torch.tensor(std, dtype=images.dtype, device=images.device)
     return (images - mean) / std
+
+
+# --------------------------------------------------------------------- #
+# Device image ops: remap, undistort, resize
+# --------------------------------------------------------------------- #
+
+
+def remap(frames: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``ops/image.remap`` of the JAX package: frames (N, H, W, C) sampled
+    bilinearly at grid (H', W', 2) [x, y] source pixels, a coordinate
+    outside the image clamped to the border; float32 on the frames'
+    device."""
+    frames = frames.float()
+    grid = grid.to(device=frames.device, dtype=torch.float32)
+    h, w = frames.shape[1:3]
+    gx, gy = grid[..., 0], grid[..., 1]
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    wx, wy = (gx - x0)[..., None], (gy - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    x0c, x1c = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
+    y0c, y1c = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
+    top = frames[:, y0c, x0c] * (1 - wx) + frames[:, y0c, x1c] * wx
+    bottom = frames[:, y1c, x0c] * (1 - wx) + frames[:, y1c, x1c] * wx
+    return top * (1 - wy) + bottom * wy
+
+
+def undistort_video(frames: torch.Tensor, K, D) -> torch.Tensor:
+    """Undistort a frame batch (N, H, W, C) on its device."""
+    h, w = int(frames.shape[1]), int(frames.shape[2])
+    return remap(frames, torch.from_numpy(undistort_grid(K, D, h, w).astype(np.float32)))
+
+
+def resize_video(frames: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(..., "bilinear")`` of a frame batch (N, H, W, C)
+    to ``out_hw`` on its device: half-pixel centres, the triangle kernel
+    widened by the factor where an axis shrinks (antialiased), f32."""
+    x = frames.float().permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return x.permute(0, 2, 3, 1)
 
 
 # --------------------------------------------------------------------- #
@@ -269,3 +311,107 @@ def resize_video_numpy(video: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray
     """Bilinear resize of a frame batch (N, H, W, C) on the host, as the
     JAX package's ``resize_video_numpy`` (``cv2.resize`` in float32)."""
     return resize_table(video.shape[1:3], out_hw).apply(video)
+
+
+def _area_table(n_in: int, n_out: int, scale: float):
+    """cv2's ``computeResizeAreaTab`` along one axis as dense (P, n_out)
+    source indices and float32 weights, each output's entries in cv2's
+    order; an unused entry has weight 0 (adding 0 changes no sum)."""
+    entries = [[] for _ in range(n_out)]
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s2 = min(math.floor(f2), n_in - 1)
+        s1 = min(math.ceil(f1), s2)
+        if s1 - f1 > 1e-3:
+            entries[d].append((s1 - 1, (s1 - f1) / cell))
+        entries[d] += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            entries[d].append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+    p = max(len(e) for e in entries)
+    index = np.zeros((p, n_out), np.int64)
+    weight = np.zeros((p, n_out), np.float32)
+    for d, e in enumerate(entries):
+        for k, (s, a) in enumerate(e):
+            index[k, d], weight[k, d] = s, a
+    return index, weight
+
+
+class AreaTable:
+    """``cv2.resize(INTER_AREA)`` of uint8 (h, w) frames to ``out_hw``, as
+    cv2 5.0 computes it. cv2 takes the factor ``1 / (out / in)`` per axis in
+    float64; when both are integers it sums each box exactly (a factor of 2
+    on both axes rounds ``(sum + 2) >> 2``, other factors
+    ``rint(float32(sum) * float32(1 / area))``); otherwise it accumulates
+    area weights in float32, a horizontal pass over each source row then a
+    vertical one, each step ``acc + x * w`` with two roundings."""
+
+    def __init__(self, src_hw: Tuple[int, int], out_hw: Tuple[int, int]):
+        (h, w), (oh, ow) = src_hw, out_hw
+        sx, sy = 1.0 / (ow / w), 1.0 / (oh / h)
+        if sx < 1 or sy < 1:
+            raise ValueError(f"INTER_AREA tables shrink; {src_hw} -> {out_hw} grows")
+        ix, iy = int(round(sx)), int(round(sy))
+        eps = np.finfo(np.float64).eps
+        self.box = (ix, iy) if abs(sx - ix) < eps and abs(sy - iy) < eps else None
+        if self.box is None:
+            self.x_index, self.x_weight = _area_table(w, ow, sx)
+            self.y_index, y_weight = _area_table(h, oh, sy)
+            self.y_weight = y_weight[..., None, None]
+        self.src_hw, self.out_hw = (h, w), (oh, ow)
+
+    def apply(self, frames: np.ndarray) -> np.ndarray:
+        """(N, h, w, C) uint8 -> (N, *out_hw, C) uint8."""
+        n, h, w, c = frames.shape
+        if (h, w) != self.src_hw:
+            raise ValueError(f"area table for {self.src_hw}, frames are {(h, w)}")
+        oh, ow = self.out_hw
+        out = np.empty((n, oh, ow, c), np.uint8)
+        for i in range(n):
+            out[i] = self._box(frames[i]) if self.box is not None else self._areas(frames[i])
+        return out
+
+    def _box(self, frame: np.ndarray) -> np.ndarray:
+        (bx, by), (oh, ow) = self.box, self.out_hw
+        total = np.zeros((oh, ow, frame.shape[2]), np.int32)
+        for dy in range(by):
+            for dx in range(bx):
+                total += frame[dy: oh * by: by, dx: ow * bx: bx]
+        if self.box == (2, 2):
+            return (total + 2) >> 2
+        return np.rint(total.astype(np.float32) * np.float32(1.0 / (bx * by)))
+
+    def _areas(self, frame: np.ndarray) -> np.ndarray:
+        src = frame.astype(np.float32)
+        rows = np.take(src, self.x_index[0], axis=1)
+        rows *= self.x_weight[0][:, None]
+        for k in range(1, len(self.x_index)):
+            part = np.take(src, self.x_index[k], axis=1)
+            part *= self.x_weight[k][:, None]
+            rows += part
+        acc = rows[self.y_index[0]]
+        acc *= self.y_weight[0]
+        for k in range(1, len(self.y_index)):
+            part = rows[self.y_index[k]]
+            part *= self.y_weight[k]
+            acc += part
+        return np.rint(np.clip(acc, 0, 255, out=acc), out=acc)
+
+
+def area_table(src_hw: Tuple[int, int], out_hw: Tuple[int, int]) -> AreaTable:
+    key = ("area", tuple(src_hw), tuple(out_hw))
+    with _tables_lock:
+        table = _resize_tables.get(key)
+    if table is None:
+        table = AreaTable(src_hw, out_hw)
+        with _tables_lock:
+            table = _resize_tables.setdefault(key, table)
+    return table
+
+
+def resize_area(frame: np.ndarray, scale: float) -> np.ndarray:
+    """``cv2.resize(frame, (int(w * scale), int(h * scale)), INTER_AREA)``
+    of one uint8 (h, w, C) frame, as the DR(eye)VE reader calls it."""
+    h, w = frame.shape[:2]
+    return area_table((h, w), (int(h * scale), int(w * scale))).apply(frame[None])[0]

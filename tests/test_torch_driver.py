@@ -133,13 +133,70 @@ def test_driver_refuses_what_is_not_ported(tmp_path, extra, match):
         fc.main(dict(BASE, RESULTS_DIR=str(tmp_path), **extra))
 
 
-def test_driver_refuses_a_dataset_directory(tmp_path):
-    """A DR(eye)VE directory needs the DR(eye)VE reader, which is not
-    ported: it raises naming it before any work (a GEM directory trains,
-    below)."""
-    with pytest.raises(NotImplementedError, match=r"DR\(eye\)VE reader.*ROADMAP.md §1 item 4"):
-        fc.main(dict(BASE, RESULTS_DIR=str(tmp_path / "r"), DATASET="DREYEVE",
-                     DREYEVE_DATASET_DIR=str(tmp_path)))
+@pytest.fixture(scope="module")
+def dreyeve_dir(tmp_path_factory):
+    """The port's DR(eye)VE sessions: 01 (train) and 45 (val), 20 s at
+    (36, 64), only the windows' frames."""
+    from routeformer_torch.io.dreyeve_fixture import build_dreyeve_fixture
+
+    return build_dreyeve_fixture(tmp_path_factory.mktemp("dreyeve"), session_ids=(1, 45),
+                                 duration_s=20.0, sparse=True)
+
+
+DREYEVE = dict(BASE, DATASET="DREYEVE", MIN_PCI="0")
+
+
+def test_driver_refuses_a_dataset_directory(capsys, tmp_path, dreyeve_dir):
+    """Refused before the DR(eye)VE reader was ported, a DR(eye)VE directory
+    now trains to the ``best:`` line; what a dataset directory still cannot
+    use, audio, raises naming its ROADMAP.md item before any work."""
+    from routeformer_torch.io.dataset import GEMDataset
+
+    env = dict(DREYEVE, EPOCHS="1", RESULTS_DIR=str(tmp_path / "r"),
+               DREYEVE_DATASET_DIR=str(dreyeve_dir))
+    history = fc.main(env)
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[-1].startswith("best: {") and fc.FLAGSHIP in lines[-1]
+    assert np.isfinite(float(history[0]["val"][f"val_{fc.FLAGSHIP}_ade"]))
+    with pytest.raises(NotImplementedError, match=r"with_audio.*ROADMAP.md §1 item 4"):
+        GEMDataset(root=tmp_path, with_audio=True)
+
+
+def test_driver_splits_the_dreyeve_view_once(dreyeve_dir):
+    """``DATASET=DREYEVE`` with a directory: ``DreyeveDataset`` splits
+    (train at ``min_pci=0``, val at ``MIN_PCI``) behind placing loaders;
+    the left-video split runs once, on the placed batch, as views of one
+    tensor; ``ENABLE_LEFT_VIDEO_SPLIT=0`` keeps the single view; the PCI
+    split turns the train loader's shuffle off."""
+    from routeformer_torch.io.dataset_dreyeve import DreyeveDataset
+
+    s = fc.Settings.from_env(dict(DREYEVE, DREYEVE_DATASET_DIR=str(dreyeve_dir)))
+    assert s.split_video and not s.enable_pci_split
+    train, val = fc.build_data(s, device=torch.device("cpu"))
+    assert isinstance(train.dataset, DreyeveDataset) and train.dataset.min_pci == 0
+    assert val.dataset.split == list(range(45, 60)) and train.shuffle and not val.shuffle
+    prepare = fc.make_prepare(None, split_video=True)
+    fc.attach_prepare(s, (train, val), prepare, device_memo=False, host_stage=False)
+    assert train.placed_transform is prepare and train.batch_transform is None
+    train.set_epoch(0)
+    batch = next(iter(train))
+    width = train.dataset[0]["train"]["left_video"].shape[2]
+    for phase in ("train", "target"):
+        left, right = batch[phase]["left_video"], batch[phase]["right_video"]
+        assert (left.shape[3], right.shape[3]) == (width // 2, width - width // 2)
+        assert left.untyped_storage().data_ptr() == right.untyped_storage().data_ptr()
+        assert prepare(batch)[phase]["left_video"] is left  # a second split changes nothing
+
+    off = fc.Settings.from_env(dict(DREYEVE, DREYEVE_DATASET_DIR=str(dreyeve_dir),
+                                    ENABLE_LEFT_VIDEO_SPLIT="0"))
+    assert not off.split_video
+    pci = fc.Settings.from_env(dict(DREYEVE, DREYEVE_DATASET_DIR=str(dreyeve_dir),
+                                    ENABLE_PCI_SPLIT="1", PCI_SPLIT_N_SAMPLES_PER_BIN="3"))
+    train, _ = fc.build_data(pci, device=torch.device("cpu"))
+    assert not train.shuffle and train.dataset.enable_pci_split
+    assert train.dataset.bin_epoch_size == 3 * len(train.dataset.data_bins)
+    gem = fc.Settings.from_env(dict(BASE, ENABLE_PCI_SPLIT="1"))
+    assert not gem.enable_pci_split and not gem.split_video
 
 
 @pytest.fixture(scope="module")

@@ -14,6 +14,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+import torch
 
 from gem_fixture import build_gem_fixture
 from routeformer_torch.io.dataset import GEMDataset
@@ -126,8 +127,9 @@ def test_caches_round_trip(gem_root, tmp_path):
 
 def test_raw_recording_and_refusals(tmp_path):
     """The port's raw recording reads through the port's own video
-    reader; ``stitch_videos`` and ``with_audio`` raise naming their
-    modules before any work."""
+    reader; ``stitch_videos`` adds a double-width float16 stream, warped
+    on the device named (no device on a host without a card: the CUDA
+    error); ``with_audio`` raises naming its module before any work."""
     build_raw_fixture(tmp_path, duration_s=16.0, subject="002", turn=1.0)
     ds = GEMDataset(root=tmp_path, split="val", min_pci=None, gopro_scaling_factor=0.5,
                     front_scaling_factor=0.5)
@@ -135,9 +137,16 @@ def test_raw_recording_and_refusals(tmp_path):
     assert item["train"]["left_video"].shape == (40, 24, 12, 3)
     assert item["target"]["front_video"].shape == (30, 24, 32, 3)
     assert item["train"]["gaze"].shape == (1600, 2)
-    for flag, module in (("stitch_videos", "io/stitcher.py"), ("with_audio", "io/audio.py")):
-        with pytest.raises(NotImplementedError, match=module):
-            GEMDataset(root=tmp_path / "missing", **{flag: True})
+    stitched = GEMDataset(root=tmp_path, split="val", min_pci=None, gopro_scaling_factor=0.5,
+                          front_scaling_factor=0.5, stitch_videos=True,
+                          stitch_device="cpu")[0]["train"]["stitched_video"]
+    assert stitched.shape == (40, 24, 24, 3) and stitched.dtype == np.float16
+    assert np.isfinite(stitched).all()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            GEMDataset(root=tmp_path, split="val", stitch_videos=True)
+    with pytest.raises(NotImplementedError, match="io/audio.py"):
+        GEMDataset(root=tmp_path / "missing", with_audio=True)
 
 
 def test_concurrent_reads_match_sequential(tmp_path):

@@ -94,6 +94,46 @@ def test_gem_data_path_needs_no_host_package():
     assert out.stdout.split()[-2:] == ["item", "read"]
 
 
+_DREYEVE_BLOCKER = _HOST_BLOCKER.split("import tempfile")[0] + r"""
+import tempfile
+from pathlib import Path
+from routeformer_torch.experiments import full_comparison as fc
+from routeformer_torch.io.dreyeve_fixture import build_dreyeve_fixture
+root = build_dreyeve_fixture(Path(tempfile.mkdtemp()), session_ids=(1, 45), duration_s=16.0,
+                             sparse=True)
+s = fc.Settings.from_env({"DATASET": "DREYEVE", "DEBUG": "1", "BATCH_SIZE": "1",
+                          "MODEL_SET": "flagship", "DREYEVE_DATASET_DIR": str(root)})
+train, val = fc.build_data(s, device="cpu")
+fc.attach_prepare(s, (train, val), fc.make_prepare(None, split_video=s.split_video),
+                  device_memo=False, host_stage=False)
+train.set_epoch(0)
+batch = next(iter(train))
+shapes = {k: tuple(v.shape) for k, v in batch["train"].items()}
+assert shapes == {"left_video": (1, 40, 7, 12, 3), "right_video": (1, 40, 7, 13, 3),
+                  "front_video": (1, 40, 12, 21, 3), "gps": (1, 40, 2),
+                  "gaze": (1, 80, 2)}, shapes
+try:
+    from routeformer_torch.io.stitcher import ImageStitcher
+    ImageStitcher(device="cpu")
+    raise AssertionError("the stitcher built without cv2")
+except ImportError as e:
+    assert "cv2" in str(e), e
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("batch placed")
+"""
+
+
+def test_dreyeve_data_path_needs_no_host_package():
+    """With jax, cv2, msgpack, zstandard and pandas all blocked: the driver
+    builds the DR(eye)VE splits over BMP frames, and a loader places a
+    batch with the left-video split; the stitcher refuses, naming cv2."""
+    out = subprocess.run([sys.executable, "-c", _DREYEVE_BLOCKER], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["batch", "placed"]
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"
