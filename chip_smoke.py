@@ -38,12 +38,24 @@ Phases (any failure exits non-zero):
 5c. DinoV2 serving: the flagship with the DinoV2 ViT-B/14 @518 backbone
    (``build_dinov2``), through a bundle, three batch-1 and one batch-4
    request; 12 K4 launches and no K1/K2/K3a launch per forward; the card's
-   forward against the CPU plain forward (exhaustive); request times, peak
+   forward against the CPU plain forward (exhaustive; both cut to the first
+   ``DINOV2_CPU_DEPTH`` of the 12 ViT blocks for this comparison); request times, peak
    memory and one profiled request, with the plain Perceive layers and with
    the fused stack. Then a batch-1 request with the fused stack (K3a runs
    the frame encoder at 1370 tokens: 24 K3a launches per forward, counts
    set to 0 just before) against the plain-stack request, both exhaustive:
    the frame encoder's output and the prediction within 5e-2.
+5d. The serving export (``serve.export_model``/``ExportedModel``, the
+   kernels as registered ``routeformer::`` ops): the flagship with the
+   fused Perceive stack (24 K1, 24 K2, 24 K3a a forward) and DinoV2 with
+   the plain layers (12 K4), each exported on the card at a batch-1
+   request, reloaded from its bytes with the model's leaves and served:
+   launches counted from 0 just before the exported forward and read just
+   after, equal to the live forward's; the prediction the same bits as the
+   live ``ServingModel``'s, else within ``EXPORT_TOL`` of its max with the
+   first differing op named (``name_export_difference``); request ms
+   (CUDA events) and device busy time of both routes; export and load
+   seconds and the artifact's size.
 6. K3a (fused Perceive stack forward) against its plain version at every
    stack geometry of the flagship train step, of the zoo's models in
    phase 7c (``K3_ZOO_GEOMS``) and at the DinoV2 frame encoder's (24,
@@ -140,7 +152,15 @@ Phases (any failure exits non-zero):
    metrics; peak memory; profiled copy and busy device time), and the
    steps again on the loader's pinned batches and on the same batches as
    numpy through the trainer's pageable copy: step ms, device busy, idle
-   share, copy device time, launches per step.
+   share, copy device time, launches per step. Then audio and GPMF on the
+   same recording (``gem_audio_path``): PCM tracks added to its nine
+   videos; every GPMF track through the native walker
+   (``io/gpmf_native.py``) and the Python one, the same points, and the
+   index's seconds with each; ``GEMDataset(with_audio=True)`` (the val
+   subject) through the loader onto the card for one epoch, every placed
+   batch the same bits as the numpy collate of its samples; an
+   information line says whether the AAC shim (``csrc/audio.cpp`` over
+   ffmpeg) builds on this machine (a probe, no check).
 7e. The DR(eye)VE data path (``DATASET=DREYEVE``, batch 16): sessions
    written by ``io/dreyeve_fixture.py`` into a temporary directory (01 and
    02 train, 45 val, 62 s each; only the frames the windows read, as BMP
@@ -170,7 +190,9 @@ Phases (any failure exits non-zero):
    and steady epochs, ``full_set_launches`` those of phase 7c per full-set
    step and per eval forward (one MC sample of every model),
    ``gem_data_path_launches`` those of phase 7d's cold epoch,
-   ``dreyeve_data_path_launches`` those of phase 7e's. ``ms_timing``
+   ``dreyeve_data_path_launches`` those of phase 7e's,
+   ``export_launches_per_forward`` those of phase 5d's exported forward
+   (the flagship's for K1-K3b, DinoV2's for K4). ``ms_timing``
    says how each ``ms`` was taken: ``eager`` (back-to-back
    calls, the host's launch time included where it exceeds the kernel's)
    or ``graph`` (device time, the launches replayed from a CUDA graph).
@@ -253,6 +275,9 @@ def k1_gemms(c: int) -> list:
     return [(3 * c, c, 0, "float32"), (c, c, 0, "float32"),
             (4 * c, c, 1, "bfloat16"), (c, 4 * c, 0, "float32")]
 FEATURE_TOL = 5e-2  # backbone feature maps, card vs CPU, relative to max
+# DinoV2's card-vs-CPU comparison runs the first ViT blocks only (of 12):
+# the CPU forward of all twelve took 77.9 s of the smoke's time limit.
+DINOV2_CPU_DEPTH = 3
 PRED_TOL = 5e-2  # displacement and dense features, card vs CPU, relative to max
 # The PatchTST flagship end to end, card vs CPU at batch 1 (phase 7c).
 # RevIN divides each of its input channels by its spread over the 40
@@ -643,12 +668,13 @@ def serve_flagship(results: dict) -> dict:
     return launches
 
 
-def card_vs_cpu(serving, norm: str, batch) -> dict:
+def card_vs_cpu(serving, norm: str, batch, depth=None) -> dict:
     """The card's forward against a CPU run of the same weights (plain
     kernel versions), exhaustive ProbSparse: max|diff|/max|cpu| of the
     backbone features (the output of its final norm ``norm``), the
-    displacement and the dense features, held to FEATURE_TOL and PRED_TOL."""
-    import numpy as np
+    displacement and the dense features, held to FEATURE_TOL and PRED_TOL.
+    ``depth`` keeps the first blocks of a ViT backbone only, in both
+    models, for this comparison (the CPU's ViT forward is the cost)."""
     import torch
 
     import routeformer_torch as rt
@@ -660,6 +686,21 @@ def card_vs_cpu(serving, norm: str, batch) -> dict:
     cpu_model.eval()
     set_exhaustive(cpu_model)
     set_exhaustive(serving.model)
+    blocks = serving.model.video_backbone.blocks if depth else None
+    if depth:
+        serving.model.video_backbone.blocks = blocks[:depth]
+        cpu_model.video_backbone.blocks = cpu_model.video_backbone.blocks[:depth]
+    try:
+        return _card_vs_cpu(serving, cpu_model, norm, batch)
+    finally:
+        if depth:
+            serving.model.video_backbone.blocks = blocks
+
+
+def _card_vs_cpu(serving, cpu_model, norm: str, batch) -> dict:
+    import numpy as np
+    import torch
+
     feats = {}
 
     def capture(key):
@@ -955,7 +996,7 @@ def serve_dinov2(results: dict) -> int:
     fused["request_ms_b1"] = cuda_ms(lambda: serving(requests[0]), iters=5, warmup=1)
     fused["profile"] = profile_request(serving, requests[0], fused["request_ms_b1"])
     set_fusion("0")
-    out["card_vs_cpu"] = card_vs_cpu(serving, "norm", requests[0])
+    out["card_vs_cpu"] = card_vs_cpu(serving, "norm", requests[0], depth=DINOV2_CPU_DEPTH)
     serve_dinov2_fused(serving, requests[0], fused)
     return launches
 
@@ -997,6 +1038,180 @@ def serve_dinov2_fused(serving, batch, out: dict) -> None:
     assert errs["displacement"] <= PRED_TOL and errs["dense"] <= PRED_TOL, errs
     assert torch.isfinite(gps).all() and torch.isfinite(dense).all()
     out.update(launches_per_forward=per, **errs)
+
+
+# --------------------------------------------------------------- phase 5d #
+
+EXPORT_TOL = 1e-3  # exported vs live prediction, of the max, where the bits differ
+# The exported forwards (``serve.export_model``): the flagship with the fused
+# Perceive stack (K1, K2, K3a) and DinoV2 with the plain layers (K4); the
+# launches a batch-1 forward makes.
+EXPORTS = (("flagship", "build_flagship", "1",
+            {"K1": 24, "K2": 24, "K3a": K3A_PER_FORWARD, "K3b": 0, "K4": 0}),
+           ("dinov2", "build_dinov2", "0",
+            {"K1": 0, "K2": 0, "K3a": 0, "K3b": 0, "K4": K4_PER_FORWARD}))
+
+
+def op_tape(fn, batch) -> list:
+    """``fn(batch)`` with every call of a registered kernel op
+    (``routeformer::*``) recorded: (op, its tensor inputs, its outputs)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Tape(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.calls = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "routeformer":
+                outs = out if isinstance(out, tuple) else (out,)
+                self.calls.append((str(func), [a.clone() for a in args
+                                               if isinstance(a, torch.Tensor)],
+                                   [o.clone() for o in outs]))
+            return out
+
+    with torch.inference_mode(), Tape() as tape:
+        fn(batch)
+    return tape.calls
+
+
+def module_outputs(model, batch) -> list:
+    """The live model's module outputs (tensors) in the order they finish."""
+    import torch
+
+    outs = []
+
+    def hook(name):
+        def record(_module, _inp, out):
+            out = out[0] if isinstance(out, tuple) else out
+            if isinstance(out, torch.Tensor) and out.is_floating_point():
+                outs.append((name, out.detach().clone()))
+        return record
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        model({k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+    for h in hooks:
+        h.remove()
+    return outs
+
+
+def node_outputs(exported, batch) -> list:
+    """Every floating-point value the exported program's graph computes."""
+    import torch
+    from torch.fx import Interpreter
+
+    vals = []
+
+    class Record(Interpreter):
+        def run_node(self, n):
+            out = super().run_node(n)
+            if isinstance(out, torch.Tensor) and out.is_floating_point():
+                vals.append((n.name, str(n.target), out.clone()))
+            return out
+
+    with torch.inference_mode():
+        Record(exported._program).run(exported._leaves, {
+            k: torch.as_tensor(v, device=exported.device) for k, v in batch.items()})
+    return vals
+
+
+def name_export_difference(model, exported, batch) -> str:
+    """Where the exported forward first parts from the live one: the first
+    kernel op call whose outputs differ (with the same inputs, the op
+    itself; else the plain ops before it); if every kernel op call agrees,
+    the first module of the live model whose output no value of the
+    exported graph reproduces bit for bit, with the closest graph node."""
+    import torch
+
+    dev = next(model.parameters()).device
+    live = op_tape(lambda b: model({k: torch.as_tensor(v, device=dev)
+                                    for k, v in b.items()}), batch)
+    exp = op_tape(exported, batch)
+    if [c[0] for c in live] != [c[0] for c in exp]:
+        return f"the kernel op sequence differs: {len(live)} calls live, {len(exp)} exported"
+    for i, (a, b) in enumerate(zip(live, exp)):
+        if not all(torch.equal(x, y) for x, y in zip(a[2], b[2])):
+            if all(torch.equal(x, y) for x, y in zip(a[1], b[1])):
+                return f"{a[0]} (call {i}): the same inputs, different outputs"
+            return f"the plain ops before {a[0]} (call {i}): its inputs differ"
+    nodes = node_outputs(exported, batch)
+    for name, out in module_outputs(model, batch):
+        shaped = [(n, t, v) for n, t, v in nodes if v.shape == out.shape]
+        if shaped and not any(torch.equal(v, out) for _, _, v in shaped):
+            n, t, v = min(shaped, key=lambda x: (x[2].float() - out.float()).abs().max().item())
+            err = (v.float() - out.float()).abs().max().item()
+            return (f"module {name} (every kernel op call agrees); closest graph node "
+                    f"{n} = {t}, max|diff| {err:.3e}")
+    return "no module output differs"
+
+
+def export_phase(results: dict, smi: str) -> dict:
+    """Phase 5d: each model of EXPORTS exported from the card
+    (``export_model``), reloaded from its bytes (``ExportedModel``) and the
+    batch-1 request served through it and through the live model; the
+    exported forward's launches (counts set to 0 just before, read just
+    after) equal the live forward's, which equal the design's; the
+    prediction the same bits, else within EXPORT_TOL of its max with the
+    first differing op named; request ms (CUDA events) and device busy
+    time of both routes; export and load seconds. Returns the launches of
+    the exported forwards, per model."""
+    import torch
+
+    import routeformer_torch as rt
+    from routeformer_torch.serve import ExportedModel, ServingModel, _eval_forward
+
+    t_phase = time.perf_counter()
+    out = results["export"] = {"card": smi}
+    launches = {}
+    for name, build, fusion, expected in EXPORTS:
+        set_fusion(fusion)
+        model = getattr(rt, build)(seed=0)
+        live = ServingModel(model, torch.device("cuda"))
+        batch = serving_requests(model.configs)[0]
+        reset_counts()
+        want = live(batch)[0]
+        torch.cuda.synchronize()
+        live_per = launch_counts()
+        t0 = time.perf_counter()
+        data = rt.export_model(model, batch)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        exported = ExportedModel(data, _eval_forward(model)[1])
+        load_s = time.perf_counter() - t0
+        reset_counts()  # the exported path: counts set to 0 just before, read just after
+        got = exported(batch)
+        torch.cuda.synchronize()
+        per = launch_counts()
+        launches[name] = per
+        same = torch.equal(got, want)
+        err = rel_err(got, want)
+        row = {"export_s": export_s, "load_s": load_s, "artifact_bytes": len(data),
+               "launches_live": live_per, "launches_exported": per, "same_bits": same,
+               "max_rel_err": err}
+        if not same:
+            row["first_difference"] = name_export_difference(model, exported, batch)
+        for route, fn in (("live", lambda b: live(b)), ("exported", exported)):
+            ms = cuda_ms(lambda: fn(batch), iters=5, warmup=1)
+            prof = profile_request(fn, batch, ms)
+            row[f"{route}_request_ms"] = ms
+            row[f"{route}_device_busy_ms"] = prof["device_busy_ms_per_request"]
+            row[f"{route}_kernels_per_request"] = prof["kernels_per_request"]
+        out[name] = row
+        log(f"{smi}: export {name}: {json.dumps(row)}")
+        assert live_per == expected, f"{name}: live launches {live_per}, expected {expected}"
+        assert per == live_per, f"{name}: exported launches {per}, live {live_per}"
+        assert torch.isfinite(got).all() and got.shape == want.shape
+        assert same or err <= EXPORT_TOL, row
+        del model, live, exported, data, want, got
+        free_device()
+    set_fusion("0")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"export phase: {out['phase_s']:.1f} s")
+    return launches
 
 
 def serving_requests(cfg) -> list:
@@ -2858,6 +3073,110 @@ def copy_rates(nbytes: int) -> dict:
     return out
 
 
+GEM_AUDIO_RATE = 48000  # the dataset's AUDIO_FPS
+GEM_AUDIO_TONES = {"left/GH010008.MP4": 11, "right/GH010009.MP4": 12}  # as the fixture's
+GEM_AUDIO_FRONT = 0.25  # the audio epoch's front video scaling (its frames ride along)
+
+
+def gem_walkers(data_root: Path) -> dict:
+    """Every GPMF track of the recording through the native walker and the
+    Python one: the same points and dilutions (exact); each walker's host
+    seconds, and the index's seconds with each (``GEMDataset`` without
+    video, gaze or audio, every subject; after one untimed index)."""
+    import functools
+
+    from routeformer_torch.io import dataset as dataset_module
+    from routeformer_torch.io import gpmf
+    from routeformer_torch.io.mp4 import read_gpmf_data
+
+    out = {"tracks": 0, "points": 0, "native_s": 0.0, "python_s": 0.0}
+    for path in sorted(data_root.glob("01GoPro/*/*/*.MP4")):
+        data = read_gpmf_data(path)
+        t0 = time.perf_counter()
+        got = gpmf.build_gps_points(data)
+        t1 = time.perf_counter()
+        want = gpmf.build_gps_points(data, prefer_native=False)
+        out["python_s"] += time.perf_counter() - t1
+        out["native_s"] += t1 - t0
+        key = [(p.latitude, p.longitude, p.altitude, p.speed, p.time) for p in got[0]]
+        assert key == [(p.latitude, p.longitude, p.altitude, p.speed, p.time)
+                       for p in want[0]] and got[1] == want[1], f"{path}: walkers differ"
+        out["tracks"] += 1
+        out["points"] += len(key)
+    assert out["tracks"] == 2 * len(GEM_SUBJECTS), out
+    for walker, prefer in (("warm-up", True), ("native", True), ("python", False)):
+        real = dataset_module.build_gps_points
+        dataset_module.build_gps_points = functools.partial(real, prefer_native=prefer)
+        try:
+            t0 = time.perf_counter()
+            ds = dataset_module.GEMDataset(root=data_root, split=[s for s, _ in GEM_SUBJECTS],
+                                           min_pci=None, with_video=False, with_gaze=False)
+            out[f"index_s_{walker}"] = time.perf_counter() - t0
+        finally:
+            dataset_module.build_gps_points = real
+        out[f"windows_{walker}"] = len(ds)
+    assert out["windows_native"] == out["windows_python"], out
+    return out
+
+
+def aac_probe() -> str:
+    """Whether the AAC shim (``csrc/audio.cpp`` over ffmpeg) builds and
+    loads here: an information line, no check."""
+    from routeformer_torch.io import native
+
+    try:
+        native.library("audio")
+        return "the AAC shim built and loaded"
+    except ImportError as e:
+        return "the AAC shim is not available: " + str(e).splitlines()[0][:300]
+
+
+def gem_audio_path(data_root: Path, geo: dict, dev, smi: str) -> dict:
+    """Phase 7d's audio and GPMF part: PCM tracks added to the recording's
+    nine videos (the fixture's tones, 48 kHz stereo, 1024 frames a chunk);
+    the two GPMF walkers (``gem_walkers``); ``GEMDataset(with_audio=True)``
+    (val subject, no GoPro video, the front video at GEM_AUDIO_FRONT)
+    through the loader onto the card for one epoch: every placed batch the
+    same bits as the numpy collate of its samples (the Python PCM decode),
+    the three audio streams (B, T, 1) float32 at the dataset's frame
+    counts."""
+    from routeformer_torch.io.dataset import GEMDataset
+    from routeformer_torch.io.gem_fixture import audio_tone, inject_pcm_audio_track
+    from routeformer_torch.io.loader import DataLoader
+
+    t_phase = time.perf_counter()
+    out = {"aac": aac_probe()}
+    log(f"info: {out['aac']}")
+    t0 = time.perf_counter()
+    for subject, _ in GEM_SUBJECTS:
+        videos = {f"01GoPro/{subject}/{name}": tone for name, tone in GEM_AUDIO_TONES.items()}
+        videos[f"02EyeTracker/{subject}/world.mp4"] = 13
+        for name, tone in videos.items():
+            inject_pcm_audio_track(data_root / name,
+                                   audio_tone(geo["duration_s"], GEM_AUDIO_RATE, tone),
+                                   GEM_AUDIO_RATE)
+    out["inject_s"] = time.perf_counter() - t0
+    out["walkers"] = gem_walkers(data_root)
+    ds = GEMDataset(root=data_root, split=["002"], min_pci=None, with_video=False,
+                    with_audio=True, front_scaling_factor=GEM_AUDIO_FRONT,
+                    video_dtype="uint8")
+    loader = DataLoader(ds, batch_size=geo["batch"], shuffle=True, to_device=True, device=dev)
+    epoch = loader_epoch(loader, 0)
+    check_epoch_bits(loader, epoch)
+    for batch in epoch["batches"]:
+        for phase, count in (("train", ds.input_audio_frame_count),
+                             ("target", ds.target_audio_frame_count)):
+            for key in ("left_audio", "right_audio", "front_audio"):
+                a = batch[phase][key]
+                assert a.device.type == dev.type and a.dtype.is_floating_point, (phase, key)
+                assert tuple(a.shape) == (geo["batch"], count, 1), (phase, key, a.shape)
+    out["epoch"] = {"batches": len(epoch["batches"]), "seconds": epoch["seconds"],
+                    "samples_per_s": epoch["samples_per_s"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"{smi}: GEM audio and GPMF {json.dumps(out)}")
+    return out
+
+
 def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
     """Phase 7d. Returns the launches of the cold epoch's run."""
     import dataclasses
@@ -2993,6 +3312,9 @@ def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
         log(f"{smi}: GEM steps, numpy (pageable) {json.dumps(pageable)}")
         del trainer, ckpt, train, val, numpy_batches
         free_device()
+
+        # 5. Audio and the GPMF walkers on the same recording.
+        out["audio"] = gem_audio_path(data_root, geo, dev, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(GEM_RUN_DIR, ignore_errors=True)
@@ -3562,6 +3884,8 @@ def kernel_line(launches: dict, results: dict) -> dict:
                                       in results["training_run_launches"].items()},
             "full_set_launches": results["full_set_launches"][name],
             "gem_data_path_launches": results["gem_data_path_launches"][name],
+            "export_launches_per_forward": results["export_launches"][
+                "dinov2" if name == "K4" else "flagship"][name],
             "dreyeve_data_path_launches": results["dreyeve_data_path_launches"][name],
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
@@ -3668,6 +3992,7 @@ def main() -> int:
     serve_flagship(results)
     check_k4(results)
     k4_launches = serve_dinov2(results)
+    results["export_launches"] = export_phase(results, smi)
     check_k3a(results)
     check_k3a_measure(results)
     check_k3b(results)

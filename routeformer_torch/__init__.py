@@ -5,7 +5,9 @@ jax, flax or routeformer_tpu. Entry points run on CUDA unless the caller
 passes ``device="cpu"``; when CUDA is asked for and absent they raise:
 
 - models and steps: ``build_flagship``, ``build_dinov2``,
-  ``build_flagship_training``, ``load_serving_bundle``;
+  ``build_flagship_training``, ``load_serving_bundle``; ``export_model``
+  and ``ExportedModel`` (a ``torch.export`` serving artifact over the
+  kernels' registered ops);
 - data: ``synthetic_batch`` (tensors on a device), ``SyntheticDataset``
   (numpy batches, no device);
 - training: ``ParallelTrainer`` (lockstep multi-model trainer with the
@@ -25,12 +27,19 @@ from routeformer_torch.flagship import (
     flagship_config,
 )
 from routeformer_torch.io.synthetic import SyntheticDataset, synthetic_batch
-from routeformer_torch.serve import ServingModel, load_serving_bundle, save_serving_bundle
+from routeformer_torch.serve import (
+    ExportedModel,
+    ServingModel,
+    export_model,
+    load_serving_bundle,
+    save_serving_bundle,
+)
 from routeformer_torch.train import CheckpointManager, ParallelTrainer
 
 __all__ = [
-    "CheckpointManager", "ParallelTrainer", "ServingModel", "SyntheticDataset",
-    "build_dinov2", "build_flagship", "build_flagship_training", "dinov2_config",
-    "flagship_config", "full_comparison", "load_serving_bundle", "save_serving_bundle",
+    "CheckpointManager", "ExportedModel", "ParallelTrainer", "ServingModel",
+    "SyntheticDataset", "build_dinov2", "build_flagship", "build_flagship_training",
+    "dinov2_config", "export_model", "flagship_config", "full_comparison",
+    "load_serving_bundle", "save_serving_bundle",
     "synthetic_batch",
 ]

@@ -109,7 +109,7 @@ class Settings:
         dataset = env.get("DATASET", "DREYEVE")
         if env.get("FSDP", "0") == "1":
             raise NotImplementedError(
-                "FSDP=1: the multi-card mesh is not ported (ROADMAP.md §1 item 6)")
+                "FSDP=1: the multi-card mesh is not ported (ROADMAP.md §1 item 2)")
         cache = env.get("USE_EMBEDDING_CACHE", "0")
         if cache not in ("0", "1", "host", "device"):
             raise ValueError(f"USE_EMBEDDING_CACHE={cache!r}: expected 0, 1, host or device")

@@ -26,9 +26,14 @@ indices and values are the JAX dataset's; videos are THWC (or TCHW), uint8
 or float16. ``stitch_videos`` adds the JAX dataset's ``stitched_video``
 (``io/stitcher.py``: the left and right views as float32 in [0, 1] onto one
 double-width canvas, float16 out), warped on ``stitch_device`` (the card
-unless ``"cpu"``); it needs cv2 for the homography. ``with_audio`` needs
-``io/audio.py``, which is not ported (``ROADMAP.md`` §1 item 4): it raises
-``NotImplementedError`` before any work.
+unless ``"cpu"``); it needs cv2 for the homography. ``with_audio`` adds
+``left_audio``, ``right_audio`` (the GoPros) and ``front_audio`` (the
+world recording, with the gaze) as ``(T, 1)`` float32 at ``AUDIO_FPS``,
+trimmed to a common length (``io/audio.py``: PCM tracks in Python, AAC
+through the ffmpeg shim where it builds). Like every key, the audio goes
+through the sample cache and the memory tier; the loader stacks it as the
+JAX loader does, so windows whose audio differs in length cannot be
+batched.
 """
 
 import csv
@@ -40,6 +45,7 @@ from typing import Any, Callable, Dict, List, Literal, Optional, Tuple, Union
 
 import numpy as np
 
+from routeformer_torch.io.audio import read_audio
 from routeformer_torch.io.cache import SampleCache
 from routeformer_torch.io.file_methods import load_object, load_pldata_file
 from routeformer_torch.io.gaze import Radial_Dist_Camera, detect_fixations
@@ -161,10 +167,6 @@ class GEMDataset:
         max_memory_cache_size: int = int(100e9),
         stitch_device=None,
     ):
-        if with_audio:
-            raise NotImplementedError(
-                "with_audio=True needs io/audio.py, which the port has not ported yet "
-                "(ROADMAP.md §1 item 4)")
         self.root = Path(root)
         self.split = split if isinstance(split, list) else self.DATA_SPLIT[split]
         self.input_length = input_length
@@ -864,6 +866,13 @@ class GEMDataset:
             data["left_video"] = left_video
             data["right_video"] = right_video
 
+        if self.with_audio:
+            # the video decode's per-camera windows (reference :2026-2040)
+            data["left_audio"] = read_audio(
+                left, start + left_offset, end + left_offset)["audio"]
+            data["right_audio"] = read_audio(
+                right, start + right_offset, end + right_offset)["audio"]
+
         start_posix = origin_time + start
         end_posix = origin_time + end
         grid, values = self._get_full_corrected_gps(corr_gps, metadata)
@@ -898,6 +907,13 @@ class GEMDataset:
         world = self._read_world_video(subject, gaze_metadata, start_posix, end_posix)
         if "video" in world:
             data["front_video"] = world["video"]
+        if self.with_audio:
+            # the front audio rides the world recording (reference
+            # :1849-1850), over the front video's window
+            data["front_audio"] = read_audio(
+                self.video_samples[subject]["video"],
+                start_posix - gaze_metadata["start_time_video"],
+                end_posix - gaze_metadata["start_time_video"])["audio"]
         data["gaze"] = self._read_gaze_data(
             subject, gaze_metadata, start_posix, end_posix
         )
@@ -993,6 +1009,16 @@ class GEMDataset:
             if lengths and len(set(lengths)) > 1:
                 min_len = min(lengths)
                 logger.warning("Video lengths differ %s; trimming to %d", lengths, min_len)
+                for k in keys:
+                    data[k] = data[k][:min_len]
+        if self.with_audio:
+            # the three audio streams trimmed to a common length
+            # (reference :1379-1390)
+            keys = [k for k in ("left_audio", "right_audio", "front_audio") if k in data]
+            lengths = [data[k].shape[0] for k in keys]
+            if lengths and len(set(lengths)) > 1:
+                min_len = min(lengths)
+                logger.warning("Audio lengths differ %s; trimming to %d", lengths, min_len)
                 for k in keys:
                     data[k] = data[k][:min_len]
         return data

@@ -26,7 +26,7 @@ own size, so here no call is padded. The store's work is enqueued on the
 caller's current CUDA stream: the loader runs it on its producer's side
 stream, and the consumer waits for that stream's event. One store belongs
 to one producer thread. ``MeshFrameStoreRouter`` (one ring per card of a
-mesh) waits for the multi-card port (``ROADMAP.md`` §1 item 6).
+mesh) waits for the multi-card port (``ROADMAP.md`` §1 item 2).
 """
 
 import hashlib

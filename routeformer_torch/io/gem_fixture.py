@@ -13,7 +13,10 @@ intrinsics, ``gaze.pldata`` at 200 Hz and info files, and the corrected
 GPS as a 2 Hz CSV. Frame ``i`` of a video is a seeded uint8 noise image
 rolled ``i`` pixels along its width, so distinct source frames stay
 distinct after any undistort, crop and resize. ``turn`` adds a slow
-weave to the heading, so that windows pass a PCI filter.
+weave to the heading, so that windows pass a PCI filter. ``with_audio``
+adds a 16-bit PCM (``sowt``) track to the three videos, as the JAX
+fixture's ``inject_pcm_audio_track`` does (1024 frames a chunk, the seeded
+tones of ``audio_tone``).
 """
 
 import datetime
@@ -125,6 +128,85 @@ def _gpmd_trak(payload_offset: int, size: int) -> bytes:
     return _box(b"trak", tkhd + _box(b"mdia", mdhd + hdlr + _box(b"minf", stbl)))
 
 
+def audio_tone(duration_s: float, rate: int, seed: int = 0) -> np.ndarray:
+    """Stereo int16 PCM: a tone per channel plus seeded noise, so that
+    window slicing and the channel mean both show."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(duration_s * rate)) / rate
+    pcm = np.stack([12000 * np.sin(2 * np.pi * 440.0 * t),
+                    9000 * np.sin(2 * np.pi * 660.0 * t)], axis=1)
+    pcm += rng.normal(0, 150, size=pcm.shape)
+    return np.clip(pcm, -32768, 32767).astype(np.int16)
+
+
+def _pcm_trak(n: int, channels: int, rate: int, chunk_offsets, frames_per_chunk: int) -> bytes:
+    """The JAX fixture's ``sowt`` track: v0 AudioSampleEntry, one sample a
+    PCM frame, ``frames_per_chunk`` frames a chunk."""
+    n_chunks = len(chunk_offsets)
+    tkhd = _full(b"tkhd", 7, struct.pack(">III", 0, 0, 98) + b"\x00" * 60
+                 + struct.pack(">II", 0, 0))
+    mdhd = _full(b"mdhd", 0, struct.pack(">IIII", 0, 0, rate, n) + b"\x00" * 4)
+    hdlr = _full(b"hdlr", 0, b"\x00" * 4 + b"soun" + b"\x00" * 12 + b"Audio\x00")
+    entry = (b"\x00" * 6 + struct.pack(">H", 1)
+             + struct.pack(">HHIHHHH", 0, 0, 0, channels, 16, 0, 0)
+             + struct.pack(">I", rate << 16))
+    stsd = _full(b"stsd", 0, struct.pack(">I", 1) + _box(b"sowt", entry))
+    stsz = _full(b"stsz", 0, struct.pack(">II", 2 * channels, n))
+    if chunk_offsets[-1] >= 2 ** 32:
+        stco = _full(b"co64", 0, struct.pack(f">I{n_chunks}Q", n_chunks, *chunk_offsets))
+    else:
+        stco = _full(b"stco", 0, struct.pack(f">I{n_chunks}I", n_chunks, *chunk_offsets))
+    last_per = n - (n_chunks - 1) * frames_per_chunk
+    if n_chunks > 1 and last_per != frames_per_chunk:
+        stsc_body = struct.pack(">IIIIIII", 2, 1, frames_per_chunk, 1, n_chunks, last_per, 1)
+    else:
+        stsc_body = struct.pack(">IIII", 1, 1, min(frames_per_chunk, n), 1)
+    stsc = _full(b"stsc", 0, stsc_body)
+    stts = _full(b"stts", 0, struct.pack(">III", 1, n, 1))
+    stbl = _box(b"stbl", stsd + stsz + stco + stsc + stts)
+    minf = _box(b"minf", _full(b"smhd", 0, b"\x00" * 4) + stbl)
+    return _box(b"trak", tkhd + _box(b"mdia", mdhd + hdlr + minf))
+
+
+def inject_pcm_audio_track(path: Path, pcm: np.ndarray, rate: int,
+                           frames_per_chunk: int = 1024) -> None:
+    """Add a 16-bit little-endian PCM (``sowt``) track to an MP4 in place:
+    the ``moov`` box becomes ``free``, and the PCM as a new ``mdat`` and a
+    ``moov`` holding the old one's boxes and the audio track follow it.
+    Only box headers and the ``moov`` are read, so a large video is cheap."""
+    if pcm.dtype != np.int16 or pcm.ndim != 2:
+        raise ValueError("pcm must be (frames, channels) int16")
+    n, channels = pcm.shape
+    with open(path, "r+b") as f:
+        size_all = f.seek(0, 2)
+        pos = 0
+        while pos + 8 <= size_all:
+            f.seek(pos)
+            size, btype = struct.unpack(">I4s", f.read(8))
+            header = 8
+            if size == 1:
+                size, header = struct.unpack(">Q", f.read(8))[0], 16
+            elif size == 0:
+                size = size_all - pos
+            if btype == b"moov":
+                break
+            pos += size
+        else:
+            raise ValueError(f"{path}: no moov box")
+        f.seek(pos + header)
+        moov_body = f.read(size - header)
+        f.seek(pos + 4)
+        f.write(b"free")
+        payload_offset = size_all + 8
+        offsets = [payload_offset + i * frames_per_chunk * 2 * channels
+                   for i in range(-(-n // frames_per_chunk))]
+        f.seek(size_all)
+        f.write(struct.pack(">I", 8 + n * 2 * channels) + b"mdat")
+        f.write(pcm.astype("<i2").tobytes())
+        f.write(_box(b"moov", moov_body + _pcm_trak(n, channels, rate, offsets,
+                                                    frames_per_chunk)))
+
+
 def video_frame(base: np.ndarray, i: int) -> np.ndarray:
     """Frame ``i`` of a fixture video: ``base`` rolled ``i`` pixels."""
     return np.roll(base, shift=i, axis=1)
@@ -162,11 +244,14 @@ def write_raw_video(path: Path, n_frames: int, hw=(48, 64), seed: int = 0,
 
 def build_gem_fixture(root, duration_s: float = 20.0, subject: str = "001", hw=(48, 64),
                       world_hw: Optional[Tuple[int, int]] = None, fps: float = VIDEO_FPS,
-                      seed: int = 0, turn: float = 0.0) -> dict:
+                      seed: int = 0, turn: float = 0.0, with_audio: bool = False,
+                      audio_rate: int = 48000) -> dict:
     """Write one subject of a GEM recording under ``root`` (module
     docstring). ``hw`` sizes the GoPro frames and ``world_hw`` (default
     ``hw``) the eye tracker's; ``fps`` is every video's rate; ``seed``
-    draws the trajectory and, offset per video, the frames."""
+    draws the trajectory and, offset per video, the frames; ``with_audio``
+    adds PCM tracks at ``audio_rate`` (tones seeded 11, 12, 13 for the
+    left, right and world videos, as the JAX fixture's)."""
     root = Path(root)
     world_hw = hw if world_hw is None else world_hw
     gopro = root / "01GoPro" / subject
@@ -180,6 +265,10 @@ def build_gem_fixture(root, duration_s: float = 20.0, subject: str = "001", hw=(
     payload = gpmf_stream(traj, T0)
     write_raw_video(gopro / "left" / "GH010008.MP4", n_frames, hw, seed + 1, fps, payload)
     write_raw_video(gopro / "right" / "GH010009.MP4", n_frames, hw, seed + 2, fps, payload)
+    if with_audio:
+        for name, tone in (("left/GH010008.MP4", 11), ("right/GH010009.MP4", 12)):
+            inject_pcm_audio_track(gopro / name, audio_tone(duration_s, audio_rate, tone),
+                                   audio_rate)
 
     # Pupil timestamps are relative; the posix anchor is start_time_gaze
     # (= T0), which the reader adds.
@@ -194,6 +283,9 @@ def build_gem_fixture(root, duration_s: float = 20.0, subject: str = "001", hw=(
     save_pldata_file(gaze_entries, gaze_ts, eye, "gaze")
 
     write_raw_video(eye / "world.mp4", n_frames, world_hw, seed + 4, fps)
+    if with_audio:
+        inject_pcm_audio_track(eye / "world.mp4", audio_tone(duration_s, audio_rate, 13),
+                               audio_rate)
     np.save(eye / "world_timestamps.npy", WORLD_LAG_S + np.arange(n_frames) / fps)
     save_object({"(1088, 1080)": {
         "cam_type": "radial",

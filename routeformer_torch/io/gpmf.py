@@ -132,15 +132,31 @@ def parse_gpmf(data: bytes) -> Iterator[KLVItem]:
             ))
 
 
+def filter_dilution(points: List[GPSPoint], dilutions: List[float],
+                    dilution_threshold: float) -> Tuple[List[GPSPoint], List[float]]:
+    """The points (and their dilutions) below ``dilution_threshold``."""
+    kept = [(p, d) for p, d in zip(points, dilutions) if d < dilution_threshold]
+    return [p for p, _ in kept], [d for _, d in kept]
+
+
 def build_gps_points(
-    data: bytes, dilution_threshold: float = 500.0
+    data: bytes, dilution_threshold: float = 500.0, prefer_native: bool = True
 ) -> Tuple[List[GPSPoint], List[float]]:
     """GPMF byte stream -> dilution-filtered, timestamped GPS points.
 
     FSM over SCAL/GPSU/GPSF/GPSP/GPS5 (reference dataset.py:2387-2442).
-    The JAX package's native walker (``io/gpmf_native.py``) computes the
-    same points faster and is not ported (``ROADMAP.md`` §1 item 4).
+    ``prefer_native`` walks the stream with the C++ walker
+    (``io/gpmf_native.py``), which gives the same points; a library that
+    cannot be built or loaded raises ``ImportError``. ``prefer_native=False``
+    asks for this Python walker, which also takes the streams the native
+    walker calls non-canonical.
     """
+    if prefer_native:
+        from routeformer_torch.io.gpmf_native import build_gps_points_native
+
+        result = build_gps_points_native(data, dilution_threshold)
+        if result is not None:
+            return result
     points: List[GPSPoint] = []
     dilutions: List[float] = []
 
@@ -209,11 +225,8 @@ def build_gps_points(
                     dilutions.append(gpsp if gpsp is not None else float("inf"))
 
     fix_timestamps(points)
-    filtered_points, filtered_dilutions = [], []
-    for p, d in zip(points, dilutions):
-        if d < dilution_threshold:
-            filtered_points.append(p)
-            filtered_dilutions.append(d)
+    filtered_points, filtered_dilutions = filter_dilution(points, dilutions,
+                                                          dilution_threshold)
     logger.info("GPS data points: %d (OK: %d)", len(points), len(filtered_points))
     return filtered_points, filtered_dilutions
 

@@ -24,7 +24,7 @@ lock) and only the frames not yet on the card are staged in pinned
 memory and copied. Float64 leaves (GPS, gaze, PCI) are
 placed as float32, as JAX places them. On the CPU device placement is a
 plain conversion. ``mesh=`` (placement over several cards) waits for the
-multi-card port (``ROADMAP.md`` §1 item 6).
+multi-card port (``ROADMAP.md`` §1 item 2).
 """
 
 import queue
@@ -84,7 +84,7 @@ class DataLoader:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (batches placed over several cards) is not ported: "
-                "ROADMAP.md §1 item 6")
+                "ROADMAP.md §1 item 2")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

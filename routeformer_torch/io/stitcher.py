@@ -40,6 +40,12 @@ def _cv2():
     return cv2
 
 
+def _cv2_error():
+    """``cv2.error``: what cv2 raises on frames it cannot take (a 1 x 1
+    frame in ORB, an empty one in ``cvtColor``)."""
+    return _cv2().error
+
+
 class RobustHomography:
     """MAGSAC homography from point correspondences."""
 
@@ -223,7 +229,7 @@ class ImageStitcher:
         marks the stitcher degraded, retried every ``RETRY_PERIOD`` frames."""
         try:
             return self.estimate(left, right)
-        except ValueError as e:
+        except (ValueError, _cv2_error()) as e:
             self._degraded = True
             self._frames_since_retry = 0
             if self._cached_h is not None:

@@ -25,8 +25,7 @@ class Informer(nn.Module):
     def __init__(self, configs: GPSBackboneConfig):
         super().__init__()
         c = configs
-        if c.output_attention:
-            raise NotImplementedError("output_attention is not ported")
+        self.output_attention = c.output_attention
         self.pred_len = c.pred_len
         self.smart_decoder = c.smart_decoder
         self.enc_embedding = DataEmbedding(c.enc_in, c.d_model, c.embed, c.freq,
@@ -34,14 +33,15 @@ class Informer(nn.Module):
         self.dec_embedding = DataEmbedding(c.dec_in, c.d_model, c.embed, c.freq,
                                            c.dropout)
 
-        def attn(causal):
-            return AttentionLayer(ProbAttention(causal, c.factor), c.d_model,
-                                  c.n_heads, mix=True)
+        def attn(causal, output_attention=False):
+            return AttentionLayer(ProbAttention(causal, c.factor,
+                                                output_attention=output_attention),
+                                  c.d_model, c.n_heads, mix=True)
 
         self.encoder = Encoder(
             [
-                EncoderLayer(attn(False), c.d_model, c.d_ff, dropout=c.dropout,
-                             activation=c.activation)
+                EncoderLayer(attn(False, c.output_attention), c.d_model, c.d_ff,
+                             dropout=c.dropout, activation=c.activation)
                 for _ in range(c.e_layers)
             ],
             [ConvLayer(c.d_model) for _ in range(c.e_layers - 1)]
@@ -58,8 +58,9 @@ class Informer(nn.Module):
             projection=nn.Linear(c.d_model, c.c_out),
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, seq_len, C) -> (B, pred_len, c_out)``."""
+    def forward(self, x: torch.Tensor):
+        """``(B, seq_len, C) -> (B, pred_len, c_out)``; with
+        ``output_attention``, ``(prediction, the encoder's attentions)``."""
         b, l, _ = x.shape
         marks = torch.arange(l + self.pred_len, dtype=torch.float32,
                              device=x.device)[None, :, None]
@@ -69,6 +70,10 @@ class Informer(nn.Module):
             seed = x.new_zeros(b, self.pred_len, x.shape[-1])
         x_dec = torch.cat([x, seed], dim=1)
         enc_out = self.encoder(self.enc_embedding(x, marks[:, :l].expand(b, l, 1)))
+        if self.output_attention:
+            enc_out, attns = enc_out
         dec_out = self.dec_embedding(x_dec, marks.expand(b, -1, 1))
         dec_out = self.decoder(dec_out, enc_out)
+        if self.output_attention:
+            return dec_out[:, -self.pred_len:], attns
         return dec_out[:, -self.pred_len:]

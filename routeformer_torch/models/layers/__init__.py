@@ -8,7 +8,11 @@ from routeformer_torch.models.layers.attention import (
 )
 from routeformer_torch.models.layers.embed import (
     DataEmbedding,
+    DataEmbedding_onlypos,
+    DataEmbedding_wo_pos,
+    FixedEmbedding,
     PositionalEmbedding,
+    TemporalEmbedding,
     TimeFeatureEmbedding,
     TokenEmbedding,
 )
@@ -21,8 +25,8 @@ from routeformer_torch.models.layers.encdec import (
 )
 
 __all__ = [
-    "AttentionLayer", "ConvLayer", "DataEmbedding", "Decoder", "DecoderLayer",
-    "Encoder", "EncoderLayer", "FullAttention", "Linear",
-    "PositionalEmbedding", "ProbAttention", "TimeFeatureEmbedding",
-    "TokenEmbedding",
+    "AttentionLayer", "ConvLayer", "DataEmbedding", "DataEmbedding_onlypos",
+    "DataEmbedding_wo_pos", "Decoder", "DecoderLayer", "Encoder", "EncoderLayer",
+    "FixedEmbedding", "FullAttention", "Linear", "PositionalEmbedding", "ProbAttention",
+    "TemporalEmbedding", "TimeFeatureEmbedding", "TokenEmbedding",
 ]

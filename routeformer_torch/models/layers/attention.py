@@ -41,39 +41,47 @@ class Linear(nn.Linear):
 
 
 class FullAttention(nn.Module):
-    """Dense softmax attention (causal when ``mask_flag``)."""
+    """Dense softmax attention (causal when ``mask_flag``); with
+    ``output_attention`` it returns ``(out, weights)``, the f32 ``(B, H,
+    L, S)`` softmax weights before dropout."""
 
     def __init__(self, mask_flag: bool = True, scale: Optional[float] = None,
-                 attention_dropout: float = 0.0):
+                 attention_dropout: float = 0.0, output_attention: bool = False):
         super().__init__()
         self.mask_flag = mask_flag
         self.scale = scale
         self.attention_dropout = attention_dropout
+        self.output_attention = output_attention
 
     def forward(self, q, k, v):
         return dot_product_attention(
             q, k, v, causal=self.mask_flag, scale=self.scale,
             dropout_rate=self.attention_dropout if self.training else 0.0,
+            need_weights=self.output_attention,
         )
 
 
 class ProbAttention(nn.Module):
-    """Informer ProbSparse top-u attention (masked formulation)."""
+    """Informer ProbSparse top-u attention (masked formulation); with
+    ``output_attention`` it returns ``(out, None)``: like the JAX package,
+    it keeps no attention map."""
 
     def __init__(self, mask_flag: bool = True, factor: int = 5,
-                 scale: Optional[float] = None):
+                 scale: Optional[float] = None, output_attention: bool = False):
         super().__init__()
         self.mask_flag = mask_flag
         self.factor = factor
         self.scale = scale
+        self.output_attention = output_attention
         self.mc_generator: Optional[torch.Generator] = None
 
     def forward(self, q, k, v):
-        return prob_sparse_attention(
+        out = prob_sparse_attention(
             q, k, v, factor=self.factor, causal=self.mask_flag,
             scale=self.scale, train=self.training or self.mc_generator is not None,
             generator=self.mc_generator,
         )
+        return (out, None) if self.output_attention else out
 
 
 class AttentionLayer(nn.Module):
@@ -96,6 +104,8 @@ class AttentionLayer(nn.Module):
         self.mix = mix
 
     def forward(self, queries, keys, values):
+        """The projected output; ``(output, attention)`` where the inner
+        attention returns its attention too (``output_attention``)."""
         b, l, _ = queries.shape
         s = keys.shape[1]
         h = self.n_heads
@@ -103,6 +113,10 @@ class AttentionLayer(nn.Module):
         k = self.key_projection(keys).reshape(b, s, h, -1)
         v = self.value_projection(values).reshape(b, s, h, -1)
         out = self.inner_attention(q, k, v)
+        attn = None
+        if isinstance(out, tuple):
+            out, attn = out
         if self.mix:
             out = out.transpose(1, 2)  # Informer quirk: head-major merge
-        return self.out_projection(out.reshape(b, l, -1))
+        out = self.out_projection(out.reshape(b, l, -1))
+        return (out, attn) if getattr(self.inner_attention, "output_attention", False) else out

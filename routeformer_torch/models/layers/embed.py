@@ -1,7 +1,14 @@
 """Embedding layers on channel-last ``(B, L, C)`` tokens (counterpart of
-``routeformer_tpu/models/layers/embed.py``)."""
+``routeformer_tpu/models/layers/embed.py``): the token conv, the
+sinusoidal position, and the temporal embedding of time marks, either
+``timeF`` (a Linear on continuous features) or calendar lookups summed
+over (month, day, weekday, hour[, minute]), ``fixed`` (sinusoidal tables)
+or ``learned`` (trained tables); ``DataEmbedding`` sums them,
+``DataEmbedding_wo_pos`` drops the position and ``DataEmbedding_onlypos``
+the temporal embedding."""
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -59,19 +66,73 @@ class TimeFeatureEmbedding(nn.Module):
         return self.linear(x)
 
 
+class FixedEmbedding(nn.Module):
+    """A non-trainable sinusoidal lookup table ``(c_in, d_model)``: a
+    non-persistent buffer, as the JAX package keeps it out of its state."""
+
+    def __init__(self, c_in: int, d_model: int):
+        super().__init__()
+        self.register_buffer("weight", sinusoidal_table(c_in, d_model), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.weight[x]
+
+
+class Embed(nn.Module):
+    """A trained lookup table, named as flax's ``nnx.Embed`` names it
+    (``embedding``, normal with std 1/sqrt(features))."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.randn(num_embeddings, features)
+                                      / math.sqrt(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.embedding[x]
+
+
+class TemporalEmbedding(nn.Module):
+    """Calendar embeddings of integer marks ``(B, L, 4|5)`` (month, day,
+    weekday, hour[, minute] with ``freq="t"``), summed; ``embed_type``
+    ``fixed`` (sinusoidal tables) or ``learned``."""
+
+    SIZES = {"minute": 4, "hour": 24, "weekday": 7, "day": 32, "month": 13}
+
+    def __init__(self, d_model: int, embed_type: str = "fixed", freq: str = "h"):
+        super().__init__()
+        table = FixedEmbedding if embed_type == "fixed" else Embed
+        self.minute_embed = table(self.SIZES["minute"], d_model) if freq == "t" else None
+        self.hour_embed = table(self.SIZES["hour"], d_model)
+        self.weekday_embed = table(self.SIZES["weekday"], d_model)
+        self.day_embed = table(self.SIZES["day"], d_model)
+        self.month_embed = table(self.SIZES["month"], d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.long()
+        out = (self.hour_embed(x[:, :, 3]) + self.weekday_embed(x[:, :, 2])
+               + self.day_embed(x[:, :, 1]) + self.month_embed(x[:, :, 0]))
+        if self.minute_embed is not None:
+            out = out + self.minute_embed(x[:, :, 4])
+        return out
+
+
+def temporal_embedding(d_model: int, embed_type: str, freq: str) -> nn.Module:
+    if embed_type == "timeF":
+        return TimeFeatureEmbedding(d_model, freq)
+    if embed_type not in ("fixed", "learned"):
+        raise ValueError(f"embed must be 'timeF', 'fixed' or 'learned', got {embed_type!r}")
+    return TemporalEmbedding(d_model, embed_type, freq)
+
+
 class DataEmbedding(nn.Module):
-    """value + timeF temporal + positional embedding, then dropout."""
+    """value + temporal + positional embedding, then dropout."""
 
     def __init__(self, c_in: int, d_model: int, embed_type: str = "timeF",
                  freq: str = "m", dropout: float = 0.1):
         super().__init__()
-        if embed_type != "timeF":
-            raise NotImplementedError(
-                f"embed={embed_type!r}: only the timeF embedding is ported"
-            )
         self.value_embedding = TokenEmbedding(c_in, d_model)
         self.position_embedding = PositionalEmbedding(d_model)
-        self.temporal_embedding = TimeFeatureEmbedding(d_model, freq)
+        self.temporal_embedding = temporal_embedding(d_model, embed_type, freq)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x: torch.Tensor, x_mark: torch.Tensor) -> torch.Tensor:
@@ -81,3 +142,30 @@ class DataEmbedding(nn.Module):
             + self.position_embedding(x)
         )
         return self.dropout(out)
+
+
+class DataEmbedding_wo_pos(nn.Module):
+    """value + temporal embedding (no positional), then dropout."""
+
+    def __init__(self, c_in: int, d_model: int, embed_type: str = "fixed",
+                 freq: str = "h", dropout: float = 0.1):
+        super().__init__()
+        self.value_embedding = TokenEmbedding(c_in, d_model)
+        self.temporal_embedding = temporal_embedding(d_model, embed_type, freq)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, x_mark: torch.Tensor) -> torch.Tensor:
+        return self.dropout(self.value_embedding(x) + self.temporal_embedding(x_mark))
+
+
+class DataEmbedding_onlypos(nn.Module):
+    """value + positional embedding, then dropout."""
+
+    def __init__(self, c_in: int, d_model: int, dropout: float = 0.1):
+        super().__init__()
+        self.value_embedding = TokenEmbedding(c_in, d_model)
+        self.position_embedding = PositionalEmbedding(d_model)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor, x_mark: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.dropout(self.value_embedding(x) + self.position_embedding(x))

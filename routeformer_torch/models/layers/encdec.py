@@ -54,12 +54,18 @@ class EncoderLayer(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.activation = activation_fn(activation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.dropout(self.attention(x, x, x))
+    def forward(self, x: torch.Tensor):
+        """The layer's output; ``(output, attention)`` where the attention
+        layer returns its attention (``output_attention``)."""
+        a = self.attention(x, x, x)
+        with_attn = isinstance(a, tuple)
+        a, attn = a if with_attn else (a, None)
+        x = x + self.dropout(a)
         y = x = self.norm1(x)
         y = self.dropout(self.activation(self.ff1(y)))
         y = self.dropout(self.ff2(y))
-        return self.norm2(x + y)
+        out = self.norm2(x + y)
+        return (out, attn) if with_attn else out
 
 
 class Encoder(nn.Module):
@@ -73,17 +79,28 @@ class Encoder(nn.Module):
         )
         self.norm = norm_layer
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        """The encoded sequence; ``(encoded, attentions)``, one per layer,
+        where the layers return their attention (``output_attention``)."""
+        attns = []
+
+        def attend(layer, x):
+            out = layer(x)
+            if isinstance(out, tuple):
+                out, attn = out
+                attns.append(attn)
+            return out
+
         if self.conv_layers is not None:
             for attn_layer, conv_layer in zip(self.attn_layers, self.conv_layers):
-                x = conv_layer(attn_layer(x))
-            x = self.attn_layers[-1](x)
+                x = conv_layer(attend(attn_layer, x))
+            x = attend(self.attn_layers[-1], x)
         else:
             for attn_layer in self.attn_layers:
-                x = attn_layer(x)
+                x = attend(attn_layer, x)
         if self.norm is not None:
             x = self.norm(x)
-        return x
+        return (x, attns) if attns else x
 
 
 class DecoderLayer(nn.Module):

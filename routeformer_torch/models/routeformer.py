@@ -105,7 +105,7 @@ class Routeformer(nn.Module):
             gps, dense = self._autoregressive_decode(motion_dynamics, visual_features,
                                                      last_input_gps)
         else:
-            output = self._forward(motion_dynamics, visual_features)
+            output, _ = self._forward(motion_dynamics, visual_features)
             gps, dense = self.postprocess_batch(last_input_gps, output)
         if self.configs.dense_prediction:
             return gps, dense
@@ -127,7 +127,7 @@ class Routeformer(nn.Module):
             md, vf, last_gps = motion_dynamics, visual_features, last_input_gps
             gps_steps, dense_steps = [], []
             for _ in range(-(-pred_len // step)):
-                output = self._forward(md, vf)
+                output, _ = self._forward(md, vf)
                 motion = self._future_motion(output)
                 gps, dense = self.postprocess_batch(last_gps, output)
                 # the carry keeps its dtype, as the scan's carry must
@@ -143,6 +143,9 @@ class Routeformer(nn.Module):
         return torch.cat(gps_steps, dim=1)[:, :pred_len], future_dense
 
     def _forward(self, motion_dynamics, visual_features):
+        """``(output, attention)``: the GPS backbone's output and, with
+        ``configs.output_attention``, its encoder's attention maps (one per
+        layer; None where the layer's attention is ProbSparse), else None."""
         angle, norm = estimate_angle_and_norm(motion_dynamics)
         if self.configs.rotate_motion:
             origin_angles = angle[:, -1:, :]
@@ -159,14 +162,18 @@ class Routeformer(nn.Module):
         if self.configs._only_motion:
             inputs[-1] = torch.zeros_like(inputs[-1])
         x = torch.cat(inputs, dim=-1)
-        output = self.gps_backbone(x)
+        attention = None
+        if self.configs.output_attention:
+            output, attention = self.gps_backbone(x)
+        else:
+            output = self.gps_backbone(x)
         if self.configs.decoder_mode == "recursive":
             width = None if self.configs.dense_prediction else 2
             output = output + x[:, -1:, :width]
         if self.configs.rotate_motion:
             output = torch.cat([rotate(output[..., :2], origin_angles),
                                 output[..., 2:]], dim=-1)
-        return output
+        return output, attention
 
     def preprocess_batch(self, batch: dict, training=None):
         """``(motion_dynamics, visual_features)``; ``training`` (default: the

@@ -63,19 +63,22 @@ def dot_product_attention(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     impl: str = "auto",
-) -> torch.Tensor:
+    need_weights: bool = False,
+):
     """Dense softmax attention on ``(B, L, H, E)``; scale defaults to
     ``1/sqrt(E)``. With ``dropout_rate`` the attention weights are dropped
     (training; callers pass 0 in eval). ``impl``: ``auto`` (the rule of
-    ``_use_flash``), ``flash`` (K4) or ``plain``. The JAX package's
-    additive bias, which keeps its plain path, has no caller here."""
+    ``_use_flash``), ``flash`` (K4) or ``plain``. With ``need_weights``
+    it returns ``(out, weights)``, the f32 softmax weights before dropout
+    (the plain path). The JAX package's additive bias, which keeps its
+    plain path, has no caller here."""
     if impl not in ("auto", "flash", "plain"):
         raise ValueError(f"impl must be 'auto', 'flash' or 'plain', got {impl!r}")
     l_q, e, l_k = q.shape[1], q.shape[3], k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(e)
     if impl == "flash" or (
         impl == "auto"
-        and _use_flash(q, k, dropout_rate, deterministic=False, need_weights=False)
+        and _use_flash(q, k, dropout_rate, deterministic=False, need_weights=need_weights)
     ):
         # K4 (its plain version on the CPU) on the (B, L, H, E) views.
         return dense_attention_blhe(q, k, v, causal, scale)
@@ -83,9 +86,11 @@ def dot_product_attention(
     if causal:
         scores = scores.masked_fill(_causal_mask(l_q, l_k, q.device), _NEG_INF)
     weights = torch.softmax(scores * scale, dim=-1)
+    dropped = weights
     if dropout_rate > 0.0:
-        weights = torch.nn.functional.dropout(weights, dropout_rate)
-    return torch.einsum("bhls,bshd->blhd", weights.to(v.dtype), v)
+        dropped = torch.nn.functional.dropout(weights, dropout_rate)
+    out = torch.einsum("bhls,bshd->blhd", dropped.to(v.dtype), v)
+    return (out, weights) if need_weights else out
 
 
 def prob_sparse_sizes(l_q: int, l_k: int, factor: int):
@@ -125,11 +130,13 @@ def prob_sparse_attention(
             )
         else:
             key = (l_q, u_part, l_k, q.device)
-            if key not in _index_cache:  # one host-to-device copy per shape
-                _index_cache[key] = torch.from_numpy(
+            index_sample = _index_cache.get(key)
+            if index_sample is None:  # one host-to-device copy per shape
+                index_sample = torch.from_numpy(
                     prob_sparse_index_sample(l_q, u_part, l_k).astype(np.int64)
                 ).to(q.device)
-            index_sample = _index_cache[key]
+                if not torch.compiler.is_exporting():  # a graph value, never cached
+                    _index_cache[key] = index_sample
     if isinstance(index_sample, np.ndarray):
         index_sample = torch.from_numpy(index_sample.astype(np.int64))
     index_sample = index_sample.to(device=q.device, dtype=torch.long)

@@ -21,11 +21,17 @@ rows in registers, so that P is normalised in f32 before its bf16 rounding
 as the TPU does. Each kernel's header gives the arithmetic and where it
 still falls short of its bound.
 
-The wrappers run the kernel for CUDA tensors and the plain PyTorch version
-for CPU tensors, and differentiate through autograd over an f32 recompute
-of the plain version, as the JAX custom VJPs do; the plain versions
-(``*_plain``) are callable on any device. K4 reads (batch, head, token)
-strided views in place (``dense_attention_blhe`` takes the ViT's
+Each kernel is a registered op, so that ``torch.export`` traces the
+serving forward through it (a fake tensor has no ``data_ptr`` for a ctypes
+launch): ``routeformer::window_attention`` (K2) and
+``routeformer::dense_attention`` (K4), whose CUDA implementation launches
+the kernel and whose CPU implementation is the plain version; their fake
+implementations give the output's layout (``_window_out``,
+``_dense_out``). The autograd Functions call the ops for CUDA tensors (K4
+for CPU ones too) and differentiate through autograd over an f32
+recompute of the plain version, as the JAX custom VJPs do; the plain
+versions (``*_plain``) are callable on any device. K4 reads (batch, head,
+token) strided views in place (``dense_attention_blhe`` takes the ViT's
 ``(B, L, H, E)`` views of its qkv rows and writes ``(B, L, H, E_v)``); it
 copies an operand only when E is not a multiple of 8 (zero-padding it) or a
 bf16 row does not start on a 16-byte boundary.
@@ -97,13 +103,15 @@ def _rows16(tensors, strides) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors) and all(s % per16 == 0 for s in strides)
 
 
-def _check_cuda(q, k, v, bias, scale):
+def _check_window(q, k, v, bias, scale):
+    """What K2 takes: q, k, v of one shape, dtype (bf16 or f32) and device,
+    unit stride along d, d in (16, 32, 64), n <= 256; a contiguous f32
+    ``(NB, H, N, N)`` bias with B % NB == 0; a contiguous f32 ``(H,)``
+    scale."""
     b, h, n, d = q.shape
-    if v.dtype != torch.bfloat16 or q.dtype != v.dtype or k.dtype != v.dtype:
-        raise TypeError(
-            "the CUDA window kernel computes with bf16 operands and writes "
-            f"bf16: pass bf16 q/k/v (got {q.dtype}, {k.dtype}, {v.dtype})"
-        )
+    if q.dtype not in (torch.bfloat16, torch.float32) or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"the window kernel reads q, k, v all bf16 or all f32, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if d not in (16, 32, 64) or not 1 <= n <= 256:
         raise ValueError(f"window kernel supports d in (16, 32, 64) and n <= 256, "
                          f"got d={d}, n={n}")
@@ -118,8 +126,52 @@ def _check_cuda(q, k, v, bias, scale):
         raise ValueError("scale must be contiguous f32 (H,)")
 
 
+def _window_out(q: torch.Tensor, heads_inner: bool) -> torch.Tensor:
+    """K2's bf16 output ``(B, H, N, d)``; with ``heads_inner`` its memory is
+    ``(B, N, H, d)``, the rows K1's block tail reads."""
+    b, h, n, d = q.shape
+    if heads_inner:
+        return torch.empty(b, n, h, d, dtype=torch.bfloat16, device=q.device).transpose(1, 2)
+    return torch.empty(b, h, n, d, dtype=torch.bfloat16, device=q.device)
+
+
+@torch.library.custom_op("routeformer::window_attention", mutates_args=(), device_types="cpu")
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                     scale: torch.Tensor, cosine: bool, heads_inner: bool) -> torch.Tensor:
+    """K2 as a registered op: ``(B, H, N, d)`` q, k, v (bf16 or f32, any
+    (batch, head, token) strides) attended with bf16 operands and f32
+    scores, written bf16 as ``_window_out`` lays it out. The CPU runs the
+    plain version, the card the kernel."""
+    out = _window_out(q, heads_inner)
+    out.copy_(flash_window_attention_plain(q, k, v.to(torch.bfloat16), bias, scale, cosine))
+    return out
+
+
+@window_attention.register_kernel("cuda")
+def _window_attention_cuda(q, k, v, bias, scale, cosine, heads_inner):
+    _check_window(q, k, v, bias, scale)
+    b, h, n, d = q.shape
+    sb, sh, sn, _ = q.stride()
+    if (k.stride() != q.stride() or v.stride() != q.stride()
+            or not _rows16((q, k, v), (sb, sh, sn))):
+        # Fresh contiguous copies: rows of d in (16, 32, 64) from the
+        # allocator start on 16-byte boundaries.
+        q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
+        sb, sh, sn, _ = q.stride()
+    out = _window_out(q, heads_inner)
+    launch_window_attention(q, k, v, (sb, sh, sn), bias, scale, out, out.stride()[:3],
+                            b, h, n, d, cosine)
+    return out
+
+
+@window_attention.register_fake
+def _window_attention_fake(q, k, v, bias, scale, cosine, heads_inner):
+    return _window_out(q, heads_inner)
+
+
 class _WindowAttention(torch.autograd.Function):
-    """Forward: the kernel (CUDA) or the plain version (CPU). Backward:
+    """Forward: the kernel (CUDA, through the ``window_attention`` op) or
+    the plain version (CPU, in v's dtype). Backward:
     autograd over a recompute of the plain version in f32, cast to v's
     dtype, as the JAX package's custom VJP differentiates
     ``_reference_window_attention``."""
@@ -130,19 +182,12 @@ class _WindowAttention(torch.autograd.Function):
         ctx.save_for_backward(q, k, v, bias, scale)
         if q.device.type == "cpu":
             return flash_window_attention_plain(q, k, v, bias, scale, cosine)
-        _check_cuda(q, k, v, bias, scale)
-        b, h, n, d = q.shape
-        out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-        sb, sh, sn, _ = q.stride()
-        if (k.stride() != q.stride() or v.stride() != q.stride()
-                or not _rows16((q, k, v), (sb, sh, sn))):
-            # Fresh contiguous copies: bf16 rows of d in (16, 32, 64) from
-            # the allocator start on 16-byte boundaries.
-            q, k, v = (t.clone(memory_format=torch.contiguous_format) for t in (q, k, v))
-            sb, sh, sn, _ = q.stride()
-        launch_window_attention(q, k, v, (sb, sh, sn), bias, scale, out,
-                                out.stride()[:3], b, h, n, d, cosine)
-        return out
+        if v.dtype != torch.bfloat16 or q.dtype != v.dtype or k.dtype != v.dtype:
+            raise TypeError(
+                "the CUDA window kernel computes with bf16 operands and writes "
+                f"bf16: pass bf16 q/k/v (got {q.dtype}, {k.dtype}, {v.dtype})"
+            )
+        return window_attention(q, k, v, bias, scale, cosine, False)
 
     @staticmethod
     def backward(ctx, g):
@@ -211,23 +256,32 @@ def _dense_operand(t: torch.Tensor) -> torch.Tensor:
     return F.pad(t, (0, -t.shape[-1] % 8)).contiguous()
 
 
+def _dense_out(q: torch.Tensor, v: torch.Tensor, heads_inner: bool) -> torch.Tensor:
+    """K4's output ``(B, H, L_q, E_v)`` in q's dtype, whose memory is
+    ``(B, L_q, H, E_v')`` with ``heads_inner`` (else ``(B, H, L_q,
+    E_v')``): E_v' is E_v padded to a multiple of 8 in bf16 (as
+    ``_dense_operand`` pads v), cut back to E_v as a view."""
+    b, h, l_q, _ = q.shape
+    e_v = v.shape[-1]
+    e_vp = e_v + (-e_v % 8 if q.dtype == torch.bfloat16 else 0)
+    if heads_inner:
+        out = torch.empty(b, l_q, h, e_vp, dtype=q.dtype, device=q.device).transpose(1, 2)
+    else:
+        out = torch.empty(b, h, l_q, e_vp, dtype=q.dtype, device=q.device)
+    return out[..., :e_v]
+
+
 def launch_dense_attention(q, k, v, causal: bool, scale: float,
                            heads_inner: bool = False) -> torch.Tensor:
     """K4 on CUDA ``(B, H, L, E)`` tensors of any (batch, head, token)
-    strides, on the current stream: returns ``(B, H, L_q, E_v)``, whose
-    memory is ``(B, L_q, H, E_v)`` with ``heads_inner``. An operand is
-    copied only as ``_dense_operand`` says; an E_v padded there is cut off
-    the output as a view."""
+    strides, on the current stream: returns ``_dense_out``. An operand is
+    copied only as ``_dense_operand`` says."""
     global dense_launches
     _check_dense(q, k, v)
     b, h, l_q, _ = q.shape
-    l_k, e_v = v.shape[2:]
+    l_k = v.shape[2]
     qp, kp, vp = _dense_operand(q), _dense_operand(k), _dense_operand(v)
-    if heads_inner:
-        out = torch.empty(b, l_q, h, vp.shape[-1], dtype=q.dtype,
-                          device=q.device).transpose(1, 2)
-    else:
-        out = torch.empty(b, h, l_q, vp.shape[-1], dtype=q.dtype, device=q.device)
+    out = _dense_out(q, v, heads_inner)
     lib = cuda_build.libraries()["dense_attention"]
     err = lib.rf_dense_attention(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
@@ -238,15 +292,38 @@ def launch_dense_attention(q, k, v, causal: bool, scale: float,
     )
     cuda_build.check(err, "dense_attention")
     dense_launches += 1
-    return out[..., :e_v]
+    return out
+
+
+@torch.library.custom_op("routeformer::dense_attention", mutates_args=(), device_types="cpu")
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                    scale: float, heads_inner: bool) -> torch.Tensor:
+    """K4 as a registered op on ``(B, H, L, E)`` tensors of any strides
+    (``v`` ``(B, H, L_k, E_v)``): f32 scores and softmax, the output laid
+    out as ``_dense_out`` says. The CPU runs the plain version, the card
+    the kernel."""
+    out = _dense_out(q, v, heads_inner)
+    out.copy_(attention_bhle_plain(q, k, v, causal, scale))
+    return out
+
+
+@dense_attention.register_kernel("cuda")
+def _dense_attention_cuda(q, k, v, causal, scale, heads_inner):
+    return launch_dense_attention(q, k, v, causal, scale, heads_inner)
+
+
+@dense_attention.register_fake
+def _dense_attention_fake(q, k, v, causal, scale, heads_inner):
+    return _dense_out(q, v, heads_inner)
 
 
 class _DenseAttention(torch.autograd.Function):
-    """Forward: K4 (CUDA) or the plain version (CPU) on ``(BH, L, E)`` or
-    ``(B, H, L, E)`` tensors; with ``heads_inner`` the CUDA output lives in
-    ``(B, L_q, H, E_v)`` memory. Backward: autograd over a recompute of the
-    plain version in f32, cast to q's dtype, as the JAX package's custom VJP
-    differentiates ``_reference_attention_bhle``."""
+    """Forward: the ``dense_attention`` op (K4 on the card, the plain
+    version on the CPU) on ``(BH, L, E)`` or ``(B, H, L, E)`` tensors; with
+    ``heads_inner`` the output lives in ``(B, L_q, H, E_v)`` memory.
+    Backward: autograd over a recompute of the plain version in f32, cast
+    to q's dtype, as the JAX package's custom VJP differentiates
+    ``_reference_attention_bhle``."""
 
     @staticmethod
     def forward(ctx, causal, scale, heads_inner, q, k, v):
@@ -254,11 +331,9 @@ class _DenseAttention(torch.autograd.Function):
             raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
         ctx.causal, ctx.scale = causal, scale
         ctx.save_for_backward(q, k, v)
-        if q.device.type == "cpu":
-            return attention_bhle_plain(q, k, v, causal, scale)
         if q.ndim == 3:  # (BH, L, E): one batch row of BH heads
-            return launch_dense_attention(q[None], k[None], v[None], causal, scale)[0]
-        return launch_dense_attention(q, k, v, causal, scale, heads_inner)
+            return dense_attention(q[None], k[None], v[None], causal, scale, False)[0]
+        return dense_attention(q, k, v, causal, scale, heads_inner)
 
     @staticmethod
     def backward(ctx, g):

@@ -28,6 +28,9 @@ out-projection with dropout, LayerNorm, the FFN with the erf gelu, LayerNorm.
   largest call and reused: the calls run in order on the current stream),
   and ``gemm_core`` runs the layer's GEMM on its own. ``launches_fwd`` /
   ``launches_bwd`` count one per layer.
+- K3a is the registered op ``routeformer::perceive_stack`` (CUDA:
+  ``stack_forward_cuda``; CPU: the plain layers), so ``torch.export``
+  traces the serving forward through it.
 - ``fused_perceive_stack`` wires them under autograd: ``backward="kernel"``
   runs K3b layer by layer in reverse from the per-layer inputs (the only
   residual, which K3a writes into one (N, R, L, D) buffer); ``"hybrid"``
@@ -45,7 +48,7 @@ accumulation, but p.v and the mean-V context f32 x f32.
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -114,7 +117,10 @@ def sample_count_matrices(n_layers: int, l_q: int, l_k: int, u_part: int, *,
         if key not in _eval_cnt_cache:
             idx = torch.from_numpy(
                 prob_sparse_index_sample(l_q, u_part, l_k).astype(np.int64))
-            _eval_cnt_cache[key] = count_matrices(idx, l_k).to(device)
+            cnt = count_matrices(idx, l_k).to(device)
+            if torch.compiler.is_exporting():  # a graph value, never cached
+                return cnt.expand(n_layers, l_q, l_k)
+            _eval_cnt_cache[key] = cnt
         return _eval_cnt_cache[key].expand(n_layers, l_q, l_k)
     idx = torch.randint(0, l_k, (n_layers, l_q, u_part), generator=generator,
                         device=device)
@@ -588,6 +594,50 @@ def stack_forward_cuda(x, weights, kernel_w, cnt, masks, *, heads, u, dropout_ra
     return (y, xs) if keep_inputs else y
 
 
+@torch.library.custom_op("routeformer::perceive_stack", mutates_args=(), device_types="cpu")
+def perceive_stack(x: torch.Tensor, weights: List[torch.Tensor],
+                   kernel_w: List[torch.Tensor], cnt: torch.Tensor,
+                   masks: List[torch.Tensor], heads: int, u: int,
+                   dropout_rate: float, activation: str, compute_bf16: bool,
+                   keep_inputs: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3a as a registered op: the N-layer stack forward on contiguous f32
+    ``(R, L, D)`` rows with ``weights`` (``StackWeights`` order, f32),
+    ``kernel_w`` (``KernelWeights``; derived from ``weights`` when empty),
+    ``cnt`` (N, L, L) and ``masks`` empty or three int8 ``(N, R, L,
+    D|F|D)``. Returns ``(y, inputs)``: ``inputs`` is each layer's input
+    ``(N, R, L, D)`` with ``keep_inputs``, else empty. The CPU runs the
+    plain layers (``kernel_w`` unread), the card ``stack_forward_cuda``."""
+    w = StackWeights(*weights)
+    mm = torch.bfloat16 if compute_bf16 else torch.float32
+    inputs = []
+    for i in range(w.wq.shape[0]):
+        inputs.append(x)
+        x = layer_forward(x, _layer_weights(w, i), cnt[i], _layer_masks(masks or None, i),
+                          heads=heads, u=u, dropout_rate=dropout_rate,
+                          activation=activation, mm_dtype=mm)
+    return x, torch.stack(inputs) if keep_inputs else x.new_empty(0)
+
+
+@perceive_stack.register_kernel("cuda")
+def _perceive_stack_cuda(x, weights, kernel_w, cnt, masks, heads, u, dropout_rate,
+                         activation, compute_bf16, keep_inputs):
+    w = StackWeights(*weights)
+    kw = KernelWeights(*kernel_w) if kernel_w else kernel_weights(w)
+    out = stack_forward_cuda(x, w, kw, cnt, tuple(masks) or None,
+                             heads=heads, u=u, dropout_rate=dropout_rate,
+                             activation=activation, compute_bf16=compute_bf16,
+                             keep_inputs=keep_inputs)
+    return out if keep_inputs else (out, x.new_empty(0))
+
+
+@perceive_stack.register_fake
+def _perceive_stack_fake(x, weights, kernel_w, cnt, masks, heads, u, dropout_rate,
+                         activation, compute_bf16, keep_inputs):
+    n = weights[0].shape[0]
+    return (torch.empty_like(x, memory_format=torch.contiguous_format),
+            x.new_empty((n, *x.shape) if keep_inputs else (0,)))
+
+
 def _one_layer(wl, cnt_l, masks_l):
     """A layer's weights, counts and masks as a stack of one."""
     return (StackWeights(*(w[None] for w in wl)), cnt_l[None],
@@ -736,22 +786,12 @@ class _FusedStack(torch.autograd.Function):
         weights = StackWeights(*(w.detach().float().contiguous() for w in weights))
         x = x.detach().float().contiguous()
         keep = any(ctx.needs_input_grad)
-        if x.device.type == "cpu":
-            inputs = []
-            for i in range(weights.wq.shape[0]):
-                inputs.append(x)
-                x = layer_forward(x, _layer_weights(weights, i), cnt[i], _layer_masks(masks, i),
-                                  heads=heads, u=u, dropout_rate=p, activation=act,
-                                  mm_dtype=torch.bfloat16 if bf16 else torch.float32)
-        else:
+        if x.device.type != "cpu":
             if keep and backward == "kernel":
                 _check_bwd(x, heads)  # before any launch
             kernel_w = kernel_weights(weights) if kernel_w is None else kernel_w
-            x = stack_forward_cuda(x, weights, kernel_w, cnt, masks, heads=heads, u=u,
-                                   dropout_rate=p, activation=act, compute_bf16=bf16,
-                                   keep_inputs=keep)
-            if keep:
-                x, inputs = x
+        x, inputs = perceive_stack(x, list(weights), list(kernel_w or ()), cnt,
+                                   list(masks or ()), heads, u, p, act, bf16, keep)
         if keep:
             ctx.cfg, ctx.backward, ctx.cnt, ctx.masks = cfg, backward, cnt, masks
             ctx.inputs, ctx.weights, ctx.kernel_w = inputs, weights, kernel_w

@@ -24,8 +24,10 @@ def derived(kind, fn, *sources, differentiable=True):
     computed afresh while autograd records through a source, so its
     gradient still reaches the source; any other is computed without
     autograd (the kernel's bf16 weights: the block's backward recomputes
-    from the f32 parameters)."""
-    if any(s.is_inference() for s in sources) or (
+    from the f32 parameters). While ``torch.export`` traces, the value is
+    computed in the graph, from the sources the exported program is
+    given."""
+    if torch.compiler.is_exporting() or any(s.is_inference() for s in sources) or (
             differentiable and torch.is_grad_enabled()
             and any(s.requires_grad for s in sources)):
         return fn(*sources)

@@ -1,6 +1,7 @@
-"""One training step on one device (counterpart of
-``routeformer_tpu/parallel/train_step.py::make_train_step`` with
-``mesh=None``): forward, loss, backward, clip and AdamW."""
+"""One training step and one eval step on one device (counterparts of
+``routeformer_tpu/parallel/train_step.py::make_train_step`` and
+``make_eval_step`` with ``mesh=None``): forward, loss, backward, clip and
+AdamW; the eval-mode forward."""
 
 from typing import Callable
 
@@ -27,5 +28,22 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable):
         metrics["total_loss"] = loss.detach()
         metrics["grad_norm"] = optimizer.step().detach()
         return metrics
+
+    return step
+
+
+def make_eval_step(model: nn.Module, eval_fn: Callable, mesh=None) -> Callable:
+    """``step(*args) -> eval_fn(model, *args)`` with the model in eval mode,
+    under ``torch.inference_mode``. ``mesh=`` (several cards) is not
+    ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (data and tensor parallelism over several cards) is not "
+            "ported: ROADMAP.md §1 item 2")
+    model.eval()
+
+    def step(*args):
+        with torch.inference_mode():
+            return eval_fn(model, *args)
 
     return step

@@ -1,6 +1,6 @@
 """Displacement metrics and the Path Complexity Index of the port."""
 
-from routeformer_torch.score.error import ade, ade_per_sample, fde_per_sample
+from routeformer_torch.score.error import ade, ade_per_sample, fde, fde_per_sample
 from routeformer_torch.score.frechet import frechet_distance, frechet_distance_batch
 from routeformer_torch.score.pci import (
     estimate_pci,
@@ -10,4 +10,4 @@ from routeformer_torch.score.pci import (
 )
 
 __all__ = ["ade", "ade_per_sample", "estimate_pci", "estimate_pci_batch", "estimate_regular_trajectory",
-           "fde_per_sample", "frechet_distance", "frechet_distance_batch", "pci"]
+           "fde", "fde_per_sample", "frechet_distance", "frechet_distance_batch", "pci"]

@@ -9,8 +9,9 @@ numpy arrays or tensors. StableHLO export has no counterpart here.
 """
 
 import dataclasses
+import io
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +22,78 @@ from routeformer_torch.models.video_backbone import VIDEO_BACKBONES, TimmBackbon
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 BUNDLE_FILE = "model.pt"
+
+
+def _as_tensor(value, device) -> torch.Tensor:
+    if isinstance(value, np.ndarray):
+        value = torch.from_numpy(np.ascontiguousarray(value))
+    return value.to(device, non_blocking=True)
+
+
+class _Forward(torch.nn.Module):
+    """``(leaves, batch) -> prediction`` of an eval-mode model whose state
+    is given as leaves in ``names`` order. The model is held outside the
+    module tree, so the exported program carries no weights of its own."""
+
+    def __init__(self, model: torch.nn.Module, names: List[str]):
+        super().__init__()
+        self.names = names
+        self.model = [model]
+
+    def forward(self, leaves: List[torch.Tensor], batch: Dict[str, torch.Tensor]):
+        out = torch.func.functional_call(self.model[0], dict(zip(self.names, leaves)),
+                                         (batch,), strict=True)
+        return out[0] if isinstance(out, tuple) else out
+
+
+def _eval_forward(model: torch.nn.Module):
+    """The eval-mode model as a pure forward over its FLAT state leaves:
+    ``(forward, leaves)``, the leaves its parameters and then its buffers
+    (non-persistent ones too), in module order, as the JAX package's
+    ``_eval_forward`` flattens the nnx state."""
+    model.eval()
+    state = dict(model.named_parameters())
+    state.update(model.named_buffers())
+    return _Forward(model, list(state)), [t.detach() for t in state.values()]
+
+
+def export_model(model: torch.nn.Module, example_batch: dict, platforms=None) -> bytes:
+    """Export the eval-mode forward, traced at ``example_batch``'s shapes and
+    dtypes, to a serialized ``torch.export`` program.
+
+    The program is traced on the device the model lies on (its kernels are
+    the registered ops of that device); ``platforms``, the JAX signature's
+    list of targets, may only name that device's type.
+    """
+    forward, leaves = _eval_forward(model)
+    device = leaves[0].device
+    if platforms is not None and set(platforms) != {device.type}:
+        raise ValueError(f"the program is traced on {device.type}; platforms={platforms!r} "
+                         f"names another target")
+    batch = {k: _as_tensor(v, device) for k, v in example_batch.items()}
+    with torch.no_grad():
+        program = torch.export.export(forward, (leaves, batch))
+    program.example_inputs = None  # else the bytes would carry the weights
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    return buf.getvalue()
+
+
+class ExportedModel:
+    """A deserialized serving artifact with the weight leaves given at load
+    time (in ``_eval_forward``'s order); ``__call__(batch)`` returns the
+    prediction on the leaves' device. A batch whose shapes or dtypes differ
+    from the exported example's is refused."""
+
+    def __init__(self, data: bytes, leaves):
+        self._program = torch.export.load(io.BytesIO(data)).module()
+        self._leaves = list(leaves)
+        self.device = self._leaves[0].device
+
+    def __call__(self, batch: dict) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._program(self._leaves,
+                                 {k: _as_tensor(v, self.device) for k, v in batch.items()})
 
 
 def _from_dict(cls, d):
@@ -57,14 +130,9 @@ class ServingModel:
         self.model = model.eval()
         self.device = device
 
-    def _to_device(self, value):
-        if isinstance(value, np.ndarray):
-            value = torch.from_numpy(np.ascontiguousarray(value))
-        return value.to(self.device, non_blocking=True)
-
     def __call__(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
         with torch.inference_mode():
-            return self.model({k: self._to_device(v) for k, v in batch.items()})
+            return self.model({k: _as_tensor(v, self.device) for k, v in batch.items()})
 
 
 def load_serving_bundle(path, device: DeviceLike = None) -> ServingModel:

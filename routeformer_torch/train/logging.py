@@ -1,6 +1,6 @@
 """Metric streaming to JSON lines (counterpart of
 ``routeformer_tpu/train/logging.py``). The run's config is written beside
-the stream. Weights & Biases is not ported (``ROADMAP.md`` §1 item 3): the
+the stream. Weights & Biases is not ported (``ROADMAP.md`` §1: not queued): the
 card has no network, so ``use_wandb=True`` raises instead of logging
 elsewhere than asked."""
 
@@ -30,7 +30,7 @@ class MetricsLogger:
                  use_wandb: bool = False):
         if use_wandb:
             raise NotImplementedError(
-                "Weights & Biases logging is not ported (ROADMAP.md §1 item 3); "
+                "Weights & Biases logging is not ported (ROADMAP.md §1: not queued); "
                 "metrics go to the JSON-lines stream")
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)

@@ -101,7 +101,7 @@ class ParallelTrainer:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh= (data and tensor parallelism over several cards) is not "
-                "ported: ROADMAP.md §1 item 6")
+                "ported: ROADMAP.md §1 item 2")
         if feature_cache_active and unfreeze_epoch is not None:
             raise ValueError(
                 f"feature_cache_active with unfreeze_epoch={unfreeze_epoch}: cached "

@@ -15,6 +15,12 @@ def rotate(tensor: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bij,blj->bli", rot, t).to(tensor.dtype)
 
 
+def estimate_angle(tensor: torch.Tensor) -> torch.Tensor:
+    """Angle (radians) of ``(*, 2)`` vectors, ``(*, 1)`` f32."""
+    t = tensor.float()
+    return torch.atan2(t[..., 1], t[..., 0])[..., None]
+
+
 def estimate_angle_and_norm(tensor: torch.Tensor):
     """Angle (radians) and L2 norm of ``(*, 2)`` vectors, each ``(*, 1)`` f32."""
     t = tensor.float()

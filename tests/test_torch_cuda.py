@@ -603,3 +603,121 @@ def test_perceive_stack_refuses_too_many_tokens(cuda_device):
         fusion_stack.fused_perceive_stack(
             x.to(cuda_device).requires_grad_(True), wd, cnt.to(cuda_device), None, heads=8)
     assert (fusion_stack.launches_fwd, fusion_stack.launches_bwd) == before
+
+
+# ---------------------------------------------------- registered ops --- #
+
+
+def _op_cases(gen, dev):
+    """Each registered op's CUDA inputs at a shape its path gives it: K1's
+    qkv GEMM, K2 on f32 strided views of its output written in (B, n, H, d)
+    memory and on bf16 tensors, K1's tail, K3a (eval and train masks), K4
+    on the ViT's (B, L, H, E) views."""
+    c, n, h, b = 128, 256, 4, 8
+    x = _randn(gen, b * n, c).to(dev, torch.bfloat16)
+    w = _randn(gen, 3 * c, c, s=c ** -0.5).to(dev, torch.bfloat16)
+    qkv = _randn(gen, b, n, 3, h, c // h).to(dev)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4).unbind(0)
+    bias, scale = _randn(gen, 4, h, n, n).to(dev), _randn(gen, h).abs().to(dev) + 1
+    tail = [_randn(gen, *s, s=0.1).to(dev, dt) + base for s, dt, base in (
+        ((c, c), torch.bfloat16, 0), ((c,), torch.float32, 0), ((c,), torch.float32, 1),
+        ((c,), torch.float32, 0), ((4 * c, c), torch.bfloat16, 0), ((4 * c,), torch.float32, 0),
+        ((c, 4 * c), torch.bfloat16, 0), ((c,), torch.float32, 0), ((c,), torch.float32, 1),
+        ((c,), torch.float32, 0))]
+    xs, ws, masks, cnt = _stack_inputs(gen, 6, 65)
+    ws, masks, cnt = [t.to(dev) for t in ws], [m.to(dev) for m in masks], cnt.to(dev)
+    qkv_vit = _randn(gen, 2, 600, 3, 12, 64).to(dev, torch.bfloat16)
+    qv, kv, vv = (qkv_vit[:, :, i].transpose(1, 2) for i in range(3))
+    return [
+        (swin_block_fusion.gemm_bias_act_op, (x, w, _randn(gen, 3 * c).to(dev), 0,
+                                              torch.float32)),
+        (swin_block_fusion.gemm_bias_act_op, (x, w, _randn(gen, 3 * c).to(dev), 1,
+                                              torch.bfloat16)),
+        (flash_attention.window_attention, (q, k, v, bias, scale, True, True)),
+        (flash_attention.window_attention, (q.bfloat16(), k.bfloat16(), v.bfloat16(), bias,
+                                            scale, True, False)),
+        (swin_block_fusion.swin_block_tail, (_randn(gen, b * n, c).to(dev),
+                                             _randn(gen, b * n, c).to(dev, torch.bfloat16),
+                                             *tail)),
+        (fusion_stack.perceive_stack, (xs.to(dev), ws, [], cnt, [], 8, 65, 0.0, "gelu", True,
+                                       False)),
+        (fusion_stack.perceive_stack, (xs.to(dev), ws, [], cnt, masks, 8, 65, 0.05, "gelu",
+                                       False, True)),
+        (flash_attention.dense_attention, (qv, kv, vv, False, 0.125, True)),
+    ]
+
+
+@pytest.mark.cuda
+def test_registered_ops_match_plain_on_the_card(cuda_device):
+    """Each op's CUDA implementation (the kernel) against its CPU
+    implementation (the plain version) on the same inputs, with the
+    layout its fake implementation gives, and ``opcheck`` on the card;
+    K3a exhaustive (u = L: no selection near a tie). Within 5e-2 of the
+    max: K3a in bf16 over two layers (phase 6 holds it at 2e-2), the rest
+    a few bf16 ulps."""
+    gen = torch.Generator().manual_seed(0)
+    for fn, args in _op_cases(gen, cuda_device):
+        torch.library.opcheck(fn, args)
+        got = fn(*args)
+        want = fn(*[[t.cpu() for t in a] if isinstance(a, list)
+                    else a.cpu() if isinstance(a, torch.Tensor) else a for a in args])
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype and g.stride() == w.stride()
+            if w.numel():
+                assert _max_err(g.cpu(), w) <= 5e-2, fn
+
+
+@pytest.mark.cuda
+def test_exported_forward_matches_live_on_the_card(cuda_device, monkeypatch):
+    """A tanh-gelu SwinV2 Routeformer at test widths (16-wide heads, which
+    K2 takes) with the fused stack on the card: exported and reloaded, it
+    launches K1, K2 and K3a as the live forward does and gives the same
+    bits (else within 1e-3 of the max)."""
+    from routeformer_torch import ExportedModel, export_model
+    from routeformer_torch.flagship import init_weights
+    from routeformer_torch.models import Routeformer, RouteformerConfig
+    from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+    from routeformer_torch.models.video_backbone import TimmBackboneConfig, swin
+    from routeformer_torch.serve import _eval_forward
+
+    monkeypatch.setenv("ROUTEFORMER_FUSION_KERNEL", "1")
+    monkeypatch.setitem(swin.SWIN_PRESETS, "swinv2_card_test", swin.SwinPreset(
+        img_size=64, patch_size=4, embed_dim=32, depths=(2, 2), heads=(2, 4), window=4))
+    cfg = RouteformerConfig(
+        gps_backbone_config=GPSBackboneConfig(seq_len=8, label_len=8, pred_len=6, d_model=32,
+                                              n_heads=4, e_layers=2, d_layers=1, d_ff=64,
+                                              factor=4, dropout=0.0),
+        video_backbone_config=TimmBackboneConfig(model_type="swinv2_card_test",
+                                                 compute_dtype="bfloat16", gelu="tanh",
+                                                 pad_to_square=False),
+        decoder_mode="smart", with_video=True, with_gaze=True, dense_prediction=True,
+        image_embedding_size=16, encoder_hidden_size=16, encoder_heads=8, encoder_layers=2,
+        encoder_d_ff=256, cross_modal_decoder_heads=4, cross_modal_decoder_layers=2,
+        feature_dropout=0.0, view_dropout=0.0, gaze_dropout=0.0, output_fps=5, video_fps=1,
+        gaze_fps=1)
+    model = Routeformer(cfg)
+    init_weights(model, 0)
+    model = model.to(cuda_device).eval()
+    rng = np.random.RandomState(0)
+    batch = {"gps": np.cumsum(rng.randn(1, 8, 2), axis=1).astype(np.float32),
+             **{k: rng.uniform(size=(1, 8, 64, 64, 3)).astype(np.float32)
+                for k in ("left_video", "right_video", "front_video")},
+             "gaze": rng.uniform(size=(1, 40, 2)).astype(np.float32)}
+
+    def counts():
+        return (swin_block_fusion.launches, flash_attention.launches,
+                fusion_stack.launches_fwd)
+
+    before = counts()
+    with torch.inference_mode():
+        want = model({k: torch.from_numpy(v).to(cuda_device) for k, v in batch.items()})[0]
+    torch.cuda.synchronize()
+    live = tuple(a - b for a, b in zip(counts(), before))
+    served = ExportedModel(export_model(model, batch), _eval_forward(model)[1])
+    before = counts()
+    got = served(batch)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == live and min(live) > 0
+    assert torch.equal(got, want) or _max_err(got, want) <= 1e-3

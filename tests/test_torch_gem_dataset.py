@@ -129,8 +129,9 @@ def test_raw_recording_and_refusals(tmp_path):
     """The port's raw recording reads through the port's own video
     reader; ``stitch_videos`` adds a double-width float16 stream, warped
     on the device named (no device on a host without a card: the CUDA
-    error); ``with_audio`` raises naming its module before any work."""
-    build_raw_fixture(tmp_path, duration_s=16.0, subject="002", turn=1.0)
+    error); ``with_audio``, refused before ``io/audio.py`` was ported, adds
+    the three (T, 1) float32 audio streams of the recording's PCM tracks."""
+    build_raw_fixture(tmp_path, duration_s=16.0, subject="002", turn=1.0, with_audio=True)
     ds = GEMDataset(root=tmp_path, split="val", min_pci=None, gopro_scaling_factor=0.5,
                     front_scaling_factor=0.5)
     item = ds[0]
@@ -145,8 +146,11 @@ def test_raw_recording_and_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             GEMDataset(root=tmp_path, split="val", stitch_videos=True)
-    with pytest.raises(NotImplementedError, match="io/audio.py"):
-        GEMDataset(root=tmp_path / "missing", with_audio=True)
+    audio = GEMDataset(root=tmp_path, split="val", min_pci=None, with_video=False,
+                       with_audio=True)
+    for key in ("left_audio", "right_audio", "front_audio"):
+        assert audio[0]["train"][key].shape == (audio.input_audio_frame_count, 1)
+        assert audio[0]["train"][key].dtype == np.float32
 
 
 def test_concurrent_reads_match_sequential(tmp_path):

@@ -83,6 +83,28 @@ def test_transformer_matches_jax(rng):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def test_transformer_output_attention_matches_jax(rng):
+    """``output_attention``: the vanilla Transformer returns its encoder
+    layers' dense attention maps ``(B, H, L, L)``, the softmax weights
+    before dropout, as JAX's. f32 at 1e-4."""
+    jcfg, cfg = JaxGPSConfig(**_gps()), GPSBackboneConfig(**_gps())
+    jcfg.output_attention = cfg.output_attention = True
+    jax_model = JaxTransformer(jcfg, rngs=nnx.Rngs(0, dropout=1))
+    port = Transformer(cfg)
+    load_flax_params(port, export_params(jax_model, rng))
+    jax_model.eval()
+    port.eval()
+    x = _x(4)
+    want, want_attn = jax_model(jnp.asarray(x))
+    with torch.no_grad():
+        got, attn = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert len(attn) == len(want_attn) == 2
+    for a, w in zip(attn, want_attn):
+        assert tuple(a.shape) == w.shape == (B, 4, SEQ_LEN, SEQ_LEN)
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+
+
 @pytest.mark.parametrize("individual", [False, True], ids=["shared", "individual"])
 @pytest.mark.parametrize("name", ["dlinear", "nlinear"])
 def test_linear_backbones_match_jax(rng, name, individual):

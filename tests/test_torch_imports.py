@@ -134,6 +134,74 @@ def test_dreyeve_data_path_needs_no_host_package():
     assert out.stdout.split()[-2:] == ["batch", "placed"]
 
 
+# torch.export asks importlib whether pandas and others exist: the host
+# packages are made absent (None in sys.modules), not refused.
+_AUDIO_BLOCKER = _BLOCKER + r"""
+HOST = ("cv2", "msgpack", "zstandard", "pandas", "av")
+for name in list(sys.modules):
+    if name.split(".")[0] in HOST:
+        del sys.modules[name]
+sys.modules.update({name: None for name in HOST})
+opened = []
+
+
+def audit(event, args):
+    if event == "open":
+        opened.append(str(args[0]))
+    elif event == "ctypes.dlopen":
+        opened.append(str(args[0]))
+    elif event == "subprocess.Popen":
+        opened.extend(str(a) for a in args[1])
+
+
+sys.addaudithook(audit)
+import tempfile
+from pathlib import Path
+import numpy as np
+from routeformer_torch import ExportedModel, export_model
+from routeformer_torch.io import gpmf
+from routeformer_torch.io.dataset import GEMDataset
+from routeformer_torch.io.gem_fixture import build_gem_fixture, gpmf_stream, make_trajectory
+from routeformer_torch.io.mp4 import read_gpmf_data
+from routeformer_torch.models import Routeformer, RouteformerConfig
+from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+from routeformer_torch.serve import _eval_forward
+root = Path(tempfile.mkdtemp())
+build_gem_fixture(root, duration_s=16.0, subject="002", turn=1.0, with_audio=True)
+ds = GEMDataset(root=root, split="val", min_pci=None, with_video=False, with_audio=True)
+item = ds[0]["train"]
+assert item["front_audio"].shape == (ds.input_audio_frame_count, 1), item["front_audio"].shape
+data = read_gpmf_data(root / "01GoPro/002/left/GH010008.MP4")
+assert gpmf.build_gps_points(data) == gpmf.build_gps_points(data, prefer_native=False)
+model = Routeformer(RouteformerConfig(gps_backbone_config=GPSBackboneConfig(
+    seq_len=8, label_len=8, pred_len=4, d_model=16, n_heads=2, e_layers=1, d_layers=1,
+    d_ff=16, factor=4)))
+batch = {"gps": np.zeros((1, 8, 2), np.float32)}
+assert ExportedModel(export_model(model, batch), _eval_forward(model)[1])(batch).shape == (1, 4, 2)
+native_dir = str(Path("native").resolve())
+touched = sorted({p for p in opened if p.startswith(native_dir) or "/native/" in p})
+assert not touched, touched
+assert any("csrc/gpmf.cpp" in p or "librfgpmf_" in p for p in opened), opened[-20:]
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED
+                or (n.split(".")[0] in HOST and sys.modules[n] is not None))
+assert not leaked, leaked
+print("audio read")
+"""
+
+
+def test_audio_gpmf_and_export_need_no_host_package():
+    """With jax, cv2, msgpack, zstandard, pandas and PyAV blocked:
+    ``io/audio.py`` reads a recording's PCM tracks through the dataset,
+    ``io/gpmf_native.py`` walks its GPMF (the same points as the Python
+    walker), ``serve.py`` exports and serves a model; no path under
+    ``native/`` is opened, loaded or compiled (the host libraries come
+    from ``routeformer_torch/csrc/``)."""
+    out = subprocess.run([sys.executable, "-c", _AUDIO_BLOCKER], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["audio", "read"]
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"

@@ -144,7 +144,7 @@ def test_refusals_and_the_trainers_placement():
     """``mesh=`` and producers > 1 with the frame store raise; the
     trainer uses tensors already on its device as they are (no copy) and
     copies numpy leaves, float64 as float32."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
         DataLoader(WindowSet(), mesh=object())
     with pytest.raises(ValueError, match="producers > 1"):
         DataLoader(WindowSet(), to_device=True, h2d_dedup=True, producers=2, device="cpu")

@@ -14,8 +14,10 @@ from routeformer_tpu.models.gps_backbone import GPSBackboneConfig as JaxGPSConfi
 from routeformer_tpu.models.gps_backbone import Informer as JaxInformer
 from routeformer_tpu.models.video_backbone import SwinV2Backbone as JaxSwin
 from routeformer_tpu.models.video_backbone import TimmBackboneConfig as JaxTimmConfig
+from routeformer_tpu.models.layers import embed as jax_embed
 from routeformer_torch.convert import load_flax_params
 from routeformer_torch.models.gps_backbone import GPSBackboneConfig, Informer
+from routeformer_torch.models.layers import embed
 from routeformer_torch.models.video_backbone import SwinV2Backbone, TimmBackboneConfig
 
 
@@ -138,3 +140,70 @@ def test_load_flax_params_rejects_unmatched(rng):
     missing = {k: v for k, v in flat.items() if "norm" not in k}
     with pytest.raises(KeyError, match="port-only"):
         load_flax_params(port, missing)
+
+
+def test_informer_output_attention_matches_jax(rng):
+    """``output_attention``: the prediction and, as in JAX, one attention
+    entry per encoder layer, None where the layer is ProbSparse (every
+    Informer encoder layer). f32 at 2e-4."""
+    kw = dict(seq_len=20, label_len=20, pred_len=10, d_model=32, n_heads=4, e_layers=2,
+              d_layers=1, d_ff=64, factor=1, dropout=0.0, activation="relu", distil=True,
+              _enc_in=69, _c_out=66)
+    jcfg, cfg = JaxGPSConfig(**kw), GPSBackboneConfig(**kw)
+    jcfg.output_attention = cfg.output_attention = True
+    jax_model = JaxInformer(jcfg, rngs=nnx.Rngs(0))
+    jax_model.eval()
+    port = Informer(cfg).eval()
+    load_flax_params(port, export_params(jax_model, rng))
+    x = rng.normal(size=(2, 20, 69)).astype(np.float32)
+    want, want_attn = jax_model(jnp.asarray(x))
+    with torch.no_grad():
+        got, attn = port(torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=1e-3)
+    assert attn == list(want_attn) == [None, None]
+
+
+def _marks(rng, b, l, freq):
+    """Integer calendar marks (month, day, weekday, hour[, minute]) as
+    floats, as the reference's data loaders give them."""
+    sizes = [13, 32, 7, 24] + ([4] if freq == "t" else [])
+    return np.stack([rng.integers(0, s, (b, l)) for s in sizes], -1).astype(np.float32)
+
+
+EMBEDDINGS = [(name, embed_type, freq) for name in ("DataEmbedding", "DataEmbedding_wo_pos")
+              for embed_type in ("fixed", "learned") for freq in ("h", "t")]
+EMBEDDINGS.append(("DataEmbedding_onlypos", None, "h"))
+
+
+@pytest.mark.parametrize("name,embed_type,freq", EMBEDDINGS)
+def test_embeddings_match_jax(rng, name, embed_type, freq):
+    """The ``fixed`` (sinusoidal tables, a non-persistent buffer, so
+    ``load_flax_params`` carries exactly the JAX parameters) and ``learned``
+    (trained ``embedding`` tables) calendar embeddings, with and without the
+    minute, inside the three data embeddings. f32 at 1e-5."""
+    c_in, d_model, b, l = 5, 16, 2, 12
+    if name == "DataEmbedding_onlypos":  # no temporal embedding
+        jax_mod = jax_embed.DataEmbedding_onlypos(c_in, d_model, 0.0, rngs=nnx.Rngs(0))
+        port = embed.DataEmbedding_onlypos(c_in, d_model, 0.0)
+    else:
+        jax_mod = getattr(jax_embed, name)(c_in, d_model, embed_type, freq, 0.0,
+                                           rngs=nnx.Rngs(0))
+        port = getattr(embed, name)(c_in, d_model, embed_type, freq, 0.0)
+    flat = export_params(jax_mod, rng)
+    assert load_flax_params(port, flat) == len(port.state_dict()) == len(flat)
+    port.eval()
+    x = rng.normal(size=(b, l, c_in)).astype(np.float32)
+    marks = _marks(rng, b, l, freq)
+    want = np.asarray(jax_mod(jnp.asarray(x), jnp.asarray(marks)))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(marks)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_fixed_embedding_table_matches_jax():
+    """The sinusoidal table: f32 sin and cos of XLA and of torch, a few
+    ulps apart (6e-8 measured), so 1e-6; an unknown ``embed`` refused."""
+    np.testing.assert_allclose(embed.FixedEmbedding(24, 16).weight.numpy(),
+                               np.asarray(jax_embed.FixedEmbedding(24, 16).weight), atol=1e-6)
+    with pytest.raises(ValueError, match="embed must be"):
+        embed.DataEmbedding(5, 16, "monthly")

@@ -18,6 +18,7 @@ from routeformer_tpu.ops.attention import dot_product_attention as jax_dense
 from routeformer_tpu.ops.attention import prob_sparse_attention as jax_prob
 from routeformer_tpu.ops.image import to_float16 as jax_to_float16
 from routeformer_tpu.utils.filter import median_downsampler as jax_median
+from routeformer_tpu.utils.vector import estimate_angle as jax_estimate_angle
 from routeformer_tpu.utils.vector import estimate_angle_and_norm as jax_angle_norm
 from routeformer_tpu.utils.vector import rotate as jax_rotate
 from routeformer_torch.io.synthetic import SyntheticDataset, synthetic_batch_numpy
@@ -30,7 +31,7 @@ from routeformer_torch.ops.attention import (
 from routeformer_torch.ops.image import dequantize_videos, to_float16
 from routeformer_torch.utils import prng
 from routeformer_torch.utils.filter import median_downsampler
-from routeformer_torch.utils.vector import estimate_angle_and_norm, rotate
+from routeformer_torch.utils.vector import estimate_angle, estimate_angle_and_norm, rotate
 
 
 def _sample_shapes():
@@ -78,6 +79,17 @@ def test_vector_and_filter(rng):
         np.testing.assert_array_equal(
             median_downsampler(torch.from_numpy(g), target).numpy(),
             np.asarray(jax_median(jnp.asarray(g), target)))
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 17, 2), np.float32), ((5, 2), np.float64),
+                                         ((2,), np.float32)])
+def test_estimate_angle_matches_jax(rng, shape, dtype):
+    """``(*, 2)`` in, ``(*, 1)`` f32 out; f32 atan2 at 1e-6."""
+    x = rng.normal(size=shape).astype(dtype)
+    got = estimate_angle(torch.from_numpy(x))
+    want = np.asarray(jax_estimate_angle(jnp.asarray(x)))
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape[:-1] + (1,) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
 def test_dequantize_bit_exact_all_uint8():

@@ -17,6 +17,7 @@ from flax import nnx
 from routeformer_tpu.models import RouteformerConfig as JaxConfig
 from routeformer_tpu.models.gps_backbone import GPSBackboneConfig as JaxGPSConfig
 from routeformer_tpu.models.gps_backbone import Informer as JaxInformer
+from routeformer_tpu.models.gps_backbone import Transformer as JaxTransformer
 from routeformer_tpu.models.layers.attention import ProbAttention as JaxProbAttention
 from routeformer_tpu.models.routeformer import Routeformer as JaxRouteformer
 from routeformer_tpu.models.video_backbone import SwinV2Backbone as JaxSwin
@@ -25,7 +26,7 @@ from routeformer_torch import load_serving_bundle, save_serving_bundle
 from routeformer_torch.convert import load_flax_params
 from routeformer_torch.flagship import init_weights
 from routeformer_torch.models import Routeformer, RouteformerConfig
-from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+from routeformer_torch.models.gps_backbone import GPSBackboneConfig, Transformer
 from routeformer_torch.models.layers import ProbAttention
 from routeformer_torch.models.video_backbone import TimmBackboneConfig
 from test_torch_models import export_params
@@ -117,3 +118,37 @@ def test_serving_bundle_round_trip(tmp_path):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     got_t = serving({k: torch.from_numpy(v) for k, v in batch.items()})  # tensors in
     torch.testing.assert_close(got_t[0], want[0], rtol=0, atol=0)
+
+
+def test_output_attention_matches_jax(rng):
+    """``RouteformerConfig.output_attention`` reaches the GPS backbone:
+    ``_forward`` returns the backbone's output and its encoder attention
+    maps (the vanilla Transformer's, ``(B, H, L, L)``) as JAX's
+    ``_forward`` does; the forward itself returns the prediction alone, as
+    in JAX. f32 at 1e-4."""
+    gps, _, _ = _kwargs(4)
+    gps = dict(gps, seq_len=12, label_len=12)
+    top = dict(discount_factor={0: 0.97}, epsilon=1.0, output_attention=True)
+    jax_model = JaxRouteformer(JaxConfig(gps_backbone_config=JaxGPSConfig(**gps), **top),
+                               gps_backbone=JaxTransformer, rngs=nnx.Rngs(0, dropout=1))
+    port = Routeformer(RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps), **top),
+                       gps_backbone=Transformer)
+    assert port.gps_backbone.output_attention
+    load_flax_params(port, export_params(jax_model, rng))
+    jax_model.eval()
+    port.eval()
+    batch = {"gps": np.cumsum(rng.normal(size=(B, 12, 2)), axis=1).astype(np.float32)}
+    j_dyn, j_vis = jax_model.preprocess_batch({"gps": jnp.asarray(batch["gps"])})
+    j_out, j_attn = jax_model._forward(j_dyn, j_vis)
+    with torch.no_grad():
+        dyn, vis = port.preprocess_batch({"gps": torch.from_numpy(batch["gps"])})
+        out, attn = port._forward(dyn, vis)
+        pred = port({"gps": torch.from_numpy(batch["gps"])})
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=1e-4, rtol=1e-4)
+    assert len(attn) == len(j_attn) == gps["e_layers"]
+    for a, w in zip(attn, j_attn):
+        assert tuple(a.shape) == w.shape == (B, gps["n_heads"], 12, 12)
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-4, rtol=1e-4)
+    want = np.asarray(jax_model({"gps": jnp.asarray(batch["gps"])}))
+    assert isinstance(pred, torch.Tensor)
+    np.testing.assert_allclose(pred.numpy(), want, atol=1e-4, rtol=1e-4)

@@ -132,6 +132,22 @@ def test_stitch_sequence_reuses_and_degrades_as_jax(monkeypatch):
     assert methods == ["orb", "reuse-cached", "reuse-cached", "orb"]
 
 
+@pytest.mark.parametrize("shape", [(1, 1, 3), (0, 4, 3), (4, 0, 3)])
+def test_stitch_pair_degrades_on_frames_cv2_refuses(shape):
+    """Frames cv2 raises ``cv2.error`` on (ORB on a 1 x 1 frame, ``cvtColor``
+    on an empty one): ``stitch_pair`` keeps its contract and places the pair
+    side by side, as for a ``ValueError`` (the JAX stitcher raises here)."""
+    left = np.full(shape, 7, np.uint8)
+    right = np.full(shape, 9, np.uint8)
+    mine = ImageStitcher(device="cpu")
+    got = mine.stitch_pair(left, right)
+    assert mine.last_method == "side-by-side" and mine._degraded
+    want = np.eye(3)
+    want[0, 2] = shape[1]
+    np.testing.assert_array_equal(mine._cached_h, want)
+    assert got.shape == (shape[0], 2 * shape[1], 3) and got.dtype == np.float32
+
+
 def test_stitcher_needs_cv2_and_a_device(monkeypatch):
     """No cv2: ``ImportError`` naming it. No device named on a host without
     a card: the CUDA error, not a quiet CPU warp."""

@@ -28,7 +28,9 @@ from routeformer_tpu.models.video_backbone import TimmBackboneConfig as JaxTimmC
 from routeformer_tpu.optimizers import build_optimizer as jax_build_optimizer
 from routeformer_tpu.optimizers import linear_warmup_cosine_annealing as jax_schedule
 from routeformer_tpu.parallel import make_train_step as jax_make_train_step
+from routeformer_tpu.parallel.train_step import make_eval_step as jax_make_eval_step
 from routeformer_tpu.score.error import ade as jax_ade
+from routeformer_tpu.score.error import fde as jax_fde_one
 from routeformer_tpu.score.error import fde_per_sample as jax_fde
 from routeformer_tpu.train import TrainingLosses as JaxTrainingLosses
 from routeformer_tpu.train import routeformer_training_loss as jax_training_loss
@@ -39,8 +41,8 @@ from routeformer_torch.models.gps_backbone import GPSBackboneConfig
 from routeformer_torch.models.layers import ProbAttention
 from routeformer_torch.models.video_backbone import TimmBackboneConfig
 from routeformer_torch.optimizers import build_optimizer, linear_warmup_cosine_annealing
-from routeformer_torch.parallel import make_train_step
-from routeformer_torch.score import ade, fde_per_sample
+from routeformer_torch.parallel import make_eval_step, make_train_step
+from routeformer_torch.score import ade, fde, fde_per_sample
 from routeformer_torch.train import TrainingLosses, routeformer_training_loss
 from test_torch_models import export_params
 from test_torch_routeformer import EXHAUSTIVE, PRED_LEN, _inputs, _kwargs
@@ -88,6 +90,47 @@ def test_ade_fde_match_jax(rng):
     np.testing.assert_allclose(fde_per_sample(torch.from_numpy(pred), torch.from_numpy(true)),
                                np.asarray(jax_fde(jnp.asarray(pred), jnp.asarray(true))),
                                rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(6, 2), (4, 6, 2)], ids=["one", "batched"])
+def test_fde_keeps_the_per_sample_contract(rng, shape):
+    """``fde`` indexes ``[-1]`` on dim 0 as the reference does: the final
+    point of one ``(T, 2)`` trajectory, and on a batch the distance of the
+    last sample's trajectories (the quirk the JAX package keeps). 1e-6."""
+    pred = rng.normal(size=shape).astype(np.float32)
+    true = rng.normal(size=shape).astype(np.float32)
+    got = fde(torch.from_numpy(pred), torch.from_numpy(true))
+    assert got.ndim == 0
+    assert got.item() == pytest.approx(float(jax_fde_one(jnp.asarray(pred), jnp.asarray(true))),
+                                       rel=1e-6)
+
+
+def test_eval_step_matches_jax(rng):
+    """``make_eval_step``: an eval-mode forward under ``inference_mode``
+    (the model put in eval mode, ProbSparse on the eval key sample) against
+    JAX ``make_eval_step`` at the same weights, f32 at 1e-5; ``mesh=``
+    refused."""
+    gps, _, _ = _kwargs(4)
+    top = dict(discount_factor={0: 0.97}, epsilon=1.0)
+    jax_model = JaxRouteformer(JaxConfig(gps_backbone_config=JaxGPSConfig(**gps), **top),
+                               gps_backbone=JaxInformer, rngs=nnx.Rngs(0, dropout=1))
+    port = Routeformer(RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps), **top))
+    load_flax_params(port, export_params(jax_model, rng))
+    port.train()
+
+    def eval_fn(m, batch):
+        return m(batch)
+
+    jax_step, params, state = jax_make_eval_step(jax_model, eval_fn)
+    step = make_eval_step(port, eval_fn)
+    assert not port.training
+    gps_in = _inputs(3)["gps"]
+    got = step({"gps": torch.from_numpy(gps_in)})
+    want = np.asarray(jax_step(params, state, {"gps": jnp.asarray(gps_in)}))
+    assert got.is_inference() and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
+        make_eval_step(port, eval_fn, mesh=object())
 
 
 # ----------------------------------------------------------- schedule --- #
