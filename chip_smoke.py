@@ -107,6 +107,21 @@ Phases (any failure exits non-zero):
    1e-2 (dropout off, exhaustive); the steady step, the memo's encode and
    gather timed. Each timing line stands beside the card's name and power
    limit.
+7f. The mesh (``parallel/mesh.py``) over NCCL at world size 1 (the card's
+   machine has one H100: world sizes above 1 are held on the CPU over gloo,
+   ``tests/test_torch_mesh_train.py``): the driver's flagship at phase 7b's
+   settings and batches (``build_models``/``build_data``/``build_trainer``
+   with ``mesh=``), as a ``(1, 1)`` mesh and with ``FSDP=1``, two steps
+   each with the same generator seeds as a trainer without a mesh: loss and
+   parameters the same bits, else the first step's loss within phase 7's
+   limit and the nondeterministic op named (both pairs of steps again the
+   same bits with it held deterministic); launches per step counted from 0
+   just before and read just after (0 K1, 48 K2, 48 K3a, 16-24 K3b); the MC
+   eval of a val batch, before the steps, the same bits; a snapshot, the
+   next step, and a fresh trainer on the mesh restoring it and taking that
+   step, cuDNN's convolution backward held deterministic: the same bits.
+   Each variant's step time and peak memory beside the card's name and
+   power limit.
 7c. The driver's whole model zoo (``MODEL_SET=full``, the JAX driver's 13
    models, ``ROUTEFORMER_FUSION_KERNEL=1``, batch 16, GEM geometry, full
    width) through ``build_models``/``build_data``/``build_trainer``/
@@ -124,7 +139,8 @@ Phases (any failure exits non-zero):
    one phase 6 checked (``StackShapes``); each model whose class or config
    path the zoo added against its CPU plain forward at batch 1
    (``FULL_NEW_MODELS``, exhaustive, the clip moved to its last fix,
-   5e-2); and ``USE_PATCHTST_BACKBONE=1``: one step of the flagship over
+   5e-2; AdaptedGIMO and the MultiModalTransformer with SwinV2's stage 2
+   cut to 1 of its 9 block pairs on both sides, ``SWIN_STAGE2_PAIRS``); and ``USE_PATCHTST_BACKBONE=1``: one step of the flagship over
    PatchTST (finite, BatchNorm statistics moved) and its card forward
    against the CPU (``CardVsCpu`` with witnesses: its GPS backbone's input
    and PatchTST on the card's input within 5e-2, end to end within
@@ -191,6 +207,7 @@ Phases (any failure exits non-zero):
    step and per eval forward (one MC sample of every model),
    ``gem_data_path_launches`` those of phase 7d's cold epoch,
    ``dreyeve_data_path_launches`` those of phase 7e's,
+   ``mesh_launches_per_step`` those of phase 7f's mesh steps,
    ``export_launches_per_forward`` those of phase 5d's exported forward
    (the flagship's for K1-K3b, DinoV2's for K4). ``ms_timing``
    says how each ``ms`` was taken: ``eager`` (back-to-back
@@ -215,6 +232,7 @@ Phases (any failure exits non-zero):
 Imports nothing of JAX. Timings are back-to-back launches (warm L2).
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -2317,6 +2335,183 @@ def training_run(results: dict, smi: str, dev=None) -> dict:
     return {"cold_epochs": cold, "steady_epoch": steady}
 
 
+# --------------------------------------------------------------- phase 7f #
+
+# The mesh at world size 1 over NCCL: phase 7b's settings and batches; the
+# generator seeds of the two compared steps (the third, after the MC eval
+# and the snapshot, takes the next seed).
+MESH_SEEDS = (41, 42)
+MESH_VARIANTS = ("mesh", "mesh_fsdp")
+
+
+def mesh_trainer(s, dev, mesh, fsdp: bool):
+    """The driver's flagship trainer past the warmup (epoch and update count
+    at ``TRAIN_EPOCH``: the dense loss on), its backbone frozen as in phase
+    7b's cold steps, without a mesh or on ``mesh``."""
+    from routeformer_torch.experiments import full_comparison as fc
+
+    s = dataclasses.replace(s, fsdp=fsdp)
+    trainer = fc.build_trainer(s, fc.build_models(s), dev, mesh=mesh)
+    trainer.unfreeze_epoch = None
+    trainer.epoch = TRAIN_EPOCH
+    trainer.optimizer.count = TRAIN_EPOCH
+    return trainer
+
+
+def mesh_steps(trainer, train) -> dict:
+    """Two steps with ``MESH_SEEDS``; each step's launches counted from 0
+    just before and read just after."""
+    import torch
+
+    out = {"loss": [], "launches": []}
+    for seed, batch in zip(MESH_SEEDS, train):
+        torch.manual_seed(seed)
+        reset_counts()
+        out["loss"].append(trainer.training_step(batch)["train_total_loss"])
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize()
+        out["launches"].append(launch_counts())
+    return out
+
+
+def same_state(a, b) -> dict:
+    """Whether two trainers' parameters are the same bits (the first that
+    differs named)."""
+    first = first_difference(dict(a.models.named_parameters()),
+                             dict(b.models.named_parameters()))
+    return {"same_bits": first is None, "first_param_diff": first}
+
+
+def mesh_phase(results: dict, smi: str, dev=None, env=None) -> dict:
+    """Phase 7f. Returns K1-K4's launches per mesh step (both variants).
+    (``dev`` the CPU and ``env`` DEBUG widths rehearse it over gloo.)"""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from routeformer_torch.parallel import init_distributed, make_mesh
+    from routeformer_torch.train import CheckpointManager
+
+    dev = torch.device("cuda") if dev is None else dev
+    t0 = time.perf_counter()
+    set_fusion("1")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    rendezvous = dict(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    os.environ.update(rendezvous)
+    cuda = dev.type == "cuda"
+    init_distributed(None if cuda else dev, timeout_s=600)
+    try:
+        mesh = make_mesh(1, 1, device=dev)
+        s, train, val = run_setup(dev, env)
+        out = {"backend": dist.get_backend(), "world_size": dist.get_world_size(),
+               "mesh": list(mesh.shape), "smi": smi}
+        assert out["backend"] == ("nccl" if cuda else "gloo"), out
+
+        def timed(trainer, key):
+            if not cuda:
+                return
+            reset_peak()
+            out[key + "_step_ms"] = cuda_ms(lambda: trainer.training_step(train[0]),
+                                            iters=3, warmup=1)
+            out[key + "_step_peak_gib"] = peak_gib()
+
+        ref = mesh_trainer(s, dev, None, False)
+        want_eval = ref.eval_batch_raw(val[0])  # the generator of the MC eval only
+        want = mesh_steps(ref, train)
+        ref_state = {n: p.detach().clone() for n, p in ref.models.named_parameters()}
+        timed(ref, "no_mesh")
+        del ref
+        free_device()
+        launches = {}
+        for variant in MESH_VARIANTS:
+            fsdp = variant == "mesh_fsdp"
+            trainer = mesh_trainer(s, dev, mesh, fsdp)
+            pcis, raw = trainer.eval_batch_raw(val[0])
+            got = mesh_steps(trainer, train)
+            rec = {"loss": [x.item() for x in got["loss"]],
+                   "want_loss": [x.item() for x in want["loss"]],
+                   "loss_bits": all(torch.equal(a, b) for a, b in zip(got["loss"], want["loss"])),
+                   "launches_per_step": got["launches"],
+                   "eval_bits": bool(torch.equal(pcis, want_eval[0]) and all(
+                       torch.equal(a, b) for n in raw for a, b in zip(raw[n], want_eval[1][n]))),
+                   "params_vs_no_mesh": first_difference(
+                       {n: p.detach() for n, p in trainer.models.named_parameters()},
+                       ref_state)}
+            for per_step in got["launches"] if cuda else ():
+                for k in ("K1", "K2", "K3a", "K4"):
+                    assert per_step[k] == RUN_PER_STEP[k], (variant, per_step)
+                assert 16 <= per_step["K3b"] <= 24, (variant, per_step)
+            launches[variant] = got["launches"]
+            rec["same_bits"] = rec["loss_bits"] and rec["params_vs_no_mesh"] is None
+            assert rec["eval_bits"], rec
+            if not rec["same_bits"]:  # phase 7's limit on the first step, the op named
+                a, b = rec["loss"][0], rec["want_loss"][0]
+                assert abs(a - b) <= STEP_LOSS_TOL * abs(b), rec
+                rec["nondeterminism"] = name_nondeterminism(
+                    lambda: mesh_pair_bits(s, dev, mesh, fsdp, train))
+                assert rec["nondeterminism"]["same_bits"], rec
+            # the snapshot: the next step of the uninterrupted run and of a
+            # fresh trainer restoring it, cuDNN's convolution backward held
+            # deterministic (phase 7b names it nondeterministic)
+            ckpt = CheckpointManager(RUN_DIR / f"{variant}_checkpoints")
+            torch.manual_seed(MESH_SEEDS[-1] + 1)  # saved with the snapshot
+            ckpt.save_latest(trainer, TRAIN_EPOCH, next_batch=2)
+            fresh = mesh_trainer(s, dev, mesh, fsdp)
+            assert ckpt.restore_latest(fresh) == (TRAIN_EPOCH, 2)
+            torch.backends.cudnn.deterministic = True
+            try:
+                again = fresh.training_step(train[-1])["train_total_loss"]
+                fresh_state = {n: p.detach().clone() for n, p in fresh.models.named_parameters()}
+                del fresh
+                free_device()
+                torch.manual_seed(MESH_SEEDS[-1] + 1)  # the generators as saved
+                nxt = trainer.training_step(train[-1])["train_total_loss"]
+            finally:
+                torch.backends.cudnn.deterministic = False
+            rec["restore"] = {"loss_bits": bool(torch.equal(again, nxt)), "first_param_diff":
+                              first_difference(fresh_state, {
+                                  n: p.detach() for n, p in trainer.models.named_parameters()}),
+                              "held": "torch.backends.cudnn.deterministic"}
+            assert rec["restore"]["loss_bits"] and rec["restore"]["first_param_diff"] is None, rec
+            del fresh_state
+            timed(trainer, variant)
+            out[variant] = rec
+            log(f"{smi}: mesh phase {variant}: {json.dumps(rec)}")
+            del trainer
+            free_device()
+        out["launches"] = launches
+        log(f"{smi}: mesh phase step ms / peak GiB: " + json.dumps(
+            {k: v for k, v in out.items() if k.endswith(("_ms", "_gib"))}))
+        log(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+        results["mesh_run"] = out
+        return {k: [step[k] for v in MESH_VARIANTS for step in launches[v]]
+                for k in ("K1", "K2", "K3a", "K3b", "K4")}
+    finally:
+        dist.destroy_process_group()
+        for var in rendezvous:
+            os.environ.pop(var, None)
+
+
+def mesh_pair_bits(s, dev, mesh, fsdp: bool, train) -> bool:
+    """Two steps without a mesh and on it, from the same seeds: the same
+    bits?"""
+    import torch
+
+    a = mesh_trainer(s, dev, None, False)
+    want = mesh_steps(a, train)["loss"]
+    b = mesh_trainer(s, dev, mesh, fsdp)
+    got = mesh_steps(b, train)["loss"]
+    same = all(torch.equal(x, y) for x, y in zip(got, want)) and \
+        same_state(a, b)["same_bits"]
+    del a, b
+    free_device()
+    return same
+
+
 # --------------------------------------------------------------- phase 7c #
 
 # The driver's whole model zoo (MODEL_SET=full) through its pieces at batch
@@ -2512,6 +2707,10 @@ class CardVsCpu:
 
     CPU_THREADS = 6
     NOISE = 2 ** -9
+    # Models compared at a cut depth (card and CPU alike), as DinoV2's
+    # (``DINOV2_CPU_DEPTH``): SwinV2-base's stage 2 keeps this many of its 9
+    # block pairs, so the CPU forward runs 8 of the 24 blocks.
+    SWIN_STAGE2_PAIRS = {"AdaptedGIMO_swinv2": 1, "MultiModalTransformer_swinv2": 1}
 
     def __init__(self, batch: dict, place):
         import numpy as np
@@ -2565,7 +2764,12 @@ class CardVsCpu:
         model.eval()
         batch = self.place(self.one)
         w = {}
+        pairs = self.SWIN_STAGE2_PAIRS.get(name)
+        stage = model.video_backbone.stages[2] if pairs else None
+        full = stage.pairs if pairs else None
         try:
+            if pairs:
+                stage.pairs = full[:pairs]
             hooks = self._hooks(model, w, "card", noise=False) if witness else ()
             out = self._forward(model, batch, hooks)
             if witness:
@@ -2581,9 +2785,13 @@ class CardVsCpu:
             model.train(was_training)
             for m, f in zip(layers, factors):
                 m.factor = f
+            if pairs:
+                stage.pairs = full
         assert all(torch.isfinite(o).all() for o in out), name
         self.cards[name] = out
         cpu = rebuild_on_cpu(model)
+        if pairs:
+            cpu.video_backbone.stages[2].pairs = cpu.video_backbone.stages[2].pairs[:pairs]
         set_exhaustive(cpu)
         self.cpus[name] = cpu
         if witness:
@@ -3887,6 +4095,7 @@ def kernel_line(launches: dict, results: dict) -> dict:
             "export_launches_per_forward": results["export_launches"][
                 "dinov2" if name == "K4" else "flagship"][name],
             "dreyeve_data_path_launches": results["dreyeve_data_path_launches"][name],
+            "mesh_launches_per_step": results["mesh_launches_per_step"][name],
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -4003,6 +4212,7 @@ def main() -> int:
     launches["K4"] = k4_launches  # K4's path is DinoV2 serving
     train_parity(results)
     results["training_run_launches"] = training_run(results, smi)
+    results["mesh_launches_per_step"] = mesh_phase(results, smi)
     results["full_set_launches"] = full_set_run(results, smi)
     results["gem_data_path_launches"] = gem_data_path(results, smi)
     results["dreyeve_data_path_launches"] = dreyeve_data_path(results, smi)

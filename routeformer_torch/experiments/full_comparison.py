@@ -21,7 +21,7 @@ driver's environment variables, read when ``main`` runs:
   H2D_DEDUP=1|0  LOADER_PRODUCERS  ENABLE_PCI_SPLIT=0|1 (DREYEVE)
   PCI_SPLIT_N_SAMPLES_PER_BIN  ENABLE_LEFT_VIDEO_SPLIT=1|0 (DREYEVE)
   ROUTEFORMER_FORCE_CPU=1 (run on the CPU; otherwise CUDA, and without it
-  the driver raises)
+  the driver raises)  N_MODEL_SHARDS (default 1)  FSDP=0|1
 
 ``MODEL_SET`` builds the JAX driver's models with its names, classes,
 configs (``driver_configs``) and seeds: ``flagship`` the SwinV2 Routeformer
@@ -47,8 +47,22 @@ into left and right halves (``ENABLE_LEFT_VIDEO_SPLIT=1``, the default,
 ``train/trainer.maybe_split_video``): on the placed batch, as two views of
 its tensor, or before the embedding cache's host stage when that is on.
 Without a directory the data are the synthetic GEM-geometry batches of
-``io/synthetic.py``. ``FSDP=1`` needs the multi-card mesh: it raises
-``NotImplementedError`` naming its ``ROADMAP.md`` item before any work.
+``io/synthetic.py``.
+
+Several cards (the JAX driver's mesh, ``:386-401``): one process per card,
+
+    torchrun --nproc_per_node=N -m routeformer_torch.experiments.full_comparison
+
+or a plain launch on a machine with several visible cards, which spawns one
+rank per card itself (it never trains on one card of several). The ranks
+form a ``(data, model)`` mesh with ``n_data = ranks // N_MODEL_SHARDS``
+(``parallel/mesh.py``; NCCL, or gloo under ``ROUTEFORMER_FORCE_CPU=1``);
+``BATCH_SIZE`` must divide by ``n_data``; ``FSDP=1`` also shards the large
+parameters and their AdamW moments over ``data``. Each rank reads and
+trains on its row block of every batch; only rank 0 prints, writes the
+metrics stream and the logs, and writes the checkpoints (every rank joins
+their gathers). With one process (``WORLD_SIZE`` unset or 1) there is no
+mesh, as the JAX driver has none on one device.
 """
 
 import functools
@@ -101,15 +115,14 @@ class Settings:
     enable_pci_split: bool = False  # DREYEVE only
     pci_split_n_samples_per_bin: int = 200
     enable_left_video_split: bool = True
+    n_model_shards: int = 1
+    fsdp: bool = False
 
     @classmethod
     def from_env(cls, env=None) -> "Settings":
         env = os.environ if env is None else env
         debug = env.get("DEBUG", "0") == "1"
         dataset = env.get("DATASET", "DREYEVE")
-        if env.get("FSDP", "0") == "1":
-            raise NotImplementedError(
-                "FSDP=1: the multi-card mesh is not ported (ROADMAP.md §1 item 2)")
         cache = env.get("USE_EMBEDDING_CACHE", "0")
         if cache not in ("0", "1", "host", "device"):
             raise ValueError(f"USE_EMBEDDING_CACHE={cache!r}: expected 0, 1, host or device")
@@ -146,6 +159,8 @@ class Settings:
             enable_pci_split=dataset == "DREYEVE" and env.get("ENABLE_PCI_SPLIT", "0") == "1",
             pci_split_n_samples_per_bin=int(env.get("PCI_SPLIT_N_SAMPLES_PER_BIN", 200)),
             enable_left_video_split=env.get("ENABLE_LEFT_VIDEO_SPLIT", "1") == "1",
+            n_model_shards=int(env.get("N_MODEL_SHARDS", "1")),
+            fsdp=env.get("FSDP", "0") == "1",
         )
 
     @property
@@ -183,6 +198,20 @@ class Settings:
         from routeformer_torch.train.metrics import DREYEVE_QUARTILES, GEM_QUARTILES
 
         return DREYEVE_QUARTILES if self.dataset == "DREYEVE" else GEM_QUARTILES
+
+
+def mesh_shape(s: Settings, world: int):
+    """``(n_data, n_model)`` of the JAX driver's mesh over ``world`` ranks;
+    exits with its message when ``BATCH_SIZE`` does not divide by
+    ``n_data``."""
+    n_model = s.n_model_shards
+    n_data = world // n_model
+    if s.batch_size % n_data != 0:
+        raise SystemExit(
+            f"BATCH_SIZE={s.batch_size} must be divisible by the data-"
+            f"parallel degree {n_data} (devices={world}, "
+            f"N_MODEL_SHARDS={n_model})")
+    return n_data, n_model
 
 
 def driver_configs(s: Settings) -> dict:
@@ -315,13 +344,13 @@ def build_models(s: Settings) -> dict:
 
 
 def build_data(s: Settings, with_video: Optional[bool] = None, device=None,
-               host_arrays: bool = False):
+               host_arrays: bool = False, mesh=None):
     """``(train, val)``: ``DataLoader``s over a GEM or DR(eye)VE recording
     when its ``*_DATASET_DIR`` is a directory, else synthetic datasets of
     pre-collated batches. The loaders place batches on ``device`` from
     their producer thread (with the frame store when ``H2D_DEDUP=1``)
     unless ``host_arrays`` (the embedding cache's precompute takes host
-    pixels)."""
+    pixels); on a ``mesh`` each rank's loaders read its rows only."""
     with_video = s.with_video if with_video is None else with_video
     if s.recording:
         from routeformer_torch.io.loader import DataLoader
@@ -351,7 +380,7 @@ def build_data(s: Settings, with_video: Optional[bool] = None, device=None,
             ds_val = GEMDataset(root=s.dataset_dir, split="val", min_pci=s.min_pci,
                                 with_gaze=with_video, **common)
         place = dict(to_device=not host_arrays, h2d_dedup=not host_arrays and s.h2d_dedup,
-                     device=None if host_arrays else device)
+                     device=None if host_arrays else device, mesh=mesh)
         # the PCI split draws its own balanced sample, so it replaces shuffling
         return (DataLoader(ds_train, batch_size=s.batch_size, shuffle=not s.enable_pci_split,
                            **place),
@@ -384,41 +413,55 @@ def attach_prepare(s: Settings, data, prepare: Callable, device_memo: bool,
             d.set_placed_stage(prepare)
 
 
-def iter_prepared(data, epoch: int, prepare: Callable, skip: int = 0):
+def iter_prepared(data, epoch: int, prepare: Callable, skip: int = 0, mesh=None):
     """An epoch's batches with ``prepare`` applied once: by the loader's
     stage for a ``DataLoader`` (``set_epoch`` reshuffles and resumes at
-    ``skip``), here for a dataset of pre-collated batches."""
+    ``skip``), here for a dataset of pre-collated batches (on a ``mesh``
+    this rank's rows of them, as CPU tensors, as a mesh loader gives)."""
     if hasattr(data, "set_epoch"):
         data.set_epoch(epoch, start_batch=skip)
         yield from data
     else:
         for i in range(skip, len(data)):
-            yield prepare(data[i])
+            batch = data[i]
+            if mesh is not None:
+                import torch
+
+                from routeformer_torch.parallel.mesh import shard_batch
+
+                batch = shard_batch(batch, mesh, torch.device("cpu"))
+            yield prepare(batch)
 
 
-def build_precompute(s: Settings, models: dict, device):
+def build_precompute(s: Settings, models: dict, device, mesh=None):
     """The embedding cache's batch transform for ``USE_EMBEDDING_CACHE``
     (None when off, and for the ``gps`` and ``full`` sets, whose baselines
-    take pixels): ``device`` the device memo, ``1``/``host`` the host RAM
-    cache."""
+    take pixels): ``device`` the device memo (each rank's, on a ``mesh``),
+    ``1``/``host`` the host RAM cache. Build it before the trainer lays
+    the models out on a mesh."""
     if not s.embedding_cache_on:
         return None
     from routeformer_torch.models.video_backbone.cache import (
         DeviceVideoFeaturePrecomputer,
+        MeshDeviceVideoFeaturePrecomputer,
         VideoFeaturePrecomputer,
     )
 
     model = models[FLAGSHIP]
     if s.use_embedding_cache == "device":
+        if mesh is not None:
+            return MeshDeviceVideoFeaturePrecomputer(model, mesh, device=device)
         return DeviceVideoFeaturePrecomputer(model, device=device)
     return VideoFeaturePrecomputer(model, device=device)
 
 
-def build_trainer(s: Settings, models: dict, device):
+def build_trainer(s: Settings, models: dict, device, mesh=None):
     """The lockstep trainer with the JAX driver's optimizer (AdamW at
     ``ROUTEFORMER_CONFIG``'s ``lr`` and ``wd``, backbone 1e-6, warmup 2
     epochs, clip 2.5) and its losses from ``ROUTEFORMER_CONFIG``; an
-    embedding cache keeps the backbone frozen for the whole run."""
+    embedding cache keeps the backbone frozen for the whole run. On a
+    ``mesh`` the models are laid out by the structural rule (``FSDP=1``
+    also over ``data``)."""
     from routeformer_torch.optimizers import build_optimizer
     from routeformer_torch.train.trainer import ParallelTrainer
 
@@ -431,7 +474,7 @@ def build_trainer(s: Settings, models: dict, device):
                           gradient_clip_val=2.5),
         config, quartiles=s.quartiles,
         feature_cache_active=cache_on,
-        unfreeze_epoch=None if cache_on else 10, device=device,
+        unfreeze_epoch=None if cache_on else 10, device=device, mesh=mesh, fsdp=s.fsdp,
     )
 
 
@@ -455,15 +498,19 @@ def run_epochs(trainer, ckpt, metrics_logger, train_data, val_data, prepare, *,
                save_every: int = 0, max_train_batches: Optional[int] = None) -> list:
     """The epoch loop: train steps (a snapshot every ``save_every`` steps),
     the epoch's MC eval, best-ADE checkpoints, and a snapshot at the epoch's
-    end when snapshots are on. Returns one record per epoch."""
+    end when snapshots are on. Returns one record per epoch. On a mesh
+    every rank runs it; only rank 0 prints."""
+    from routeformer_torch.parallel.mesh import is_main_rank
+
     history = []
     names = trainer.model_names
+    mesh = trainer.mesh
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         trainer.epoch = epoch
         skip = start_batch if epoch == start_epoch else 0
         n_train = len(train_data)
-        for j, batch in enumerate(iter_prepared(train_data, epoch, prepare, skip)):
+        for j, batch in enumerate(iter_prepared(train_data, epoch, prepare, skip, mesh)):
             i = skip + j
             if max_train_batches is not None and i >= max_train_batches:
                 break
@@ -472,17 +519,61 @@ def run_epochs(trainer, ckpt, metrics_logger, train_data, val_data, prepare, *,
                 metrics_logger.log(metrics, epoch * n_train + i, "train")
             if save_every and (i + 1) % save_every == 0:
                 ckpt.save_latest(trainer, epoch, next_batch=i + 1)
-        val_metrics = trainer.evaluate(iter_prepared(val_data, epoch, prepare), "val")
+        val_metrics = trainer.evaluate(iter_prepared(val_data, epoch, prepare, mesh=mesh),
+                                       "val")
         metrics_logger.log(val_metrics, epoch, "val")
         ckpt.maybe_save(trainer, val_metrics, epoch)
         if save_every:
             ckpt.save_latest(trainer, epoch + 1, next_batch=0)
         history.append({"epoch": epoch, "seconds": time.perf_counter() - t0,
                         "val": val_metrics})
-        print(f"epoch {epoch}: " + ", ".join(
-            f"{n}={float(val_metrics.get(f'val_{n}_ade', np.nan)):.3f}" for n in names[:3]),
-            flush=True)
+        if is_main_rank():
+            print(f"epoch {epoch}: " + ", ".join(
+                f"{n}={float(val_metrics.get(f'val_{n}_ade', np.nan)):.3f}"
+                for n in names[:3]), flush=True)
     return history
+
+
+class _NoLogger:
+    """The metrics stream of a rank other than 0."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def spawn_ranks(n: int, env=None) -> int:
+    """One rank per visible card, each this driver in its own process
+    (``torchrun``'s environment: ``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR``, ``MASTER_PORT``); returns the first nonzero exit code,
+    else 0. A rank that fails stops the others."""
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    base = dict(os.environ, **(env or {}), MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                WORLD_SIZE=str(n))
+    procs = [subprocess.Popen([sys.executable, "-m", "routeformer_torch.experiments."
+                               "full_comparison"],
+                              env=dict(base, RANK=str(r), LOCAL_RANK=str(r)))
+             for r in range(n)]
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = next((c for c in codes if c not in (None, 0)), None)
+            if bad is not None or all(c == 0 for c in codes):
+                return bad or 0
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
 
 
 def main(env=None) -> list:
@@ -492,21 +583,41 @@ def main(env=None) -> list:
     from routeformer_torch.utils.device import resolve_device
     from routeformer_torch.utils.logging import set_logger_config
 
+    import torch
+
+    from routeformer_torch.parallel import mesh as meshlib
+
     s = Settings.from_env(env)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if ("WORLD_SIZE" not in os.environ and not s.force_cpu and torch.cuda.is_available()
+            and torch.cuda.device_count() > 1):
+        code = spawn_ranks(torch.cuda.device_count(), env)
+        if code:
+            raise SystemExit(code)
+        return []
     set_logger_config("DEBUG" if s.debug else "ERROR")
-    device = resolve_device("cpu" if s.force_cpu else None)
+    mesh = None
+    if world > 1:
+        device = meshlib.init_distributed("cpu" if s.force_cpu else None)
+        mesh = meshlib.make_mesh(*mesh_shape(s, world), device=device)
+        if meshlib.is_main_rank():
+            print(f"mesh: data={mesh.size(0)} model={mesh.size(1)}")
+    else:
+        device = resolve_device("cpu" if s.force_cpu else None)
+    main_rank = meshlib.is_main_rank()
     models = build_models(s)
     config = driver_configs(s)["ROUTEFORMER_CONFIG"]
-    if s.embedding_cache_on:
+    if s.embedding_cache_on and main_rank:
         print("USE_EMBEDDING_CACHE active: video backbones stay frozen for the "
               "entire run (epoch-10 unfreeze disabled)")
-    trainer = build_trainer(s, models, device)
+    precompute = build_precompute(s, models, device, mesh)
+    trainer = build_trainer(s, models, device, mesh)
     ckpt = CheckpointManager(s.results_dir / "checkpoints")
-    metrics_logger = MetricsLogger(s.results_dir / "logs",
-                                   experiment=f"{s.dataset.lower()}_full_comparison",
-                                   config=config.to_dict())
-    precompute = build_precompute(s, models, device)
-    train_data, val_data = build_data(s, device=device, host_arrays=precompute is not None)
+    metrics_logger = (MetricsLogger(s.results_dir / "logs",
+                                    experiment=f"{s.dataset.lower()}_full_comparison",
+                                    config=config.to_dict()) if main_rank else _NoLogger())
+    train_data, val_data = build_data(s, device=device, host_arrays=precompute is not None,
+                                      mesh=mesh)
     prepare = make_prepare(precompute, split_video=s.split_video)
     if precompute is not None:
         attach_prepare(s, (train_data, val_data), prepare,
@@ -520,10 +631,12 @@ def main(env=None) -> list:
         latest = ckpt.restore_latest(trainer)
         if latest is not None:
             start_epoch, start_batch = latest
-            print(f"resumed latest snapshot: epoch {start_epoch} batch {start_batch}")
+            msg = f"resumed latest snapshot: epoch {start_epoch} batch {start_batch}"
         else:
             start_epoch = ckpt.restore_all(trainer)
-            print(f"resumed from best checkpoints at epoch {start_epoch}")
+            msg = f"resumed from best checkpoints at epoch {start_epoch}"
+        if main_rank:
+            print(msg)
     try:
         history = run_epochs(
             trainer, ckpt, metrics_logger, train_data, val_data, prepare,
@@ -534,7 +647,11 @@ def main(env=None) -> list:
         )
     finally:
         metrics_logger.close()
-    print("best:", ckpt.best)
+    if main_rank:
+        print("best:", ckpt.best)
+    if mesh is not None:
+        meshlib.barrier()
+        torch.distributed.destroy_process_group()
     return history
 
 

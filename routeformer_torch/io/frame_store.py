@@ -25,8 +25,8 @@ XLA compiles a bounded number of programs; PyTorch runs each call at its
 own size, so here no call is padded. The store's work is enqueued on the
 caller's current CUDA stream: the loader runs it on its producer's side
 stream, and the consumer waits for that stream's event. One store belongs
-to one producer thread. ``MeshFrameStoreRouter`` (one ring per card of a
-mesh) waits for the multi-card port (``ROADMAP.md`` §1 item 2).
+to one producer thread. ``MeshFrameStoreRouter`` is the tier of a
+``(data, model)`` mesh: each rank keeps its own stores over its rows.
 """
 
 import hashlib
@@ -213,3 +213,37 @@ class FrameStoreRouter:
                                    "capacity": s.capacity,
                                    "bytes_shipped": s.frames_shipped * s.frame_bytes}
                 for k, s in self._stores.items()}
+
+
+class MeshFrameStoreRouter:
+    """The frame store of one rank of a ``(data, model)`` mesh (the JAX
+    package's ``MeshFrameStoreRouter``, one process per card): batch row
+    ``r`` belongs to data shard ``r // (B / n_data)``, and this rank keeps
+    its own ``FrameStoreRouter`` on its card over its shard's rows (a
+    model-axis replica ships the same frames as its shard's other ranks).
+    ``put`` takes a global batch and returns this rank's rows, the same
+    bits as a plain copy of them; ``put_rows`` takes this rank's rows (a
+    mesh loader reads no other). ``stats`` sums every rank's stores: a
+    collective, called by every rank together. The budget is per card."""
+
+    def __init__(self, mesh, budget_bytes: float = 512e6, n_streams_hint: int = 3,
+                 device: DeviceLike = None):
+        self.mesh = mesh
+        self.local = FrameStoreRouter(budget_bytes, n_streams_hint, device=device)
+        self.device = self.local.device
+
+    def put(self, name: str, windows: np.ndarray) -> torch.Tensor:
+        """(B, T, *frame) global host windows -> this rank's row block on its
+        card; a batch the data shards do not divide raises."""
+        from routeformer_torch.parallel.mesh import row_block
+
+        rows = np.ascontiguousarray(windows[row_block(windows.shape[0], self.mesh)])
+        return self.local.put(name, rows)
+
+    def put_rows(self, name: str, rows: np.ndarray, keys=None) -> torch.Tensor:
+        return self.local.put(name, rows, keys)
+
+    def stats(self) -> Dict[str, Dict[str, int]]:
+        from routeformer_torch.parallel.mesh import sum_over_world
+
+        return sum_over_world(self.local.stats(), self.device)

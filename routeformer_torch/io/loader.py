@@ -23,8 +23,19 @@ frames are hashed on the sample pool (hashlib releases the interpreter
 lock) and only the frames not yet on the card are staged in pinned
 memory and copied. Float64 leaves (GPS, gaze, PCI) are
 placed as float32, as JAX places them. On the CPU device placement is a
-plain conversion. ``mesh=`` (placement over several cards) waits for the
-multi-card port (``ROADMAP.md`` §1 item 2).
+plain conversion.
+
+``mesh=`` (a ``DeviceMesh`` of ``parallel.make_mesh``, one loader per
+rank): the epoch's global batches are the JAX loader's, and each rank
+reads, collates and places only its own row block (batch row ``r`` goes to
+data shard ``r // (B / n_data)``); its leaves are tensors, on its card with
+``to_device``, else on the CPU (a tensor is a rank's rows to the trainer
+and the mesh memo, a numpy leaf a global batch). With the frame store the
+order is the JAX loader's shard-stable one: each sample belongs to one data
+shard for good (its position in the process's pool modulo ``n_data``), the
+pools are shuffled apart by ``default_rng(seed + epoch)``, and each batch is
+``n_data`` contiguous row blocks, one per shard, so a rank's frame store
+(``MeshFrameStoreRouter``) sees only its shard's frames.
 """
 
 import queue
@@ -36,7 +47,12 @@ from typing import Callable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from routeformer_torch.io.frame_store import FrameStoreRouter, hash_frames, host_tensor
+from routeformer_torch.io.frame_store import (
+    FrameStoreRouter,
+    MeshFrameStoreRouter,
+    hash_frames,
+    host_tensor,
+)
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 from routeformer_torch.utils.logging import get_logger
 
@@ -81,10 +97,13 @@ class DataLoader:
                  process_index: int = 0, process_count: int = 1, to_device: bool = False,
                  h2d_dedup: bool = False, dedup_budget_bytes: float = 512e6, mesh=None,
                  device: DeviceLike = None):
+        self.mesh = mesh
+        self._rows = None  # this rank's row block of each batch, on a mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (batches placed over several cards) is not ported: "
-                "ROADMAP.md §1 item 2")
+            from routeformer_torch.parallel.mesh import check_mesh, row_block
+
+            check_mesh(mesh)
+            self._rows = row_block(batch_size, mesh)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -103,7 +122,7 @@ class DataLoader:
         self.h2d_dedup = h2d_dedup and to_device
         self.device = resolve_device(device) if to_device else None
         self.dedup_budget_bytes = dedup_budget_bytes
-        self._router: Optional[FrameStoreRouter] = None  # built at the first batch placed
+        self._router = None  # a (Mesh)FrameStoreRouter, built at the first batch placed
         self._bytes_lock = threading.Lock()
         self.bytes_copied = 0  # host -> device bytes of the leaves placed whole
         self._epoch = 0
@@ -155,9 +174,10 @@ class DataLoader:
 
     def _place(self, batch: dict, pool: Optional[ThreadPool] = None) -> dict:
         if self.h2d_dedup and self._router is None:
-            self._router = FrameStoreRouter(budget_bytes=self.dedup_budget_bytes,
-                                            n_streams_hint=_video_streams(batch),
-                                            device=self.device)
+            kw = dict(budget_bytes=self.dedup_budget_bytes,
+                      n_streams_hint=_video_streams(batch), device=self.device)
+            self._router = (FrameStoreRouter(**kw) if self.mesh is None
+                            else MeshFrameStoreRouter(self.mesh, **kw))
         return self._place_leaves(batch, pool)
 
     def _place_leaves(self, batch: dict, pool: Optional[ThreadPool]) -> dict:
@@ -178,7 +198,8 @@ class DataLoader:
                     parts = pool.map(lambda ab: hash_frames(flat[ab[0]:ab[1]]),
                                      zip(bounds[:-1], bounds[1:]))
                     keys = [key for part in parts for key in part]
-                out[k] = self._router.put(k, host, keys=keys)
+                put = self._router.put if self.mesh is None else self._router.put_rows
+                out[k] = put(k, host, keys=keys)
                 continue
             if not isinstance(v, torch.Tensor):
                 v = host_tensor(canonical(np.asarray(v)), self.device)
@@ -209,10 +230,31 @@ class DataLoader:
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
+        if self.mesh is not None and self.h2d_dedup:
+            return self._shard_stable_indices(idx)
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self._epoch)
             rng.shuffle(idx)
         return idx[self.process_index:: self.process_count]
+
+    def _shard_stable_indices(self, idx: np.ndarray) -> np.ndarray:
+        """The JAX loader's mesh order: per-shard pools ``host[d::n_data]``
+        of the process's samples, each shuffled by one
+        ``default_rng(seed + epoch)`` in turn, and batches of ``n_data``
+        contiguous per-shard row blocks."""
+        host = idx[self.process_index:: self.process_count]
+        n_data = self.mesh.size(0)
+        rows = self.batch_size // n_data
+        parts = [host[d::n_data].copy() for d in range(n_data)]
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self._epoch)
+            for p in parts:
+                rng.shuffle(p)
+        n_batches = min(len(p) for p in parts) // rows
+        out = np.empty((n_batches, n_data, rows), idx.dtype)
+        for d, p in enumerate(parts):
+            out[:, d] = p[: n_batches * rows].reshape(n_batches, rows)
+        return out.reshape(-1)
 
     def __len__(self) -> int:
         n = len(self._indices())
@@ -242,9 +284,13 @@ class DataLoader:
                 with ThreadPool(self.num_threads) as pool:
 
                     def make(batch_idx):
+                        if self._rows is not None:  # this rank reads its rows only
+                            batch_idx = batch_idx[self._rows]
                         samples = pool.map(self.dataset.__getitem__,
                                            [int(i) for i in batch_idx])
                         batch = self._collate(samples)
+                        if self.mesh is not None and not self.to_device:
+                            batch = _as_tensors(batch)
                         if self.batch_transform is not None:
                             batch = self.batch_transform(batch)
                         if not self.to_device:
@@ -327,6 +373,13 @@ def _video_streams(batch: dict) -> int:
 
     walk(batch)
     return max(len(names), 1)
+
+
+def _as_tensors(batch: dict) -> dict:
+    """A rank's host rows as CPU tensors (float64 as float32)."""
+    return {k: _as_tensors(v) if isinstance(v, dict) else
+            v if isinstance(v, torch.Tensor) else torch.from_numpy(canonical(np.asarray(v)))
+            for k, v in batch.items()}
 
 
 def _record_stream(batch: dict, stream) -> None:

@@ -133,11 +133,11 @@ class PerceiveEncoder(nn.Module):
         n_layers = len(self.stacked_layers)
         r, l, d = x.shape
         attention = self.stacked_layers[0].attention.inner_attention
-        factor, generator = attention.factor, attention.mc_generator
+        factor = attention.factor
         u_part = prob_sparse_u(l, factor)
         cnt = sample_count_matrices(n_layers, l, l, u_part,
-                                    train=self.training or generator is not None,
-                                    generator=generator, device=x.device)
+                                    train=self.training or attention.mc_generator is not None,
+                                    generator=attention.sample_generator(), device=x.device)
         train_dropout = self.training and self.dropout_rate > 0.0
         masks = (
             make_dropout_masks(n_layers, r, l, d, self.stacked_layers[0].ff1.out_features,

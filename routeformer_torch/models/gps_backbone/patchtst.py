@@ -76,12 +76,20 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        # the data shards' process group on a mesh with several (set by the
+        # trainer): the batch statistics are then the global batch's
+        self.data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            if self.data_group is None:
+                mean = x.mean(dim=dims)
+                var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+            else:
+                from routeformer_torch.parallel.mesh import global_moments
+
+                mean, var, _ = global_moments(x, dims, self.data_group)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

@@ -8,7 +8,10 @@ JAX package does (``utils/prng.py``) and in training draws a fresh one from
 the device's default generator; it applies no dropout, as in the JAX
 package. ``FullAttention`` drops attention weights in training. With
 ``mc_generator`` set (the trainer's Monte-Carlo eval, ``set_mc_sampling``)
-``ProbAttention`` draws fresh key samples in eval too, from that generator.
+``ProbAttention`` draws fresh key samples in eval too, from that generator;
+with ``shared_generator`` set (a mesh with several data shards) its
+training key samples come from that stream, the same on every rank, as
+JAX draws one sample for the global batch.
 """
 
 from typing import Optional
@@ -74,12 +77,18 @@ class ProbAttention(nn.Module):
         self.scale = scale
         self.output_attention = output_attention
         self.mc_generator: Optional[torch.Generator] = None
+        self.shared_generator: Optional[torch.Generator] = None
+
+    def sample_generator(self) -> Optional[torch.Generator]:
+        """The key samples' generator: the MC eval's, else the mesh's
+        shared stream, else None (the device's default)."""
+        return self.mc_generator if self.mc_generator is not None else self.shared_generator
 
     def forward(self, q, k, v):
         out = prob_sparse_attention(
             q, k, v, factor=self.factor, causal=self.mask_flag,
             scale=self.scale, train=self.training or self.mc_generator is not None,
-            generator=self.mc_generator,
+            generator=self.sample_generator(),
         )
         return (out, None) if self.output_attention else out
 

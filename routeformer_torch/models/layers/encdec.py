@@ -23,18 +23,35 @@ def activation_fn(name: str):
 
 class ConvLayer(nn.Module):
     """Distillation stage: circular pad, VALID kernel-3 conv, BatchNorm
-    (running stats in eval, eps 1e-5), ELU, MaxPool(3, 2, pad 1)."""
+    (running stats in eval, eps 1e-5), ELU, MaxPool(3, 2, pad 1). On a mesh
+    with several data shards (``data_group``, set by the trainer) the
+    training statistics are the global batch's."""
 
     def __init__(self, c_in: int, extra_padding: int = 2):
         super().__init__()
         self.extra_padding = extra_padding
         self.conv = nn.Conv1d(c_in, c_in, 3)
         self.norm = nn.BatchNorm1d(c_in, eps=1e-5, momentum=0.1)
+        self.data_group = None
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.data_group is None:
+            return self.norm(x)
+        from routeformer_torch.parallel.mesh import global_moments
+
+        bn = self.norm
+        mean, var, n = global_moments(x, (0, 2), self.data_group)
+        with torch.no_grad():  # BatchNorm1d's update: the unbiased variance
+            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * var * n / (n - 1))
+            bn.num_batches_tracked += 1
+        scale = torch.rsqrt(var + bn.eps) * bn.weight
+        return (x - mean[:, None]) * scale[:, None] + bn.bias[:, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         p = self.extra_padding
         x = torch.cat([x[:, -p:], x, x[:, :p]], dim=1).transpose(1, 2)
-        x = F.elu(self.norm(self.conv(x)))
+        x = F.elu(self._norm(self.conv(x)))
         x = F.max_pool1d(x, 3, stride=2, padding=1)
         return x.transpose(1, 2)
 

@@ -14,7 +14,10 @@ In training (``model.train()``): motion noise on the GPS, view dropout
 (one decision per batch and a coin for which view), gaze dropout (one
 decision per batch), and the feature dropout and fresh ProbSparse key
 samples of the layers. The decisions are drawn from the CPU's default
-generator, the noise and masks from the device's. The video backbone is
+generator, the noise and masks from the device's. On a mesh with several
+data shards the trainer sets ``shared_generator`` (the same stream on every
+rank): the per-batch decisions come from it, so every rank runs the same
+modules, while the per-row noise and masks stay on each rank's own stream. The video backbone is
 frozen, as the JAX package's ``stop_gradient`` makes it: it runs without
 autograd unless its ``unfreeze`` attribute (or ``train_backbone``) is set.
 A batch may carry the frozen backbone's feature maps instead of pixels
@@ -31,6 +34,7 @@ inputs of the next, and the chunks are concatenated and cut to
 """
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,6 +59,8 @@ class Routeformer(nn.Module):
     def __init__(self, configs: RouteformerConfig, gps_backbone: type = Informer,
                  video_backbone: type = SwinV2Backbone):
         super().__init__()
+        self.shared_generator: Optional[torch.Generator] = None
+        self.data_group = None  # the data shards' group on a mesh with several
         self.configs = cfg = configs.copy()
         self.with_video = cfg.with_video
         self.with_scene = cfg.with_scene
@@ -234,7 +240,7 @@ class Routeformer(nn.Module):
                                       cfg.gps_backbone_config.seq_len)
             gaze = self.gaze_encoder(gaze)
             gaze_features = self.gaze_video_decoder(gaze_video, gaze)[:, :in_len]
-            if cfg.gaze_dropout > 0.0 and training and torch.rand(()) < cfg.gaze_dropout:
+            if cfg.gaze_dropout > 0.0 and training and self._draw() < cfg.gaze_dropout:
                 gaze_features = torch.zeros_like(gaze_features)
             visual.append(gaze_features + self.gaze_video_embedding)
         visual.append(torch.zeros_like(visual[-1]) + self.video_output_embedding)
@@ -244,10 +250,15 @@ class Routeformer(nn.Module):
         """View dropout: with probability ``view_dropout`` one view is
         dropped, a fair coin says which; a missing right view is dropped."""
         drop_one = self.configs.view_dropout > 0.0 and bool(
-            torch.rand(()) < self.configs.view_dropout)
-        drop_left = drop_one and bool(torch.rand(()) < 0.5)
+            self._draw() < self.configs.view_dropout)
+        drop_left = drop_one and bool(self._draw() < 0.5)
         drop_right = (drop_one and not drop_left) or not has_right
         return drop_left, drop_right
+
+    def _draw(self) -> torch.Tensor:
+        """One uniform for a per-batch decision."""
+        g = self.shared_generator
+        return torch.rand(()) if g is None else torch.rand((), generator=g, device=g.device)
 
     def _future_motion(self, output):
         cfg = self.configs

@@ -23,6 +23,8 @@ step at all.
   by the scatter) and pads each call to the largest one of its geometry,
   both to keep one compiled program; here neither is needed, so only the
   novel frames go through the backbone and every slot is in range.
+- ``MeshDeviceVideoFeaturePrecomputer``: the device memo of one rank of
+  a pure data-parallel mesh, over this rank's rows on its card.
 
 Every backbone copy here is a frozen ``deepcopy`` in eval mode: the
 trained model's backbone still decays under AdamW, and the caches serve
@@ -269,3 +271,55 @@ class DeviceVideoFeaturePrecomputer:
     def stats(self) -> dict:
         return {"seen": self.backbone.frames_seen, "encoded": self.backbone.frames_encoded,
                 "capacity": self.backbone.capacity}
+
+
+class MeshDeviceVideoFeaturePrecomputer:
+    """The device memo of one rank of a ``(data, model)`` mesh (the JAX
+    package's ``MeshDeviceVideoFeaturePrecomputer``, one process per card):
+    a ``DeviceVideoFeaturePrecomputer`` on this rank's card over its data
+    shard's rows. A numpy video leaf is the global batch (this rank's row
+    block is taken; a batch the shards do not divide raises), a tensor is
+    this rank's rows already (a mesh loader's); the features are this
+    rank's rows on its card, and the other leaves pass unchanged. It
+    encodes with a whole backbone, so it needs a pure data-parallel mesh;
+    build it before the trainer lays the model out. ``stats`` sums every
+    rank's memo (a collective). ``capacity_bytes`` is per card."""
+
+    def __init__(self, model, mesh, capacity_bytes: float = 512e6,
+                 device: DeviceLike = None):
+        n_data, n_model = mesh.shape
+        if n_model != 1:
+            raise ValueError(
+                "MeshDeviceVideoFeaturePrecomputer needs a pure data-"
+                f"parallel mesh (model axis is {n_model}); use the host "
+                "embedding cache (USE_EMBEDDING_CACHE=host) under tensor "
+                "parallelism")
+        if any(hasattr(p, "mesh_spec") for p in model.video_backbone.parameters()):
+            raise ValueError("MeshDeviceVideoFeaturePrecomputer: the backbone is laid out "
+                             "on the mesh already; build the memo before the trainer")
+        self.mesh = mesh
+        self.n_data = n_data
+        self.configs = model.configs
+        self.shard = DeviceVideoFeaturePrecomputer(model, capacity_bytes=capacity_bytes,
+                                                   device=device)
+
+    def __call__(self, batch: dict) -> dict:
+        from routeformer_torch.parallel.mesh import row_block
+
+        rows = {}
+        for key in _STREAMS:
+            v = batch.get(key)
+            if v is None:
+                continue
+            if not isinstance(v, torch.Tensor):
+                v = np.asarray(v)
+                v = v[row_block(v.shape[0], self.mesh)]
+            rows[key] = v
+        out = {k: v for k, v in batch.items() if k not in rows}
+        out.update(_timeline_features(self.configs, rows, self.shard.backbone))
+        return out
+
+    def stats(self) -> dict:
+        from routeformer_torch.parallel.mesh import sum_over_world
+
+        return sum_over_world(self.shard.stats(), self.shard.backbone.device)

@@ -3,6 +3,13 @@
 ``derived`` is shared by the kernels' wrappers: K1's bf16 weights and
 position bias (``swin_block_fusion``) and the Perceive encoder's stacked
 and kernel weights (``models/cross_modal.py``, K3a/K3b).
+
+On a ``(data, model)`` mesh the sources of a sharded weight are the whole
+tensors ``parallel.mesh.MeshParams.gathered`` makes: new tensors at every
+gather, which live through the model's forward and backward (so K3b's
+backward reads the weights its forward read). A value cached from one
+gather is never served to the next: its weak references die with the
+gathered tensors, and the entry with them.
 """
 
 import weakref

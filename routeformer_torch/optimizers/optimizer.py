@@ -10,6 +10,12 @@ base rate. optax updates every parameter, so a parameter without a
 gradient (the frozen backbone) is given a zero gradient: its weights still
 decay, as in the JAX package. ``torch.optim.AdamW`` computes the same
 update once every parameter has a gradient.
+
+On a ``(data, model)`` mesh (``mesh`` set, ``parallel/mesh.py``) a
+parameter may hold this rank's block of a sharded weight: AdamW steps the
+blocks, and the clip's global norm is the norm of the whole gradient, each
+sharded parameter's squares summed over the ranks that hold its distinct
+blocks (``mesh.global_norm``), so every rank clips by the same factor.
 """
 
 from typing import Optional
@@ -43,14 +49,20 @@ class Optimizer:
                                      foreach=True)
         self.clip = gradient_clip_val
         self.count = 0  # updates applied, as optax's schedule count
+        self.mesh = None  # the trainer's DeviceMesh, when its parameters are laid out on one
 
     def step(self) -> torch.Tensor:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
+        norms = torch._foreach_norm(grads)
+        if self.mesh is None:
+            norm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            from routeformer_torch.parallel.mesh import global_norm
+
+            norm = global_norm(self.params, norms, self.mesh)
         if self.clip is not None:
             scale = torch.where(norm < self.clip, torch.ones_like(norm),
                                 self.clip / norm)

@@ -1,5 +1,18 @@
-"""Train and eval steps of the port (one device; no mesh)."""
+"""Train and eval steps of the port, on one device or on a ``(data,
+model)`` mesh of ranks (``parallel/mesh.py``), and the gloo CPU dryrun of
+the mesh (``parallel/dryrun.py``)."""
 
+from routeformer_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    MeshParams,
+    init_distributed,
+    make_mesh,
+    param_shardings,
+    param_spec,
+    shard_batch,
+)
 from routeformer_torch.parallel.train_step import make_eval_step, make_train_step
 
-__all__ = ["make_eval_step", "make_train_step"]
+__all__ = ["DATA_AXIS", "MODEL_AXIS", "MeshParams", "init_distributed", "make_eval_step",
+           "make_mesh", "make_train_step", "param_shardings", "param_spec", "shard_batch"]

@@ -1,0 +1,519 @@
+"""The ``(data, model)`` mesh over several cards (counterpart of
+``routeformer_tpu/parallel/mesh.py``).
+
+One process per card (``torchrun``, or the driver spawning one rank per
+visible card) joins a process group, NCCL on CUDA and gloo only when the
+caller asks for the CPU, and the ranks form a
+``torch.distributed.device_mesh.DeviceMesh`` with dims ``("data",
+"model")``; rank ``d * n_model + m`` sits at ``(d, m)``.
+
+- ``data``: batch row ``r`` of a global batch of ``B`` goes to data shard
+  ``r // (B / n_data)``; each rank reads, places and computes only its own
+  row block, and the gradients are the global-batch mean (GSPMD's psum,
+  DDP's all-reduce).
+- ``model``: the structural rule ``param_spec`` (copied from the JAX
+  package: same tie-break, same ``min_shard_dim``) lays out each parameter
+  and its AdamW moments: its largest dim splits over ``model`` when it is
+  at least ``min_shard_dim`` and divisible by ``n_model``; with FSDP the
+  largest remaining eligible dim also splits over ``data``; the rest is
+  replicated. A rank stores its block of each parameter (``MeshParams``)
+  and gathers the whole weights of a model around that model's forward and
+  backward (``MeshParams.gathered``); its gradient is summed over the data
+  shards and cut back to the rank's block. In this slice the ``model`` axis
+  gives GSPMD's parameter and optimizer layout and its math, with the
+  sharded weights gathered at use: splitting the sharded matmuls' compute
+  over ``model`` (column- and row-parallel linears) is a later item.
+
+FSDP2's ``fully_shard`` places one sharded dim per parameter over one mesh
+(HSDP: replicate over one dim, shard over the other), while the rule under
+FSDP splits two dims over two axes; so the port stores the rule's blocks
+itself, with plain collectives, and gathers a whole model at a time.
+
+A batch under the mesh: a numpy leaf is the global batch (this rank takes
+its row block, as JAX's ``device_put`` shards a host array), a tensor is
+this rank's rows already (a mesh ``DataLoader``'s, the mesh memo's) and
+passes unchanged.
+"""
+
+import contextlib
+import datetime
+import os
+import re
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.nn as nn
+
+from routeformer_torch.utils.device import DeviceLike, resolve_device
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+DEFAULT_TIMEOUT_S = 1800.0
+
+
+def init_distributed(device: DeviceLike = None,
+                     timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Join the process group of a ``torchrun``-style launch (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; ``LOCAL_RANK`` picks
+    the card) unless one is initialised already: NCCL when this rank runs
+    on CUDA (the default), gloo when ``device`` is the CPU. Every
+    collective gives up after ``timeout_s``. Returns this rank's device."""
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not dist.is_initialized():
+        for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+            if var not in os.environ:
+                raise RuntimeError(
+                    f"init_distributed: {var} is not set; launch with torchrun "
+                    "(or set RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT)")
+        timeout = datetime.timedelta(seconds=timeout_s)
+        if cpu:
+            dist.init_process_group("gloo", init_method="env://", timeout=timeout)
+        else:
+            resolve_device("cuda")  # raises without CUDA
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+            dist.init_process_group("nccl", init_method="env://", timeout=timeout,
+                                    device_id=dev)
+    return resolve_device(device)
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              device: DeviceLike = None):
+    """The ``(data, model)`` ``DeviceMesh`` over every rank of the process
+    group (``n_data * n_model`` must be the world size; ``n_data`` defaults
+    to ``world // n_model``), on ``device``'s type (CUDA by default)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: no process group; call init_distributed first")
+    world = dist.get_world_size()
+    if n_data is None:
+        n_data = world // n_model
+    if n_data * n_model != world:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} ranks, "
+                         f"the process group has {world}")
+    return init_device_mesh(resolve_device(device).type, (n_data, n_model),
+                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+
+
+def check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or mesh.mesh_dim_names != (DATA_AXIS, MODEL_AXIS):
+        raise TypeError(f"mesh= takes the DeviceMesh of make_mesh (dims {DATA_AXIS!r}, "
+                        f"{MODEL_AXIS!r}), not {type(mesh).__name__}")
+
+
+def is_main_rank() -> bool:
+    """Rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def barrier() -> None:
+    if dist.is_initialized():
+        dist.barrier()
+
+
+# ------------------------------------------------------------- batches -- #
+
+
+def row_block(n_rows: int, mesh) -> slice:
+    """This rank's rows of a global batch of ``n_rows``."""
+    n_data = mesh.size(0)
+    if n_rows % n_data:
+        raise ValueError(f"batch {n_rows} not divisible by data-parallel degree {n_data}")
+    rows = n_rows // n_data
+    d = mesh.get_local_rank(DATA_AXIS)
+    return slice(d * rows, (d + 1) * rows)
+
+
+def leaf_batch_spec(x) -> tuple:
+    """The placement of one batch leaf: the leading dim over ``data``,
+    rank-0 leaves replicated."""
+    ndim = getattr(x, "ndim", 0)
+    return (DATA_AXIS,) + (None,) * (ndim - 1) if ndim >= 1 else ()
+
+
+def place_batch_leaf(x, mesh, device: torch.device) -> torch.Tensor:
+    """This rank's block of one batch leaf, on ``device``: a numpy leaf is
+    global (its row block is taken; float64 as float32, as JAX places it),
+    a tensor is this rank's already."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    x = np.asarray(x)
+    if leaf_batch_spec(x):
+        x = x[row_block(x.shape[0], mesh)]
+    if x.dtype == np.float64:
+        x = x.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def shard_batch(batch: dict, mesh, device: torch.device) -> dict:
+    """``place_batch_leaf`` over a nested batch dict."""
+    return {k: shard_batch(v, mesh, device) if isinstance(v, dict)
+            else place_batch_leaf(v, mesh, device) for k, v in batch.items()}
+
+
+def gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The data shards' row blocks of ``t`` concatenated in global row
+    order (every rank gets the whole)."""
+    n_data = mesh.size(0)
+    if n_data == 1:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n_data)]
+    dist.all_gather(parts, t, group=mesh.get_group(DATA_AXIS))
+    return torch.cat(parts)
+
+
+def mean_over_data(values: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Per-shard means of equal row blocks -> the global-batch means."""
+    n_data = mesh.size(0)
+    if n_data == 1 or not values:
+        return values
+    stacked = torch.stack([v.float() for v in values.values()])
+    dist.all_reduce(stacked, group=mesh.get_group(DATA_AXIS))
+    stacked = stacked / n_data
+    return dict(zip(values, stacked.unbind()))
+
+
+def sum_over_world(counts: Dict, device: torch.device) -> Dict:
+    """Integer counters summed over every rank (nested dicts)."""
+    flat = []
+
+    def walk(d):
+        for v in d.values():
+            walk(v) if isinstance(v, dict) else flat.append(int(v))
+
+    walk(counts)
+    if not dist.is_initialized() or not flat:
+        return counts
+    t = torch.tensor(flat, dtype=torch.int64, device=device)
+    dist.all_reduce(t)
+    it = iter(t.tolist())
+
+    def rebuild(d):
+        return {k: rebuild(v) if isinstance(v, dict) else next(it) for k, v in d.items()}
+
+    return rebuild(counts)
+
+
+# -------------------------------------------------------------- streams -- #
+
+
+def share_streams(models, mesh, device: torch.device) -> Optional[torch.Generator]:
+    """Split the random streams of ``models`` on a mesh with several data
+    shards: per-batch draws (``Routeformer``'s decisions, ``ProbAttention``'s
+    training key samples: modules with a ``shared_generator`` attribute)
+    from one generator that every rank seeds alike, so every rank runs the
+    same modules; per-row draws (noise, dropout masks) from the default
+    generators, reseeded per data shard (a model-axis replica draws what its
+    shard's other ranks draw). Modules with a ``data_group`` attribute
+    (PatchTST's BatchNorm) get the data shards' group. Returns the shared
+    generator, or None with one data shard (its streams are one device's)."""
+    n_data = mesh.size(0)
+    if n_data == 1:
+        return None
+    seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64).to(device)
+    dist.broadcast(seed, src=0)
+    seed = int(seed.item())
+    shared = torch.Generator(device=device).manual_seed(seed)
+    torch.manual_seed(seed + 1 + mesh.get_local_rank(DATA_AXIS))
+    group = mesh.get_group(DATA_AXIS)
+    for model in models:
+        for module in model.modules():
+            if hasattr(module, "shared_generator"):
+                module.shared_generator = shared
+            if hasattr(module, "data_group"):
+                module.data_group = group
+    return shared
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over ``group`` whose gradient is the sum of the ranks'
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def global_moments(x: torch.Tensor, dims: tuple, group):
+    """``(mean, biased variance, count)`` over ``dims`` of every data
+    shard's rows: the sum, the sum of squares and the count all-reduced over
+    ``group`` through autograd (the backward all-reduces their gradients),
+    as a BatchNorm's statistics over the global batch under GSPMD."""
+    c = x.shape[next(d for d in range(x.ndim) if d not in dims)]
+    count = torch.full((1,), x.numel() // c, dtype=x.dtype, device=x.device)
+    sums = _AllReduceSum.apply(torch.cat([x.sum(dim=dims), (x * x).sum(dim=dims), count]),
+                               group)
+    mean = sums[:c] / sums[-1]
+    return mean, torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0), sums[-1]
+
+
+# --------------------------------------------------------- parameters -- #
+
+
+def param_spec(x, n_model: int, min_shard_dim: int = 512, n_data_fsdp: int = 1) -> tuple:
+    """Structural sharding rule for one parameter (the JAX package's,
+    verbatim): a tuple with an axis name or None per dim, ``()`` when
+    replicated.
+
+    Tensor parallelism: the largest dim, when divisible by ``n_model`` and
+    at least ``min_shard_dim``, shards over the ``model`` axis.
+
+    FSDP (``n_data_fsdp > 1``): the data axis takes the largest eligible
+    dim NOT already claimed by the model axis (divisible by
+    ``n_data_fsdp`` and at least ``min_shard_dim``); with no second
+    eligible dim the parameter stays replicated over ``data``.
+    """
+    if x.ndim < 2:
+        return ()
+    dims = list(x.shape)
+    # stable tie-break (lowest index first)
+    order = sorted(range(x.ndim), key=lambda i: (-dims[i], i))
+    spec = [None] * x.ndim
+    if n_model > 1:
+        largest = order[0]
+        if dims[largest] % n_model == 0 and dims[largest] >= min_shard_dim:
+            spec[largest] = MODEL_AXIS
+    if n_data_fsdp > 1:
+        for d in order:
+            if spec[d] is not None:
+                continue
+            if dims[d] % n_data_fsdp == 0 and dims[d] >= min_shard_dim:
+                spec[d] = DATA_AXIS
+                break
+    if all(s is None for s in spec):
+        return ()
+    return tuple(spec)
+
+
+# The torch layout of a flax kernel (``convert.py``): torch dim i holds the
+# flax kernel's dim _KERNEL_DIMS[ndim][i] (Linear (in, out) -> (out, in),
+# Conv1d (k, in, out) -> (out, in, k), Conv2d HWIO -> OIHW).
+_KERNEL_DIMS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+# A layer of a flax scan (``convert.py``'s ``stacked_layers``, ``pairs``,
+# ``blocks``): its parameters carry a leading layer axis in the JAX package.
+_LAYER = re.compile(r"(^|\.)(stacked_layers|pairs|blocks)\.(\d+)\.")
+
+
+def layout_spec(name: str, x, n_model: int, min_shard_dim: int = 512,
+                n_data_fsdp: int = 1, n_layers: Optional[int] = None) -> tuple:
+    """``param_spec`` of one of the port's parameters, decided on the JAX
+    package's layout of it (the names follow ``convert.load_flax_params``):
+    a ``.weight`` of 2-4 dims is a flax kernel stored transposed, and a
+    parameter of layer ``i`` of a scan (``n_layers`` of them) is row ``i``
+    of a stacked parameter with a leading layer axis. The rule runs on that
+    shape and its answer is carried back, so the port's layout is GSPMD's:
+    tie-breaks on square kernels and the 1-D parameters a scan stacks into
+    2-D included. (A decision on the layer axis itself, which needs a layer
+    of at least ``min_shard_dim`` layers, would be dropped: no scan of the
+    port's models is that deep.)"""
+    perm = _KERNEL_DIMS.get(x.ndim) if name.endswith("weight") else None
+    perm = tuple(range(x.ndim)) if perm is None else perm
+    shape = [0] * x.ndim
+    for i, j in enumerate(perm):
+        shape[j] = x.shape[i]
+    if n_layers is not None:
+        shape = [n_layers] + shape
+    spec = param_spec(torch.empty(shape, device="meta"), n_model, min_shard_dim, n_data_fsdp)
+    if not spec:
+        return ()
+    if n_layers is not None:
+        spec = spec[1:]
+    spec = tuple(spec[j] for j in perm)
+    return spec if any(a is not None for a in spec) else ()
+
+
+def module_specs(module: nn.Module, n_model: int, min_shard_dim: int = 512,
+                 n_data_fsdp: int = 1) -> Dict[str, tuple]:
+    """``{parameter name: layout_spec}`` of a module tree."""
+    params = dict(module.named_parameters())
+    layers = {}
+    for name in params:
+        m = _LAYER.search(name)
+        if m:
+            key = name[:m.start(3)] + "*" + name[m.end(3):]
+            layers[key] = max(layers.get(key, 0), int(m.group(3)) + 1)
+
+    def n_layers(name):
+        m = _LAYER.search(name)
+        return layers[name[:m.start(3)] + "*" + name[m.end(3):]] if m else None
+
+    return {name: layout_spec(name, p, n_model, min_shard_dim, n_data_fsdp, n_layers(name))
+            for name, p in params.items()}
+
+
+def param_shardings(module: nn.Module, mesh, min_shard_dim: int = 512,
+                    fsdp: bool = False) -> Dict[str, tuple]:
+    """``{parameter name: spec}`` of a module on ``mesh``; the one place
+    the rule meets a module tree (``MeshParams`` reads it)."""
+    n_data, n_model = mesh.shape
+    return module_specs(module, n_model, min_shard_dim, n_data if fsdp else 1)
+
+
+def spec_block(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of a tensor laid out by ``spec``."""
+    out = full
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            n = mesh.size(0 if axis == DATA_AXIS else 1)
+            size = out.shape[dim] // n
+            out = out.narrow(dim, mesh.get_local_rank(axis) * size, size)
+    return out
+
+
+def spec_gather(block: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The whole tensor from every rank's ``spec`` block (a collective over
+    the axes ``spec`` names)."""
+    out = block
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            n = mesh.size(0 if axis == DATA_AXIS else 1)
+            out = out.contiguous()
+            parts = [torch.empty_like(out) for _ in range(n)]
+            dist.all_gather(parts, out, group=mesh.get_group(axis))
+            out = torch.cat(parts, dim=dim)
+    return out
+
+
+class MeshParams:
+    """A module's parameters laid out on ``mesh`` by ``param_spec``.
+
+    Building it broadcasts every parameter and buffer from rank 0 (the
+    ranks start from the same weights, as DDP makes them) and replaces each
+    sharded parameter's data by this rank's block, in place: the
+    ``nn.Parameter`` objects and their names stay, so an optimizer built
+    over them steps the blocks, and the AdamW moments take the blocks'
+    shapes. Each sharded parameter carries ``mesh_spec``."""
+
+    def __init__(self, module: nn.Module, mesh, min_shard_dim: int = 512,
+                 fsdp: bool = False):
+        self.mesh = mesh
+        self.key = (id(mesh), min_shard_dim, bool(fsdp))
+        self.n_data, self.n_model = mesh.shape
+        self.specs = param_shardings(module, mesh, min_shard_dim, fsdp)
+        with torch.no_grad():
+            for t in list(module.parameters()) + list(module.buffers()):
+                dist.broadcast(t.data, src=0)
+        sharded = {p: self.specs[n] for n, p in module.named_parameters() if self.specs[n]}
+        # every (owner module, attribute) that holds a sharded parameter
+        self.owners = [(m, k, p) for m in module.modules()
+                       for k, p in m._parameters.items() if p is not None and p in sharded]
+        self.full_shapes = {}
+        for p, spec in sharded.items():
+            self.full_shapes[p] = tuple(p.shape)
+            p.data = spec_block(p.data, spec, mesh).clone()
+            p.mesh_spec = spec
+        self.sharded = sharded
+        self._fulls: Dict[nn.Parameter, torch.Tensor] = {}
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """The whole weights in place of the blocks while the body runs (a
+        collective: every rank enters together). Each gathered weight is a
+        leaf that takes the gradient of the parameter; ``reduce_grads``,
+        inside the body after the backward, sums it over the data shards
+        and cuts this rank's block into the parameter's ``.grad``."""
+        fulls, grad = {}, torch.is_grad_enabled()
+        with torch.no_grad():
+            for p, spec in self.sharded.items():
+                fulls[p] = spec_gather(p.detach(), spec, self.mesh).requires_grad_(
+                    grad and p.requires_grad)
+        for m, k, p in self.owners:
+            m._parameters[k] = fulls[p]
+        self._fulls = fulls
+        try:
+            yield
+        finally:
+            for m, k, p in self.owners:
+                m._parameters[k] = p
+            self._fulls = {}
+
+    def reduce_grads(self) -> None:
+        """Inside ``gathered``: each sharded parameter's gradient is the mean
+        over the data shards of its whole-weight gradient, cut to this
+        rank's block (accumulated into ``.grad``). A weight no gradient
+        reached (the same on every rank) keeps ``.grad``."""
+        group = self.mesh.get_group(DATA_AXIS)
+        for p, full in self._fulls.items():
+            g = full.grad
+            if g is None:
+                continue
+            if self.n_data > 1:
+                dist.all_reduce(g, group=group)
+                g = g / self.n_data
+            block = spec_block(g, self.sharded[p], self.mesh).clone()
+            p.grad = block if p.grad is None else p.grad + block
+
+    def full_state_dict(self, module: nn.Module) -> Dict[str, torch.Tensor]:
+        """``module.state_dict()`` with every sharded parameter gathered
+        whole (a collective: every rank calls it), on the CPU."""
+        names = {p: n for n, p in module.named_parameters()}
+        whole = {names[p]: spec_gather(p.detach(), spec, self.mesh)
+                 for p, spec in self.sharded.items()}
+        return {k: whole.get(k, v).detach().cpu() for k, v in module.state_dict().items()}
+
+    def block_state_dict(self, module: nn.Module, state: dict) -> dict:
+        """A whole ``state_dict`` cut to this rank's blocks (for
+        ``load_state_dict``)."""
+        specs = {n: self.sharded[p] for n, p in module.named_parameters() if p in self.sharded}
+        return {k: spec_block(v, specs[k], self.mesh).clone() if k in specs else v
+                for k, v in state.items()}
+
+
+def replicated_grads_mean(params, mesh) -> None:
+    """The data-shard mean of the gradients of the parameters ``MeshParams``
+    replicates, in one flat all-reduce per dtype (a parameter without a
+    gradient, the same on every rank, is left out)."""
+    n_data = mesh.size(0)
+    if n_data == 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None and not hasattr(p, "mesh_spec")]
+    by_dtype: Dict[torch.dtype, list] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    group = mesh.get_group(DATA_AXIS)
+    for gs in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        dist.all_reduce(flat, group=group)
+        flat /= n_data
+        offset = 0
+        for g in gs:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def global_norm(params, norms, mesh) -> torch.Tensor:
+    """The norm of the whole gradient from each local gradient's norm:
+    the replicated parameters' squares once, each sharded parameter's
+    squares summed over the ranks that hold its distinct blocks (the axes
+    its ``mesh_spec`` names)."""
+    if not any(hasattr(p, "mesh_spec") for p in params):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms) ** 2
+    classes = {}
+    for p, s in zip(params, sq):
+        axes = frozenset(a for a in getattr(p, "mesh_spec", ()) if a is not None)
+        classes.setdefault(axes, []).append(s)
+    total = torch.zeros((), dtype=sq.dtype, device=sq.device)
+    for axes in sorted(classes, key=sorted):  # the same order on every rank
+        part = torch.stack(classes[axes]).sum()
+        if axes == {DATA_AXIS, MODEL_AXIS}:
+            dist.all_reduce(part)  # the mesh is the whole process group
+        elif axes:
+            dist.all_reduce(part, group=mesh.get_group(next(iter(axes))))
+        total = total + part
+    return torch.sqrt(total)

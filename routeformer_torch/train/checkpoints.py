@@ -13,6 +13,15 @@
   directory, the file synced, then two renames; a crash inside the swap
   leaves a complete snapshot under ``_latest.tmp`` or ``_latest.old``,
   which the next save or restore promotes.
+
+Under a mesh (``trainer.mesh``) every rank calls ``maybe_save``,
+``save_latest`` and ``restore_latest`` together: the models' and the
+optimizer's state is gathered whole (``MeshParams.full_state_dict``;
+the AdamW moments by their parameter's ``mesh_spec``) and only rank 0
+writes, between barriers; a restore cuts the whole state to the blocks of
+the trainer's own mesh, whatever mesh wrote it. Every rank's generator
+states are saved, and a restore on a mesh of the same size gives each rank
+its own back, so resume under the mesh is exact.
 """
 
 import json
@@ -24,6 +33,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from routeformer_torch.parallel import mesh as meshlib
 from routeformer_torch.utils.logging import get_logger
 
 logger = get_logger("train.checkpoints")
@@ -44,19 +54,82 @@ def _load(path: Path):
 
 
 def generator_states(trainer) -> dict:
-    """Every generator state a train step of ``trainer`` reads."""
+    """Every generator state a train step of ``trainer`` reads (this
+    rank's; on a mesh, ``ranks`` holds every rank's)."""
     states = {"cpu": torch.get_rng_state(),
               "eval": trainer.eval_generator.get_state()}
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         states["cuda"] = torch.cuda.get_rng_state_all()
+    if getattr(trainer, "shared_generator", None) is not None:
+        states["shared"] = trainer.shared_generator.get_state()
+    if getattr(trainer, "mesh", None) is not None:
+        ranks = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(ranks, states)
+        return {"ranks": ranks}
     return states
 
 
 def set_generator_states(trainer, states: dict) -> None:
+    if "ranks" in states:  # a mesh's snapshot: this rank's own, on a mesh of that size
+        ranks = states["ranks"]
+        rank = torch.distributed.get_rank() if torch.distributed.is_initialized() else 0
+        if len(ranks) != (torch.distributed.get_world_size()
+                          if torch.distributed.is_initialized() else 1):
+            logger.warning("snapshot of %d ranks restored on another mesh: the generators "
+                           "restart from rank 0's", len(ranks))
+            rank = 0
+        states = ranks[rank]
     torch.set_rng_state(states["cpu"])
     trainer.eval_generator.set_state(states["eval"])
     if "cuda" in states:
         torch.cuda.set_rng_state_all(states["cuda"])
+    if "shared" in states and getattr(trainer, "shared_generator", None) is not None:
+        trainer.shared_generator.set_state(states["shared"])
+
+
+def model_state(trainer, name: str) -> dict:
+    """A model's whole ``state_dict`` on the CPU (gathered on a mesh: every
+    rank calls it)."""
+    layout = getattr(trainer, "layouts", {}).get(name)
+    if layout is not None:
+        return layout.full_state_dict(trainer.models[name])
+    return {k: v.detach().cpu() for k, v in trainer.models[name].state_dict().items()}
+
+
+def load_model_state(trainer, name: str, state: dict) -> None:
+    layout = getattr(trainer, "layouts", {}).get(name)
+    if layout is not None:
+        state = layout.block_state_dict(trainer.models[name], state)
+    trainer.models[name].load_state_dict(state)
+
+
+def optimizer_state(trainer) -> dict:
+    """The optimizer's ``state_dict`` with the AdamW moments of sharded
+    parameters gathered whole (every rank calls it on a mesh)."""
+    opt = trainer.optimizer
+    state = opt.opt.state_dict()
+    if getattr(trainer, "mesh", None) is None:
+        return state
+    for i, p in enumerate(opt.params):
+        spec = getattr(p, "mesh_spec", None)
+        if spec is None or i not in state["state"]:
+            continue
+        state["state"][i] = {k: meshlib.spec_gather(v, spec, trainer.mesh).cpu()
+                             if k != "step" else v for k, v in state["state"][i].items()}
+    return state
+
+
+def load_optimizer_state(trainer, state: dict) -> None:
+    opt = trainer.optimizer
+    if getattr(trainer, "mesh", None) is not None:
+        state = {**state, "state": dict(state["state"])}
+        for i, p in enumerate(opt.params):
+            spec = getattr(p, "mesh_spec", None)
+            if spec is not None and i in state["state"]:
+                state["state"][i] = {
+                    k: meshlib.spec_block(v, spec, trainer.mesh).clone() if k != "step" else v
+                    for k, v in state["state"][i].items()}
+    opt.opt.load_state_dict(state)
 
 
 class CheckpointManager:
@@ -95,13 +168,17 @@ class CheckpointManager:
                 saved[name] = False
                 continue
             path = self._model_path(name)
-            path.parent.mkdir(parents=True, exist_ok=True)
-            state = {k: v.detach().cpu() for k, v in trainer.models[name].state_dict().items()}
-            _save_synced(state, path)
+            state = model_state(trainer, name)
+            if meshlib.is_main_rank():
+                path.parent.mkdir(parents=True, exist_ok=True)
+                _save_synced(state, path)
             self._best[name] = {"value": value, "epoch": epoch, "metric": key}
-            self._index_path().write_text(json.dumps(self._best, indent=2))
+            if meshlib.is_main_rank():
+                self._index_path().write_text(json.dumps(self._best, indent=2))
+            meshlib.barrier()
             saved[name] = True
-            logger.info("checkpointed %s at epoch %d (%s=%.4f)", name, epoch, key, value)
+            if meshlib.is_main_rank():
+                logger.info("checkpointed %s at epoch %d (%s=%.4f)", name, epoch, key, value)
         return saved
 
     def restore(self, trainer, name: str) -> bool:
@@ -109,7 +186,7 @@ class CheckpointManager:
         path = self._model_path(name)
         if not path.exists():
             return False
-        trainer.models[name].load_state_dict(_load(path))
+        load_model_state(trainer, name, _load(path))
         return True
 
     def restore_all(self, trainer) -> int:
@@ -152,12 +229,17 @@ class CheckpointManager:
         """Full snapshot for exact resume at ``(epoch, next_batch)``."""
         opt = trainer.optimizer
         payload = {
-            "models": {n: {k: v.detach().cpu() for k, v in trainer.models[n].state_dict().items()}
-                       for n in trainer.model_names},
-            "optimizer": None if opt is None else opt.opt.state_dict(),
+            "models": {n: model_state(trainer, n) for n in trainer.model_names},
+            "optimizer": None if opt is None else optimizer_state(trainer),
             "optimizer_count": 0 if opt is None else opt.count,
             "generators": generator_states(trainer),
         }
+        meshlib.barrier()
+        if meshlib.is_main_rank():
+            self._write_latest(payload, epoch, next_batch)
+        meshlib.barrier()
+
+    def _write_latest(self, payload: dict, epoch: int, next_batch: int) -> None:
         final = self._latest_dir()
         tmp, old = final.with_name("_latest.tmp"), final.with_name("_latest.old")
         if not final.exists():
@@ -180,14 +262,17 @@ class CheckpointManager:
         None when there is none or it no longer fits the trainer (another
         model set or optimizer): callers then use ``restore_all``."""
         latest = self._latest_dir()
-        if not self._complete(latest) and not self._promote_interrupted():
+        if meshlib.is_main_rank() and not self._complete(latest):
+            self._promote_interrupted()
+        meshlib.barrier()
+        if not self._complete(latest):
             return None
         payload = _load(latest / CKPT_FILE)
         try:
             for name in trainer.model_names:
-                trainer.models[name].load_state_dict(payload["models"][name])
+                load_model_state(trainer, name, payload["models"][name])
             if trainer.optimizer is not None:
-                trainer.optimizer.opt.load_state_dict(payload["optimizer"])
+                load_optimizer_state(trainer, payload["optimizer"])
                 trainer.optimizer.count = int(payload["optimizer_count"])
         except (KeyError, RuntimeError, ValueError) as exc:
             logger.warning("latest snapshot does not fit the trainer (%s: %s); "

@@ -5,7 +5,8 @@ the detached target visual features, weighted by the detached
 ``ratio * traj / max(dense, 1e-6)`` from epoch 10 on (0 before). An
 autoregressive model with dense prediction is trained on its first
 ``autoregressive_step_size`` steps: both losses on those steps, the
-trajectory loss scaled by ``pred_len / step``."""
+trajectory loss scaled by ``pred_len / step``. On a mesh with several data
+shards the weight is built from the global batch's two losses."""
 
 from dataclasses import dataclass
 from typing import Optional
@@ -56,7 +57,8 @@ def routeformer_training_loss(model, input_batch: dict, target_batch: dict, epoc
         if cfg.autoregressive:
             traj = traj * (cfg.gps_backbone_config.pred_len / step)
         dense = losses.dense_loss(future_visual, target_visual, epoch)
-        weight = (cfg.dense_loss_ratio * traj / torch.clamp(dense, min=1e-6)).detach()
+        traj_all, dense_all = _global_means(model, traj.detach(), dense.detach())
+        weight = cfg.dense_loss_ratio * traj_all / torch.clamp(dense_all, min=1e-6)
         if epoch < 10:
             weight = torch.zeros_like(weight)
         metrics["dense_loss"] = dense.detach()
@@ -69,3 +71,17 @@ def routeformer_training_loss(model, input_batch: dict, target_batch: dict, epoc
     metrics["ade"] = ade(future_gps, target_gps).detach()
     metrics["fde"] = fde_per_sample(future_gps, target_gps).mean().detach()
     return total, metrics
+
+
+def _global_means(model, *values):
+    """The global batch's means of per-shard means: averaged over the data
+    shards when ``model.data_group`` is set (a mesh with several), so a
+    weight built from them is the one JAX builds from the global batch."""
+    group = getattr(model, "data_group", None)
+    if group is None:
+        return values
+    import torch.distributed as dist
+
+    stacked = torch.stack(values)
+    dist.all_reduce(stacked, group=group)
+    return (stacked / dist.get_world_size(group)).unbind()

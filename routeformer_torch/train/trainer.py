@@ -26,10 +26,26 @@ class sets ``epoch_unfreeze = True`` once ``epoch > unfreeze_epoch``; the
 backbone then carries gradients (K1/K2 through autograd over their plain
 f32 recompute) and its 1e-6 optimizer group starts to move it. A feature
 cache serves frozen features, so the trainer refuses a cache together with
-an unfreeze epoch when it is built. ``mesh=`` (data and tensor parallelism)
-is not ported.
+an unfreeze epoch when it is built.
+
+``mesh=`` (a ``DeviceMesh`` of ``parallel.make_mesh``, one process per
+rank) runs the same math as one device on the global batch: each rank takes
+its row block of every batch (numpy leaves are global, tensors are its rows
+already: a mesh loader's or the mesh memo's), every model's parameters are
+laid out by the structural rule (``parallel.mesh.MeshParams``; ``fsdp``
+also over ``data``) and gathered around its forward and backward, the
+gradients and reported losses are the data shards' means, and one clipped
+AdamW step over the blocks follows (the clip's norm is the whole
+gradient's). With several data shards the per-batch decisions and the
+training key samples come from a generator shared by every rank, the
+per-row noise and masks from each data shard's own (the default generators
+reseeded per shard), and what couples a batch's rows takes the global
+batch (``parallel.mesh.share_streams``: the Informer's and PatchTST's
+BatchNorm statistics, the dense loss's weight). The MC eval runs each rank's rows and gathers the per-sample
+values in global row order before bucketing.
 """
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -40,6 +56,7 @@ from routeformer_torch.io.loader import canonical
 from routeformer_torch.models.layers.attention import ProbAttention
 from routeformer_torch.ops.image import dequantize_videos
 from routeformer_torch.optimizers.optimizer import Optimizer
+from routeformer_torch.parallel import mesh as meshlib
 from routeformer_torch.score.error import ade_per_sample, fde_per_sample
 from routeformer_torch.train.losses import TrainingLosses, routeformer_training_loss
 from routeformer_torch.train.metrics import GEM_QUARTILES, bucketed_eval_metrics
@@ -96,12 +113,11 @@ class ParallelTrainer:
                  optimizer: Callable[[nn.Module], Optimizer], config,
                  quartiles: Optional[Dict[str, float]] = None,
                  loss_fn: Optional[Callable] = None, mesh=None,
-                 unfreeze_epoch: Optional[int] = 10,
-                 feature_cache_active: bool = False, device: DeviceLike = None):
+                 min_shard_dim: int = 512, unfreeze_epoch: Optional[int] = 10,
+                 feature_cache_active: bool = False, device: DeviceLike = None,
+                 fsdp: bool = False):
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (data and tensor parallelism over several cards) is not "
-                "ported: ROADMAP.md §1 item 2")
+            meshlib.check_mesh(mesh)
         if feature_cache_active and unfreeze_epoch is not None:
             raise ValueError(
                 f"feature_cache_active with unfreeze_epoch={unfreeze_epoch}: cached "
@@ -120,20 +136,46 @@ class ParallelTrainer:
         self._unfrozen = False
         self.trained = nn.ModuleDict(
             {n: m for n, m in self.models.items() if not is_baseline(n)})
+        self.mesh = mesh
+        self.layouts = {}
+        self.shared_generator = None
+        if mesh is not None:
+            self._join_mesh(min_shard_dim, fsdp)
         has_params = any(True for _ in self.trained.parameters())
         self.optimizer = optimizer(self.trained) if has_params else None
+        if self.optimizer is not None:
+            self.optimizer.mesh = mesh
         self.eval_generator = torch.Generator(device=self.device)
+        self.grad_norm: Optional[torch.Tensor] = None  # the last step's, before the clip
         self.epoch = 0
+
+    def _join_mesh(self, min_shard_dim: int, fsdp: bool) -> None:
+        """Lay every model out on the mesh (rank 0's weights) and, with
+        several data shards, split the random streams: one shared by every
+        rank, and each data shard's own default generators."""
+        for name, model in self.models.items():
+            self.layouts[name] = meshlib.MeshParams(model, self.mesh, min_shard_dim, fsdp)
+        self.shared_generator = meshlib.share_streams(self.models.values(), self.mesh,
+                                                      self.device)
+
+    def _gathered(self, name: str):
+        """The model's whole weights while the body runs (a no-op without
+        a mesh)."""
+        layout = self.layouts.get(name)
+        return contextlib.nullcontext() if layout is None else layout.gathered()
 
     def _place(self, part: dict) -> dict:
         """A phase of a batch on the trainer's device, videos dequantized.
         Numpy leaves (the synthetic sets, a loader without ``to_device``)
         are copied here from pageable memory, float64 as float32 as JAX
         places them; tensors already on the device (a placing loader's)
-        are used as they are, with no copy."""
+        are used as they are, with no copy. On a mesh a numpy leaf is the
+        global batch and this rank takes its row block."""
         out = {}
         for k, v in part.items():
-            if isinstance(v, np.ndarray):
+            if self.mesh is not None:
+                v = meshlib.place_batch_leaf(v, self.mesh, self.device)
+            elif isinstance(v, np.ndarray):
                 v = torch.from_numpy(np.ascontiguousarray(canonical(v)))
             out[k] = v.to(self.device)
         return dequantize_videos(out)
@@ -172,14 +214,21 @@ class ParallelTrainer:
         if self.optimizer is not None:
             self.optimizer.zero_grad()
         for name, model in self.trained.items():
-            loss, model_metrics = self._loss_fn(name, model, inp, tgt, self.epoch)
-            loss.backward()
+            with self._gathered(name):
+                loss, model_metrics = self._loss_fn(name, model, inp, tgt, self.epoch)
+                loss.backward()
+                if name in self.layouts:
+                    self.layouts[name].reduce_grads()
             total = total + loss.detach()
             for k, v in model_metrics.items():
                 metrics[f"train_{k}_{name}"] = v.detach()
-        if self.optimizer is not None:
-            self.optimizer.step()
         metrics["train_total_loss"] = total
+        if self.mesh is not None:
+            if self.optimizer is not None:
+                meshlib.replicated_grads_mean(self.optimizer.params, self.mesh)
+            metrics = meshlib.mean_over_data(metrics, self.mesh)
+        if self.optimizer is not None:
+            self.grad_norm = self.optimizer.step().detach()
         return metrics
 
     def eval_batch_raw(self, batch: dict, names: Optional[list] = None):
@@ -188,8 +237,10 @@ class ParallelTrainer:
         with fresh key samples from the generator reseeded to ``EVAL_SEED``.
         ``names`` evaluates only those models (default: all)."""
         inp = self._place(batch["train"])
-        target_gps = torch.as_tensor(batch["target"]["gps"]).to(self.device).float()
-        pcis = torch.as_tensor(batch["pci"]).float().cpu()
+        leaves = {k: v if isinstance(v, torch.Tensor) else np.asarray(v)
+                  for k, v in (("gps", batch["target"]["gps"]), ("pci", batch["pci"]))}
+        leaves = self._place(leaves)
+        target_gps, pcis = leaves["gps"].float(), leaves["pci"].float()
         raw = {}
         for name in self.model_names if names is None else names:
             model = self.models[name]
@@ -198,7 +249,7 @@ class ParallelTrainer:
             set_mc_sampling(model, self.eval_generator)
             try:
                 self.eval_generator.manual_seed(EVAL_SEED)
-                with torch.no_grad():
+                with torch.no_grad(), self._gathered(name):
                     preds = []
                     for _ in range(MC_SAMPLES):
                         out = model(inp)
@@ -208,13 +259,20 @@ class ParallelTrainer:
                         self.losses.trajectory_loss(future[i:i + 1], target_gps[i:i + 1],
                                                     self.epoch)
                         for i in range(future.shape[0])])
-                    raw[name] = tuple(x.cpu() for x in (
+                    raw[name] = tuple(self._rows(x) for x in (
                         losses, ade_per_sample(future, target_gps),
                         fde_per_sample(future, target_gps)))
             finally:
                 set_mc_sampling(model, None)
                 model.train(was_training)
-        return pcis, raw
+        return self._rows(pcis), raw
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Per-sample values on the CPU, gathered in global row order on a
+        mesh."""
+        if self.mesh is not None:
+            x = meshlib.gather_rows(x, self.mesh)
+        return x.cpu()
 
     def evaluate(self, batches, split: str = "val") -> Dict[str, torch.Tensor]:
         """Epoch-level eval: per-sample values over every batch, bucketed

@@ -125,12 +125,50 @@ def test_driver_builds_the_jax_drivers_models():
 
 
 # The gps and full sets and PatchTST, refused before the zoo was ported,
-# now train (above); the multi-card mesh is still refused.
-@pytest.mark.parametrize("extra,match", [({"FSDP": "1"}, "ROADMAP.md §1 item 2")],
+# now train (above), and so does FSDP=1 (one process: no mesh, as the JAX
+# driver has none on one device); what the driver refuses is the JAX
+# driver's mesh refusal, a BATCH_SIZE the data shards do not divide.
+@pytest.mark.parametrize("extra,match", [({"FSDP": "1"}, "must be divisible")],
                          ids=["extra3-ROADMAP.md §1 item 6"])
 def test_driver_refuses_what_is_not_ported(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        fc.main(dict(BASE, RESULTS_DIR=str(tmp_path), **extra))
+    history = fc.main(dict(BASE, RESULTS_DIR=str(tmp_path), **extra))
+    assert len(history) == int(BASE.get("EPOCHS", 1))
+    s = fc.Settings.from_env(dict(BASE, BATCH_SIZE="6", N_MODEL_SHARDS="2", **extra))
+    assert s.fsdp and s.n_model_shards == 2
+    assert fc.mesh_shape(s, world=6) == (3, 2)
+    with pytest.raises(SystemExit, match=match) as e:
+        fc.mesh_shape(s, world=8)
+    assert str(e.value) == ("BATCH_SIZE=6 must be divisible by the data-parallel degree 4 "
+                            "(devices=8, N_MODEL_SHARDS=2)")
+
+
+def test_driver_trains_on_two_gloo_ranks(tmp_path):
+    """``torchrun --nproc_per_node=2`` of the driver on the CPU: a
+    ``(2, 1)`` mesh over gloo with FSDP, two epochs; rank 0 alone prints
+    (the mesh line, one line per epoch, ``best:``) and writes the metrics
+    stream and checkpoints."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, **dict(BASE, BATCH_SIZE="4", FSDP="1", RESULTS_DIR=str(tmp_path),
+                                  SAVE_EVERY_STEPS="1", OMP_NUM_THREADS="1"))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=2",
+         f"--master_port={port}", "-m", "routeformer_torch.experiments.full_comparison"],
+        cwd=Path(fc.__file__).resolve().parents[2], env=env, capture_output=True, text=True,
+        timeout=240)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = [ln for ln in out.stdout.splitlines() if ln.strip()]
+    assert lines[0] == "mesh: data=2 model=1", lines
+    assert [ln.split(":")[0] for ln in lines[1:]] == ["epoch 0", "epoch 1", "best"], lines
+    records = (tmp_path / "logs" / "gem_full_comparison.metrics.jsonl").read_text().splitlines()
+    assert sum('"split": "val"' in r for r in records) == 2
+    assert (tmp_path / "checkpoints" / "_latest" / "position.json").exists()
 
 
 @pytest.fixture(scope="module")

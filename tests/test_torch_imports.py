@@ -202,6 +202,54 @@ def test_audio_gpmf_and_export_need_no_host_package():
     assert out.stdout.split()[-2:] == ["audio", "read"]
 
 
+# torch's optimizers import torch._dynamo, which probes for pandas with
+# find_spec when it is first imported: it is imported before the blocker
+# (the card's machine has no pandas, and the probe then finds none).
+_MESH_BLOCKER = "import torch._dynamo\n" + _HOST_BLOCKER.split("import tempfile")[0] + r"""
+import datetime
+import tempfile
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+from routeformer_torch.io.frame_store import MeshFrameStoreRouter
+from routeformer_torch.io.synthetic import synthetic_batch_numpy
+from routeformer_torch.models.video_backbone.cache import MeshDeviceVideoFeaturePrecomputer
+from routeformer_torch.parallel import make_mesh
+from routeformer_torch.parallel.dryrun import _model, _optimizer, tiny_flagship_config
+from routeformer_torch.train import CheckpointManager, ParallelTrainer
+work = Path(tempfile.mkdtemp())
+dist.init_process_group("gloo", init_method=f"file://{work / 'rdv'}", rank=0, world_size=1,
+                        timeout=datetime.timedelta(seconds=60))
+mesh = make_mesh(1, 1, device="cpu")
+cfg = tiny_flagship_config()
+batch = synthetic_batch_numpy(1, 2, seq_len=8, pred_len=6, fps=2, with_video=True,
+                              with_gaze=True, frame_hw=(16, 24))
+memo = MeshDeviceVideoFeaturePrecomputer(_model(cfg, 1).eval(), mesh, device="cpu")
+assert memo(dict(batch["train"]))["left_video_features"].shape[0] == 2
+router = MeshFrameStoreRouter(mesh, budget_bytes=1e6, device="cpu")
+assert router.put("left", np.zeros((2, 3, 4, 4, 3), np.uint8)).shape == (2, 3, 4, 4, 3)
+trainer = ParallelTrainer({"flagship": _model(cfg, 0)}, _optimizer, cfg, mesh=mesh,
+                          min_shard_dim=32, fsdp=True, unfreeze_epoch=None, device="cpu")
+assert np.isfinite(float(trainer.training_step(batch)["train_total_loss"]))
+CheckpointManager(work / "ckpt").save_latest(trainer, 0, 1)
+dist.destroy_process_group()
+leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("mesh stepped")
+"""
+
+
+def test_mesh_needs_no_host_package():
+    """With jax, cv2, msgpack, zstandard and pandas all blocked: a mesh of
+    one gloo rank, its memo and frame store, an FSDP trainer's step and a
+    snapshot (the multi-rank mesh: ``test_torch_mesh_train.py``)."""
+    out = subprocess.run([sys.executable, "-c", _MESH_BLOCKER], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["mesh", "stepped"]
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         assert resolve_device(None).type == "cuda"

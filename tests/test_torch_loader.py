@@ -141,14 +141,15 @@ def test_placing_loader_matches_the_numpy_collate(dedup):
 
 
 def test_refusals_and_the_trainers_placement():
-    """``mesh=`` and producers > 1 with the frame store raise; the
-    trainer uses tensors already on its device as they are (no copy) and
-    copies numpy leaves, float64 as float32."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
+    """``mesh=`` takes a ``make_mesh`` DeviceMesh only, and producers > 1
+    with the frame store raise; the trainer uses tensors already on its
+    device as they are (no copy) and copies numpy leaves, float64 as
+    float32."""
+    with pytest.raises(TypeError, match="DeviceMesh of make_mesh"):
         DataLoader(WindowSet(), mesh=object())
     with pytest.raises(ValueError, match="producers > 1"):
         DataLoader(WindowSet(), to_device=True, h2d_dedup=True, producers=2, device="cpu")
-    trainer = types.SimpleNamespace(device=torch.device("cpu"))
+    trainer = types.SimpleNamespace(device=torch.device("cpu"), mesh=None)
     video = torch.zeros((1, 2, 3, 3, 3), dtype=torch.float16)
     gps = np.ones((1, 4, 2))
     placed = ParallelTrainer._place(trainer, {"left_video": video, "gps": gps})

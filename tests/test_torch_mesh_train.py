@@ -1,0 +1,498 @@
+"""The ``(data, model)`` mesh on 4 gloo CPU ranks against one process and
+the JAX trainer.
+
+One launch of 4 ranks (``parallel.dryrun.launch``, a module fixture) runs
+every rank-side check once: the lockstep trainer over the small
+Routeformer of ``test_torch_trainer.py`` (exhaustive ProbSparse, dropout 0,
+no motion noise) and ``stationary_baseline``, from the same weights, two
+steps at batch 4 on each mesh: (data, model) = (4, 1), (2, 2) and (2, 2)
+with FSDP (``min_shard_dim=32``, so the Routeformer's matrices shard);
+the MC eval before and after the FSDP mesh's steps (the second after an
+optimizer step, so a stale derived weight would show); PatchTST's
+BatchNorm at ``data=2``; a snapshot under FSDP restored on a fresh mesh;
+the mesh loader's order, rows and frame store; the mesh memo. While the
+ranks run, the parent computes the references: the port's trainer in one
+process on the global batch, and the JAX trainer on the conftest's virtual
+mesh at (2, 2) with FSDP (one JAX mesh: its compile takes a minute; JAX's
+own tests hold its meshes to its one device).
+
+Tolerances: losses, grad norms and eval metrics 1e-5 relative (f32; the
+ranks' sums only reorder the one process's); parameters by
+``test_torch_trainer``'s rule (1e-3 lr where the gradient is firm, else
+2 lr: AdamW moves a gradient that is 0 up to rounding by lr times its
+sign)."""
+
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+N = 4
+MESHES = {"dp": ((4, 1), False), "dp_tp": ((2, 2), False), "fsdp": ((2, 2), True)}
+EPOCHS = (3, 12)
+MIN_SHARD = 32
+WINDOW, POOL, LOADER_B = 4, 12, 8
+
+
+# ---------------------------------------------------------- rank side -- #
+
+
+class Windows:
+    """Overlapping uint8 windows of a small frame pool and a float64 leaf."""
+
+    def __init__(self, n=40):
+        self.n = n
+        self.pool = np.random.default_rng(0).integers(0, 255, (POOL, 6, 8, 3), dtype=np.uint8)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return {"left_video": self.pool[(i + np.arange(WINDOW)) % POOL],
+                "gps": np.full((3, 2), float(i))}
+
+
+def _models(arg, seed_noise=None):
+    from routeformer_torch.convert import load_flax_params
+    from routeformer_torch.models import Routeformer, RouteformerConfig
+    from routeformer_torch.models.gps_backbone import GPSBackboneConfig, StationaryBaseline
+    from routeformer_torch.models.layers import ProbAttention
+    from routeformer_torch.models.video_backbone import TimmBackboneConfig
+
+    gps, video, top = arg["kwargs"]
+    model = Routeformer(RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps),
+                                          video_backbone_config=TimmBackboneConfig(**video),
+                                          **top))
+    for m in model.modules():
+        if isinstance(m, ProbAttention):
+            m.factor = arg["exhaustive"]
+    load_flax_params(model, arg["flat"])
+    if seed_noise is not None:  # other weights, for a restore to overwrite
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.01)
+    baseline = Routeformer(
+        RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps),
+                          discount_factor=top["discount_factor"], epsilon=1.0),
+        gps_backbone=StationaryBaseline)
+    return {"routeformer": model, "stationary_baseline": baseline}
+
+
+def _trainer(models, arg, mesh=None, fsdp=False):
+    from routeformer_torch.optimizers import build_optimizer
+    from routeformer_torch.train import ParallelTrainer
+
+    return ParallelTrainer(models, lambda m: build_optimizer(m, **arg["opt"]),
+                           models["routeformer"].configs, device="cpu", unfreeze_epoch=None,
+                           mesh=mesh, fsdp=fsdp, min_shard_dim=MIN_SHARD)
+
+
+def _floats(metrics):
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _steps(trainer, arg, after_first=None):
+    steps = []
+    for i, (epoch, batch) in enumerate(zip(EPOCHS, arg["train"])):
+        trainer.epoch = epoch
+        steps.append(dict(_floats(trainer.training_step(batch)),
+                          grad_norm=float(trainer.grad_norm)))
+        if i == 0 and after_first is not None:
+            after_first()
+    return steps
+
+
+def _params(trainer, name="routeformer"):
+    from routeformer_torch.train.checkpoints import model_state
+
+    state = model_state(trainer, name)
+    return {k: state[k].numpy() for k, _ in trainer.models[name].named_parameters()}
+
+
+def _patchtst(arg):
+    from routeformer_torch.flagship import init_weights
+    from routeformer_torch.models import Routeformer, RouteformerConfig
+    from routeformer_torch.models.gps_backbone import PatchTST, PatchTSTBackboneConfig
+
+    gps, _, top = arg["kwargs"]
+    cfg = RouteformerConfig(gps_backbone_config=PatchTSTBackboneConfig(**gps, fc_dropout=0.0),
+                            decoder_mode="smart", discount_factor=top["discount_factor"],
+                            epsilon=1.0)
+    model = Routeformer(cfg, gps_backbone=PatchTST)
+    init_weights(model, seed=5)
+    return {"routeformer": model}
+
+
+def _patchtst_step(trainer, batch):
+    trainer.epoch = EPOCHS[0]
+    loss = float(trainer.training_step(batch)["train_total_loss"])
+    stats = {k: v.numpy().copy() for k, v in trainer.models["routeformer"].state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return {"loss": loss, "stats": stats, "params": _params(trainer)}
+
+
+def rank_checks(rank, n, arg):
+    """Every rank-side check; rank 0 returns its records, every rank its
+    loader and memo records."""
+    from routeformer_torch.io.loader import DataLoader
+    from routeformer_torch.models.video_backbone.cache import (
+        DeviceVideoFeaturePrecomputer,
+        MeshDeviceVideoFeaturePrecomputer,
+    )
+    from routeformer_torch.parallel import make_mesh
+    from routeformer_torch.parallel.dryrun import _model, tiny_flagship_config
+    from routeformer_torch.parallel.mesh import row_block
+    from routeformer_torch.train import CheckpointManager
+
+    out = {"rank": rank, "mesh": {}}
+    for key, (shape, fsdp) in MESHES.items():
+        mesh = make_mesh(*shape, device="cpu")
+        trainer = _trainer(_models(arg), arg, mesh, fsdp)
+        rec = {"sharded": {k: tuple(p.shape) for k, p in
+                           trainer.models["routeformer"].named_parameters()
+                           if hasattr(p, "mesh_spec")}}
+        save = None
+        if key == "fsdp":
+            rec["eval_before"] = _floats(trainer.evaluate(arg["val"]))
+            ckpt = CheckpointManager(Path(arg["dir"]) / "ckpt")
+            save = lambda: ckpt.save_latest(trainer, EPOCHS[0], next_batch=1)  # noqa: E731
+        rec["steps"] = _steps(trainer, arg, save)
+        rec["params"] = _params(trainer)
+        if key == "fsdp":
+            from routeformer_torch.train.checkpoints import model_state
+
+            rec["eval_after"] = _floats(trainer.evaluate(arg["val"]))
+            rec["state"] = {k: v.numpy() for k, v in model_state(trainer, "routeformer").items()}
+            restored = {}
+            for again, (shape2, fsdp2) in (("same", MESHES["fsdp"]), ("dp", MESHES["dp"])):
+                fresh = _trainer(_models(arg, seed_noise=1), arg,
+                                 make_mesh(*shape2, device="cpu"), fsdp2)
+                pos = ckpt.restore_latest(fresh)
+                fresh.epoch = EPOCHS[1]
+                loss = float(fresh.training_step(arg["train"][1])["train_total_loss"])
+                restored[again] = {"pos": pos, "loss": loss, "params": _params(fresh)}
+            rec["restored"] = restored
+        out["mesh"][key] = rec
+
+    mesh22 = make_mesh(2, 2, device="cpu")
+    out["patchtst"] = _patchtst_step(_trainer(_patchtst(arg), arg, mesh22), arg["patch_batch"])
+
+    mesh41 = make_mesh(4, 1, device="cpu")
+    orders = {}
+    for dedup in (True, False):
+        for shuffle in (True, False):
+            loader = DataLoader(Windows(), batch_size=LOADER_B, shuffle=shuffle, seed=3,
+                                mesh=mesh41, to_device=True, h2d_dedup=dedup, device="cpu")
+            for epoch in range(3):
+                loader.set_epoch(epoch)
+                orders[(dedup, shuffle, epoch)] = loader._indices()
+    out["orders"] = orders
+    loader = DataLoader(Windows(), batch_size=LOADER_B, shuffle=True, seed=3, mesh=mesh41,
+                        to_device=True, h2d_dedup=True, device="cpu", num_threads=2)
+    ds, rows_ok, shipped = Windows(), True, []
+    for epoch in range(2):
+        loader.set_epoch(epoch)
+        for idx, batch in zip(loader.batch_indices(), loader):
+            want = [ds[int(i)] for i in idx[row_block(LOADER_B, mesh41)]]
+            rows_ok &= np.array_equal(batch["left_video"].numpy(),
+                                      np.stack([w["left_video"] for w in want]))
+            rows_ok &= np.array_equal(batch["gps"].numpy(),
+                                      np.stack([w["gps"] for w in want]).astype(np.float32))
+        shipped.append({k: v["shipped"] for k, v in loader.frame_store_stats().items()})
+    out["loader"] = {"rows_ok": bool(rows_ok), "shipped": shipped}
+
+    cfg = tiny_flagship_config()
+    model = _model(cfg, seed=4).eval()
+    video = np.random.default_rng(rank * 0 + 5).uniform(size=(8, 8, 16, 24, 3)).astype(
+        np.float32)
+    got = MeshDeviceVideoFeaturePrecomputer(model, mesh41, device="cpu")
+    first = got({"left_video": video, "gps": np.zeros((8, 3, 2))})
+    again = got({"left_video": video})
+    stats = got.stats()
+    want = DeviceVideoFeaturePrecomputer(model, device="cpu")({"left_video": video})
+    try:
+        MeshDeviceVideoFeaturePrecomputer(model, mesh22, device="cpu")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out["memo"] = {
+        "err": float((first["left_video_features"]
+                      - want["left_video_features"][row_block(8, mesh41)]).abs().max()),
+        "warm_same": bool(torch.equal(again["left_video_features"],
+                                      first["left_video_features"])),
+        "gps_passes": first["gps"].shape == (8, 3, 2), "stats": stats, "refused": refused}
+    return out
+
+
+# --------------------------------------------------------- parent side -- #
+
+
+def _batch4(seed, pci):
+    from test_torch_routeformer import PRED_LEN, _inputs
+
+    def four(s):
+        a, b = _inputs(s), _inputs(s + 50)
+        return {k: np.concatenate([a[k], b[k]]) for k in a}
+
+    tgt = {k: v if k == "gaze" else v[:, :PRED_LEN] for k, v in four(seed + 1).items()}
+    return {"train": four(seed), "target": tgt, "pci": np.asarray(pci, np.float32)}
+
+
+def _jax_model(kwargs):
+    """The JAX package's small Routeformer of ``test_torch_trainer.py``."""
+    from flax import nnx
+
+    from test_torch_trainer import (
+        EXHAUSTIVE,
+        JaxConfig,
+        JaxGPSConfig,
+        JaxInformer,
+        JaxPerceiveEncoder,
+        JaxProbAttention,
+        JaxRouteformer,
+        JaxSwin,
+        JaxTimmConfig,
+    )
+
+    gps, video, top = kwargs
+    model = JaxRouteformer(
+        JaxConfig(gps_backbone_config=JaxGPSConfig(**gps),
+                  video_backbone_config=JaxTimmConfig(cache_enabled=False, **video), **top),
+        gps_backbone=JaxInformer, video_backbone=JaxSwin, rngs=nnx.Rngs(0, dropout=1))
+    for _, m in nnx.iter_modules(model):
+        if isinstance(m, (JaxProbAttention, JaxPerceiveEncoder)):
+            m.factor = EXHAUSTIVE
+    return model
+
+
+def _arg(tmp_dir):
+    from test_torch_models import export_params
+    from test_torch_routeformer import EXHAUSTIVE
+    from test_torch_train import OPT
+    from test_torch_trainer import _configs
+
+    flat = export_params(_jax_model(_configs()), np.random.default_rng(0))
+    rng = np.random.default_rng(1)
+    gps = np.cumsum(rng.normal(size=(4, 14, 2)) * 0.5, axis=1).astype(np.float32)
+    return {"kwargs": _configs(), "exhaustive": EXHAUSTIVE, "flat": flat, "opt": OPT,
+            "train": [_batch4(7, [30.0] * 4), _batch4(11, [30.0] * 4)],
+            "val": [_batch4(21, [23.0, 70.0, 45.0, 90.0])], "dir": str(tmp_dir),
+            "patch_batch": {"train": {"gps": gps[:, :8]}, "target": {"gps": gps[:, 8:]}}}
+
+
+def _jax_fsdp_run(arg):
+    """The JAX trainer at (2, 2) with FSDP on the virtual mesh: both steps'
+    metrics, the first step's gradients (Adam's first moment) and the
+    final parameters."""
+    from flax import nnx
+
+    from routeformer_tpu.parallel import make_mesh
+    from test_torch_models import import_params
+    from test_torch_trainer import (
+        OPT,
+        SCHEDULE,
+        JaxConfig,
+        JaxGPSConfig,
+        JaxRouteformer,
+        JaxStationary,
+        JaxTrainer,
+        _flat_torch,
+        jax_build_optimizer,
+    )
+
+    gps, _, _ = arg["kwargs"]
+    model = _jax_model(arg["kwargs"])
+    import_params(model, arg["flat"])
+    baseline = JaxRouteformer(
+        JaxConfig(gps_backbone_config=JaxGPSConfig(**gps), discount_factor=SCHEDULE,
+                  epsilon=1.0), gps_backbone=JaxStationary, rngs=nnx.Rngs(1, dropout=2))
+    shape, fsdp = MESHES["fsdp"]
+    trainer = JaxTrainer({"routeformer": model, "stationary_baseline": baseline},
+                         jax_build_optimizer(**OPT), model.configs, unfreeze_epoch=None,
+                         mesh=make_mesh(*shape), min_shard_dim=MIN_SHARD, fsdp=fsdp)
+    steps, grads = [], None
+    for epoch, batch in zip(EPOCHS, arg["train"]):
+        trainer.epoch = epoch
+        steps.append(_floats(trainer.training_step(batch)))
+        if grads is None:
+            grads = {}
+            for group in trainer.opt_state[1].inner_states.values():
+                grads.update(_flat_torch(group.inner_state[0].mu["routeformer"]))
+    return steps, {k: g / 0.1 for k, g in grads.items()}, _flat_torch(
+        trainer.params["routeformer"])
+
+
+def _one_process(arg):
+    """The port's trainer in one process on the global batches: steps,
+    first-step gradients, parameters, evals; and PatchTST's step."""
+    ref = _trainer(_models(arg), arg)
+    out = {"eval_before": _floats(ref.evaluate(arg["val"]))}
+    grads = {}
+
+    def keep_grads():
+        grads.update({k: p.grad.numpy().copy() for k, p in
+                      ref.models["routeformer"].named_parameters()})
+
+    out["steps"] = _steps(ref, arg, keep_grads)
+    out["grads"] = grads
+    out["params"] = _params(ref)
+    out["patchtst"] = _patchtst_step(_trainer(_patchtst(arg), arg), arg["patch_batch"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The 4 ranks' records (rank 0's and every rank's), the one-process
+    references and the JAX trainer's run. The ranks run in a thread while
+    the parent computes the references."""
+    from routeformer_torch.parallel.dryrun import launch
+
+    torch.set_num_threads(1)
+    arg = _arg(tmp_path_factory.mktemp("mesh"))
+    box = {}
+
+    def ranks():
+        try:
+            box["ranks"] = launch("test_torch_mesh_train:rank_checks", N, arg,
+                                  timeout_s=400, pythonpath=[Path(__file__).parent])
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["error"] = e
+
+    thread = threading.Thread(target=ranks)
+    thread.start()
+    try:
+        one = _one_process(arg)
+        jax_run = _jax_fsdp_run(arg)
+    finally:
+        thread.join()
+    if "error" in box:
+        raise box["error"]
+    return {"ranks": box["ranks"], "one": one, "jax": jax_run, "arg": arg}
+
+
+def _hold_params(got, want, grads, lr):
+    scale = max(np.abs(g).max() for g in grads.values())
+    assert set(got) == set(want)
+    for k, w in want.items():
+        diff = np.abs(got[k] - w)
+        firm = np.abs(grads[k]) > 1e-3 * scale
+        assert diff[firm].max(initial=0.0) <= 1e-3 * lr, k
+        assert diff.max() <= 2 * lr, k
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+def test_mesh_steps_match_one_process(runs, key):
+    """Both steps' metrics and grad norms at 1e-5 relative, the parameters
+    by the rule, and the layout: nothing sharded on (4, 1), matrices split
+    over ``model`` on (2, 2), and with FSDP some over ``data`` too."""
+    rec, one = runs["ranks"][0]["mesh"][key], runs["one"]
+    for got, want in zip(rec["steps"], one["steps"]):
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert got[k] == pytest.approx(v, rel=1e-5), (key, k)
+    _hold_params(rec["params"], one["params"], one["grads"], runs["arg"]["opt"]["learning_rate"])
+    full = {k: v.shape for k, v in one["params"].items()}
+    if key == "dp":
+        assert not rec["sharded"]
+    else:
+        assert len(rec["sharded"]) >= 10
+        for k, block in rec["sharded"].items():
+            assert np.prod(block) * (4 if key == "fsdp" else 2) >= np.prod(full[k]), k
+        if key == "fsdp":
+            assert any(np.prod(b) * 4 == np.prod(full[k]) for k, b in rec["sharded"].items())
+
+
+def test_fsdp_mesh_matches_the_jax_trainer(runs):
+    """(2, 2) with FSDP against the JAX trainer on its (2, 2) FSDP mesh:
+    every metric of both steps at 1e-5 relative, the parameters by the
+    rule (firm gradients from JAX's first step)."""
+    rec = runs["ranks"][0]["mesh"]["fsdp"]
+    want_steps, want_g, want_p = runs["jax"]
+    for got, want in zip(rec["steps"], want_steps):
+        for k, v in want.items():
+            assert got[k] == pytest.approx(v, rel=1e-5), k
+    _hold_params(rec["params"], want_p, want_g, runs["arg"]["opt"]["learning_rate"])
+
+
+def test_mesh_mc_eval_matches_one_process(runs):
+    """The MC eval's bucketed metrics, gathered in global row order, at
+    1e-5 relative: before the steps against the one process's; after them
+    against one process evaluating the mesh's own weights (the derived
+    weights the ranks cached before the steps followed the optimizer; the
+    one process's own steps leave weights up to 2 lr apart)."""
+    rec, arg = runs["ranks"][0]["mesh"]["fsdp"], runs["arg"]
+    models = _models(arg)
+    models["routeformer"].load_state_dict({k: torch.from_numpy(v)
+                                           for k, v in rec["state"].items()})
+    after = _trainer(models, arg)
+    after.epoch = EPOCHS[1]
+    want = {"eval_before": runs["one"]["eval_before"],
+            "eval_after": _floats(after.evaluate(arg["val"]))}
+    for when, values in want.items():
+        assert set(rec[when]) == set(values)
+        for k, v in values.items():
+            assert rec[when][k] == pytest.approx(v, rel=1e-5, abs=1e-6), (when, k)
+
+
+def test_patchtst_batchnorm_is_the_global_batch(runs):
+    """PatchTST at ``data=2``: the loss, BatchNorm's running statistics and
+    the parameters after one step equal the one process's on the global
+    batch."""
+    got, want = runs["ranks"][0]["patchtst"], runs["one"]["patchtst"]
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    assert set(got["stats"]) == set(want["stats"]) and want["stats"]
+    for k, v in want["stats"].items():
+        np.testing.assert_allclose(got["stats"][k], v, rtol=1e-5, atol=1e-6, err_msg=k)
+    lr = runs["arg"]["opt"]["learning_rate"]
+    for k, v in want["params"].items():
+        assert np.abs(got["params"][k] - v).max() <= 2 * lr, k
+
+
+def test_snapshot_restores_on_a_fresh_mesh(runs):
+    """A snapshot under FSDP, restored on a fresh (2, 2) FSDP mesh: the
+    next step gives the uninterrupted run's bits; restored on a (4, 1)
+    mesh, the same step within 1e-5."""
+    rec = runs["ranks"][0]["mesh"]["fsdp"]
+    same, other = rec["restored"]["same"], rec["restored"]["dp"]
+    assert same["pos"] == other["pos"] == (EPOCHS[0], 1)
+    assert same["loss"] == rec["steps"][1]["train_total_loss"]
+    for k, v in rec["params"].items():
+        assert np.array_equal(same["params"][k], v), k
+    assert other["loss"] == pytest.approx(rec["steps"][1]["train_total_loss"], rel=1e-5)
+
+
+def test_mesh_loader_order_matches_jax(runs):
+    """The mesh loader's epoch order equals JAX's ``DataLoader(mesh=
+    make_mesh(4, 1))``: shard-stable with the frame store, the plain
+    order without, shuffle on and off, epochs 0-2."""
+    from routeformer_tpu.io.loader import DataLoader as JaxLoader
+    from routeformer_tpu.parallel import make_mesh
+
+    for (dedup, shuffle, epoch), got in runs["ranks"][0]["orders"].items():
+        jax_loader = JaxLoader(Windows(), batch_size=LOADER_B, shuffle=shuffle, seed=3,
+                               mesh=make_mesh(4, 1), to_device=True, h2d_dedup=dedup)
+        jax_loader.set_epoch(epoch)
+        np.testing.assert_array_equal(got, jax_loader._indices(),
+                                      err_msg=str((dedup, shuffle, epoch)))
+
+
+def test_mesh_loader_rows_and_frame_store(runs):
+    """Each rank reads its row block of every batch, the same bytes as the
+    dataset's samples, and a warm epoch ships no frame (the sum over
+    ranks)."""
+    for r in runs["ranks"]:
+        assert r["loader"]["rows_ok"], r["rank"]
+        cold, warm = r["loader"]["shipped"]
+        assert cold and warm == cold, (cold, warm)
+
+
+def test_mesh_memo_matches_one_device(runs):
+    """Each rank's memo features equal the one-device memo's rows; a warm
+    pass encodes nothing; a model axis is refused with JAX's message."""
+    for r in runs["ranks"]:
+        memo = r["memo"]
+        assert memo["err"] <= 1e-6 and memo["warm_same"] and memo["gps_passes"], memo
+        assert memo["stats"]["encoded"] > 0 and memo["stats"]["seen"] == 2 * 4 * 2 * 4  # calls x ranks x rows x frames
+        assert "pure data-parallel mesh (model axis is 2)" in memo["refused"]

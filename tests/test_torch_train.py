@@ -109,7 +109,7 @@ def test_eval_step_matches_jax(rng):
     """``make_eval_step``: an eval-mode forward under ``inference_mode``
     (the model put in eval mode, ProbSparse on the eval key sample) against
     JAX ``make_eval_step`` at the same weights, f32 at 1e-5; ``mesh=``
-    refused."""
+    takes a ``make_mesh`` DeviceMesh only."""
     gps, _, _ = _kwargs(4)
     top = dict(discount_factor={0: 0.97}, epsilon=1.0)
     jax_model = JaxRouteformer(JaxConfig(gps_backbone_config=JaxGPSConfig(**gps), **top),
@@ -129,7 +129,7 @@ def test_eval_step_matches_jax(rng):
     want = np.asarray(jax_step(params, state, {"gps": jnp.asarray(gps_in)}))
     assert got.is_inference() and tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 2"):
+    with pytest.raises(TypeError, match="DeviceMesh of make_mesh"):
         make_eval_step(port, eval_fn, mesh=object())
 
 

@@ -352,7 +352,7 @@ def test_unfreeze_boundary():
 def test_refusals():
     with pytest.raises(ValueError, match="unfreeze"):
         port_trainer(port_models(), unfreeze_epoch=10, feature_cache_active=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="DeviceMesh of make_mesh"):
         port_trainer(port_models(), mesh=object())
     port_trainer(port_models(), unfreeze_epoch=None, feature_cache_active=True)
 
