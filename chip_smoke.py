@@ -25,7 +25,9 @@ Phases (any failure exits non-zero):
    one batch-4 request of synthetic GEM-geometry clips; check shapes,
    finiteness and 24 K1 and 24 K2 launches per forward; hold the card's
    forward against a CPU run of the same weights (plain versions,
-   exhaustive ProbSparse); time a request with CUDA events. Then one
+   exhaustive ProbSparse; SwinV2's stage 2 cut to its first
+   ``FLAGSHIP_CPU_PAIRS`` pair on both sides for this comparison); time a
+   request with CUDA events. Then one
    batch-1 request with the fused Perceive stack (K3a, 24 launches per
    forward) against the plain-stack request.
 5b. K4 (dense flash attention) against its plain version at the DinoV2
@@ -39,7 +41,8 @@ Phases (any failure exits non-zero):
    (``build_dinov2``), through a bundle, three batch-1 and one batch-4
    request; 12 K4 launches and no K1/K2/K3a launch per forward; the card's
    forward against the CPU plain forward (exhaustive; both cut to the first
-   ``DINOV2_CPU_DEPTH`` of the 12 ViT blocks for this comparison); request times, peak
+   ``DINOV2_CPU_DEPTH`` of the 12 ViT blocks for this comparison); request
+   times, peak
    memory and one profiled request, with the plain Perceive layers and with
    the fused stack. Then a batch-1 request with the fused stack (K3a runs
    the frame encoder at 1370 tokens: 24 K3a launches per forward, counts
@@ -88,7 +91,7 @@ Phases (any failure exits non-zero):
    ``build_flagship_training``'s step: the same seed weights, batches and
    generator seeds, dropout off, exhaustive ProbSparse, two steps: the same
    bits, or the first differing tensor and the ops without a deterministic
-   implementation named, within phase 7's limits. (2) Two cold epochs (the
+   implementation named, within phase 7's limits. (2) A cold epoch (the
    backbone in every step, the MC eval, ``maybe_save``, ``save_latest``
    after every step; launches counted from 0 just before and read just
    after: the driver's exact-gelu SwinV2 runs the unfused block, so 0 K1
@@ -140,7 +143,8 @@ Phases (any failure exits non-zero):
    path the zoo added against its CPU plain forward at batch 1
    (``FULL_NEW_MODELS``, exhaustive, the clip moved to its last fix,
    5e-2; AdaptedGIMO and the MultiModalTransformer with SwinV2's stage 2
-   cut to 1 of its 9 block pairs on both sides, ``SWIN_STAGE2_PAIRS``); and ``USE_PATCHTST_BACKBONE=1``: one step of the flagship over
+   cut to 1 of its 9 block pairs on both sides, ``FULL_CPU_DEPTH``); and
+   ``USE_PATCHTST_BACKBONE=1``: one step of the flagship over
    PatchTST (finite, BatchNorm statistics moved) and its card forward
    against the CPU (``CardVsCpu`` with witnesses: its GPS backbone's input
    and PatchTST on the card's input within 5e-2, end to end within
@@ -149,8 +153,8 @@ Phases (any failure exits non-zero):
    fused stack off, are reported).
 7d. The GEM data path (``DATASET=GEM``, ``ROUTEFORMER_FUSION_KERNEL=1``,
    batch 16): a recording written by ``io/gem_fixture.py`` into a temporary
-   directory (subjects 001 and 003 train, 002 val, 62 s each at 5 fps,
-   GoPro (540, 960) and world (544, 540) as raw RGB24 MP4s, 3.7 GB; the
+   directory (subjects 001 and 003 train, 46 s each, 002 val, 62 s, at 5
+   fps, GoPro (540, 960) and world (544, 540) as raw RGB24 MP4s, 3.2 GB; the
    duration halved while the disk cannot hold it twice), indexed through
    the driver's ``build_data`` at scaling 0.4 and 0.6 (the model sees the
    driver's real GEM geometry, GoPro crop (216, 153) and front (326, 324)):
@@ -162,7 +166,7 @@ Phases (any failure exits non-zero):
    and no key is shared between subjects; host ms a source frame for the
    raw read, the undistort and the resize; a batch's pinned and pageable
    copy rates. Then a cold epoch of the driver's flagship through
-   ``run_epochs`` on ``build_data``'s loaders (3 train batches, 1 val batch,
+   ``run_epochs`` on ``build_data``'s loaders (2 train batches, 1 val batch,
    MC eval; launches counted from 0 just before and read just after: 0 K1,
    48 K2 and K3a a step, 24 per eval forward, 16-24 K3b a step; finite
    metrics; peak memory; profiled copy and busy device time), and the
@@ -179,9 +183,9 @@ Phases (any failure exits non-zero):
    ffmpeg) builds on this machine (a probe, no check).
 7e. The DR(eye)VE data path (``DATASET=DREYEVE``, batch 16): sessions
    written by ``io/dreyeve_fixture.py`` into a temporary directory (01 and
-   02 train, 45 val, 62 s each; only the frames the windows read, as BMP
+   02 train, 45 val, 54 s each; only the frames the windows read, as BMP
    content under ``.jpg`` names: the garmin view at (540, 960), the ETG at
-   (720, 960), 3.4 GB; the duration halved while the disk cannot hold it
+   (720, 960), 2.9 GB; the duration halved while the disk cannot hold it
    twice), indexed through the driver's ``build_data`` with garmin scaling
    0.8 (the general ``INTER_AREA`` path, as the real 0.4 takes it) and ETG
    1/3 (the integer one): the model sees the driver's real DR(eye)VE
@@ -192,12 +196,51 @@ Phases (any failure exits non-zero):
    samples, split in numpy; the halves views of one placed tensor; each
    window's frames distinct keys, none shared between sessions; host ms a
    source frame (the read, ``INTER_AREA`` per view); the loader's rates and
-   shipped share. Then a cold epoch of the driver's flagship (3 train
+   shipped share. Then a cold epoch of the driver's flagship (2 train
    batches, MC eval of 1 val batch; launches from 0 just before and read
    just after, 0/48/48/16-24 K1/K2/K3a/K3b a step), the steps again on the
    loader's batches (step ms, busy, idle share, launches per step), and
    the card's ``ops/image.remap`` against the CPU's on a batch of frames
    warped by a fixed homography (the stitcher's warp), timed.
+7g. The zoo's remainder (``ROUTEFORMER_FUSION_KERNEL=1``, batch 16): the
+   flagship (tanh SwinV2) with its GPS backbone swapped at
+   the driver's full GPS width (d_model 832, 8 heads, e6/d1, d_ff 3328,
+   factor 4, moving average 25) for Autoformer, FEDformer ``Fourier`` and
+   FEDformer ``Wavelets`` (32 modes), and the flagship with InverseForm
+   (HRNet-16) as its video backbone, on frames at the driver's real GEM
+   geometry in uint8 (``GEM_MODEL_HW``: InverseForm reads them at their own
+   size; the SwinV2 variants take (54, 96) frames, as they resize every
+   frame to 256), each through
+   ``build_flagship_training(gps=, video=)``: a batch-16 request through
+   ``ServingModel`` (launches from 0 just before and read just after:
+   ``ZOO_PER_FORWARD``), three train steps at batch 16 (launches per step
+   held to ``ZOO_PER_STEP``; finite metrics; the trained parameters move,
+   the frozen backbone does not), the mean time of the two after the first
+   (CUDA events), a profiled step's device busy time and idle share, and
+   peak memory; and the batch-1 card forward against the CPU
+   plain forward (``CardVsCpu``, PRED_TOL; SwinV2's stage 2 cut to its
+   first pair on both sides), whose CPU references run in a thread beside
+   phase 7h's untimed first part.
+7h. Backbone training (``train_backbone=True``), through
+   ``build_flagship_training(video=, train_backbone=True)``, dropout off
+   and exhaustive ProbSparse: the tanh SwinV2 (K1), the driver's
+   exact-gelu SwinV2 (K2) and DinoV2 at 518 px (K4; its 1370-token frame
+   encoder above K3b's 208 takes ``ROUTEFORMER_FUSION_KERNEL=hybrid``). Its parameters are the
+   optimizer's ``video_backbone`` group. First, per variant and untimed,
+   beside the CPU references: loss and backward with remat off
+   at the largest batch that fits (from 16, DinoV2 from 2, halved on an
+   out-of-memory error) and with remat on at that batch, the augment's draws shared
+   (``SharedDraws``): the loss within ``REMAT_LOSS_TOL`` and every
+   gradient within ``REMAT_GRAD_TOL`` of the largest, the backbone's
+   gradient norm finite and non-zero, the variant's kernel launched more
+   under remat; and the first step's batch-1 loss on the card, whose CPU
+   plain step with the same draws (the backbone cut to
+   ``BACKBONE_CPU_DEPTH`` on both sides) runs in a worker thread. Then the
+   CPU references are joined (7g's within PRED_TOL, the first-step losses
+   within ``BACKBONE_LOSS_TOL``), and per variant, rebuilt, three optimizer
+   steps each way (remat on from batch 16, DinoV2 from 4) at the largest
+   batch that fits: launches per step, the backbone's largest movement
+   (non-zero), the mean time of the two after the first and peak memory.
 8. Print a ``kernels`` JSON line: launches on each kernel's path (K1-K3b
    the two train steps, K4 the four DinoV2 requests), per train step and
    per serving forward; K1/K2 times per batch-1 forward, K3a/K3b per train
@@ -209,7 +252,9 @@ Phases (any failure exits non-zero):
    ``dreyeve_data_path_launches`` those of phase 7e's,
    ``mesh_launches_per_step`` those of phase 7f's mesh steps,
    ``export_launches_per_forward`` those of phase 5d's exported forward
-   (the flagship's for K1-K3b, DinoV2's for K4). ``ms_timing``
+   (the flagship's for K1-K3b, DinoV2's for K4),
+   ``zoo_launches_per_step`` those of phase 7g's steps per variant and
+   ``backbone_training_launches_per_step`` those of phase 7h's. ``ms_timing``
    says how each ``ms`` was taken: ``eager`` (back-to-back
    calls, the host's launch time included where it exceeds the kernel's)
    or ``graph`` (device time, the launches replayed from a CUDA graph).
@@ -293,9 +338,12 @@ def k1_gemms(c: int) -> list:
     return [(3 * c, c, 0, "float32"), (c, c, 0, "float32"),
             (4 * c, c, 1, "bfloat16"), (c, 4 * c, 0, "float32")]
 FEATURE_TOL = 5e-2  # backbone feature maps, card vs CPU, relative to max
-# DinoV2's card-vs-CPU comparison runs the first ViT blocks only (of 12):
-# the CPU forward of all twelve took 77.9 s of the smoke's time limit.
-DINOV2_CPU_DEPTH = 3
+# The serving card-vs-CPU comparisons cut the backbone on both sides: the
+# CPU forward is their cost. DinoV2 keeps its first ViT block of 12 (all
+# twelve took 77.9 s, three 24.3 s); the flagship's SwinV2 its first
+# stage-2 pair of 9 (8 of the 24 blocks; all took 13.1 s).
+DINOV2_CPU_DEPTH = 1
+FLAGSHIP_CPU_PAIRS = 1
 PRED_TOL = 5e-2  # displacement and dense features, card vs CPU, relative to max
 # The PatchTST flagship end to end, card vs CPU at batch 1 (phase 7c).
 # RevIN divides each of its input channels by its spread over the 40
@@ -388,8 +436,12 @@ STEP_UPDATE_SHARE = 3e-2  # updates differing by > 0.1 lr: twice the largest rea
 PARITY_SEEDS = (22, 23, 24, 25)  # synthetic batches of the step comparison
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line on stdout, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -406,6 +458,19 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` timed with CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -681,7 +746,8 @@ def serve_flagship(results: dict) -> dict:
         results[f"peak_gib_b{b}"] = peak
 
     results["profile"] = profile_request(serving, requests[0], results["request_ms_b1"])
-    results["card_vs_cpu"] = card_vs_cpu(serving, "final_norm", requests[0])
+    results["card_vs_cpu"] = card_vs_cpu(serving, "final_norm", requests[0],
+                                         depth=FLAGSHIP_CPU_PAIRS)
     serve_fused(serving, requests[0], results)
     return launches
 
@@ -691,8 +757,9 @@ def card_vs_cpu(serving, norm: str, batch, depth=None) -> dict:
     kernel versions), exhaustive ProbSparse: max|diff|/max|cpu| of the
     backbone features (the output of its final norm ``norm``), the
     displacement and the dense features, held to FEATURE_TOL and PRED_TOL.
-    ``depth`` keeps the first blocks of a ViT backbone only, in both
-    models, for this comparison (the CPU's ViT forward is the cost)."""
+    ``depth`` cuts the backbone in both models for this comparison
+    (``cut_depth``: a ViT's first blocks, SwinV2's first stage-2 pairs; the
+    CPU's backbone forward is the cost)."""
     import torch
 
     import routeformer_torch as rt
@@ -704,15 +771,14 @@ def card_vs_cpu(serving, norm: str, batch, depth=None) -> dict:
     cpu_model.eval()
     set_exhaustive(cpu_model)
     set_exhaustive(serving.model)
-    blocks = serving.model.video_backbone.blocks if depth else None
+    restore = cut_depth(serving.model, depth) if depth else None
     if depth:
-        serving.model.video_backbone.blocks = blocks[:depth]
-        cpu_model.video_backbone.blocks = cpu_model.video_backbone.blocks[:depth]
+        cut_depth(cpu_model, depth)
     try:
         return _card_vs_cpu(serving, cpu_model, norm, batch)
     finally:
-        if depth:
-            serving.model.video_backbone.blocks = blocks
+        if restore is not None:
+            restore()
 
 
 def _card_vs_cpu(serving, cpu_model, norm: str, batch) -> dict:
@@ -784,13 +850,14 @@ def profile_request(serving, batch, request_ms: float) -> dict:
     """Device time by kernel over two requests (torch.profiler), each
     kernel's share of it, and the device's idle share of the request time
     ``request_ms`` measured with CUDA events (the profiler's own host
-    overhead is left out of both)."""
+    overhead is left out of both). Device activity only: ``device_groups``
+    reads no host event, and host events cost the profiler's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     reps = 2
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             serving(batch)
         torch.cuda.synchronize()
@@ -1678,14 +1745,14 @@ def train_flagship(results: dict) -> dict:
 
 
 def profile_step(run, step_ms: float, results: dict, key: str = "train_profile") -> dict:
-    """Device time by kernel over one train step (torch.profiler) and the
-    device's idle share of the step time measured with CUDA events, kept
-    under ``results[key]``."""
+    """Device time by kernel over one train step (torch.profiler, device
+    activity only, as ``profile_request``) and the device's idle share of
+    the step time measured with CUDA events, kept under ``results[key]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     groups, count = device_groups(prof, 1)
@@ -1883,8 +1950,9 @@ def train_parity(results: dict) -> None:
 # (GEM geometry, the flagship at full width), 3 train batches and 1 val
 # batch per epoch.
 RUN_DIR = ROOT / "build" / "smoke_run"
+# One cold epoch (two gave the same checks; cut for the smoke's time).
 RUN_ENV = {"DATASET": "GEM", "MODEL_SET": "flagship", "BATCH_SIZE": str(TRAIN_BATCH),
-           "EPOCHS": "2", "SAVE_EVERY_STEPS": "1"}
+           "EPOCHS": "1", "SAVE_EVERY_STEPS": "1"}
 RUN_TRAIN, RUN_VAL = 3, 1
 # The driver's flagship takes the JAX driver's exact-gelu SwinV2, whose
 # blocks run the unfused block: K2 in each of the 24 blocks, no K1. A cold
@@ -2046,7 +2114,7 @@ def trainer_vs_step(results: dict, dev) -> None:
 
 
 def cold_epochs(results: dict, dev, smi: str):
-    """The main path of this slice: two cold epochs through the driver's
+    """The main path of this slice: a cold epoch through the driver's
     ``run_epochs`` (the backbone in every step, the MC eval, ``maybe_save``,
     ``save_latest`` after every step), the launches counted from 0 just
     before and read just after. Then the cold step's and the MC eval's
@@ -2556,6 +2624,9 @@ FULL_NEW_MODELS = (
     "AdaptedGIMO_swinv2", "MultiModalTransformer_swinv2", FLAGSHIP + "_autoreg_4s",
     FLAGSHIP + "_wout_scene", "Routeformer_with_video_swinv2",
 )
+# The new paths compared with their CPU forwards at a cut depth (card and CPU
+# alike, ``CardVsCpu``): SwinV2's stage 2 keeps its first block pair.
+FULL_CPU_DEPTH = {"AdaptedGIMO_swinv2": 1, "MultiModalTransformer_swinv2": 1}
 FULL_RUN_DIR = ROOT / "build" / "smoke_full"
 
 
@@ -2671,6 +2742,16 @@ def rebuild_on_cpu(model):
     return cpu.eval()
 
 
+def cut_depth(model, n: int):
+    """The video backbone cut to ``n`` (SwinV2's stage-2 pairs, the ViT's
+    blocks); returns the restore function."""
+    bb = model.video_backbone
+    owner, attr = (bb.stages[2], "pairs") if hasattr(bb, "stages") else (bb, "blocks")
+    full = getattr(owner, attr)
+    setattr(owner, attr, full[:n])
+    return lambda: setattr(owner, attr, full)
+
+
 def free_device() -> None:
     """Collect the reference cycles a trainer keeps (its bound loss
     function) before returning cached blocks to the card."""
@@ -2690,7 +2771,10 @@ class CardVsCpu:
     prediction is then the motion itself, which f32 resolves in full (at
     the synthetic fixes' 1e4 m an f32 ulp is 1e-3 m). ``card`` runs a
     model's card forward now (its ProbSparse factors restored after) and
-    copies its weights to a CPU model; ``start`` runs the CPU forwards in a
+    copies its weights to a CPU model, both cut to ``depth`` where given
+    (``cut_depth``: SwinV2-base's stage 2 keeps that many of its 9 block
+    pairs, so at 1 the CPU forward runs 8 of the 24 blocks), on the batch
+    given at construction or its own; ``start`` runs the CPU forwards in a
     thread (CPU_THREADS of the host's cores), so they overlap the card's
     work; ``check`` joins it and holds max|diff|/max|cpu| of the
     prediction and, where the model predicts them, the dense features to
@@ -2707,21 +2791,23 @@ class CardVsCpu:
 
     CPU_THREADS = 6
     NOISE = 2 ** -9
-    # Models compared at a cut depth (card and CPU alike), as DinoV2's
-    # (``DINOV2_CPU_DEPTH``): SwinV2-base's stage 2 keeps this many of its 9
-    # block pairs, so the CPU forward runs 8 of the 24 blocks.
-    SWIN_STAGE2_PAIRS = {"AdaptedGIMO_swinv2": 1, "MultiModalTransformer_swinv2": 1}
 
     def __init__(self, batch: dict, place):
-        import numpy as np
-
-        self.one = {k: v[:1] for k, v in batch.items()}
-        gps = self.one["gps"]
-        self.one["gps"] = (gps.astype(np.float64) - gps[:, -1:]).astype(gps.dtype)
+        self.one = self._one(batch)
         self.place = place
         self.cards, self.cpus, self.refs, self.seconds = {}, {}, {}, {}
-        self.witness = {}
+        self.batches, self.witness = {}, {}
         self.thread = self.error = None
+
+    @staticmethod
+    def _one(batch: dict) -> dict:
+        """The first row, its GPS moved so that its last fix is the origin."""
+        import numpy as np
+
+        one = {k: v[:1] for k, v in batch.items()}
+        gps = one["gps"]
+        one["gps"] = (gps.astype(np.float64) - gps[:, -1:]).astype(gps.dtype)
+        return one
 
     @staticmethod
     def _forward(model, batch, hooks=()):
@@ -2752,7 +2838,7 @@ class CardVsCpu:
             return (out.float() * (1 + self.NOISE * n)).to(out.dtype)
         return [(model.video_encoder, perturb)]
 
-    def card(self, name: str, model, witness: bool = False) -> None:
+    def card(self, name: str, model, witness: bool = False, depth=None, batch=None) -> None:
         import torch
 
         from routeformer_torch.models.layers import ProbAttention
@@ -2762,14 +2848,12 @@ class CardVsCpu:
         set_exhaustive(model)
         was_training = model.training
         model.eval()
-        batch = self.place(self.one)
+        one = self.one if batch is None else self._one(batch)
+        self.batches[name] = one
+        batch = self.place(one)
         w = {}
-        pairs = self.SWIN_STAGE2_PAIRS.get(name)
-        stage = model.video_backbone.stages[2] if pairs else None
-        full = stage.pairs if pairs else None
+        restore = cut_depth(model, depth) if depth else None
         try:
-            if pairs:
-                stage.pairs = full[:pairs]
             hooks = self._hooks(model, w, "card", noise=False) if witness else ()
             out = self._forward(model, batch, hooks)
             if witness:
@@ -2785,13 +2869,13 @@ class CardVsCpu:
             model.train(was_training)
             for m, f in zip(layers, factors):
                 m.factor = f
-            if pairs:
-                stage.pairs = full
+            if restore:
+                restore()
         assert all(torch.isfinite(o).all() for o in out), name
         self.cards[name] = out
         cpu = rebuild_on_cpu(model)
-        if pairs:
-            cpu.video_backbone.stages[2].pairs = cpu.video_backbone.stages[2].pairs[:pairs]
+        if depth:
+            cut_depth(cpu, depth)
         set_exhaustive(cpu)
         self.cpus[name] = cpu
         if witness:
@@ -2801,8 +2885,8 @@ class CardVsCpu:
         import torch
 
         try:
-            batch = {k: torch.from_numpy(v) for k, v in self.one.items()}
             for name, cpu in self.cpus.items():
+                batch = {k: torch.from_numpy(v) for k, v in self.batches[name].items()}
                 t0 = time.perf_counter()
                 w = self.witness.get(name)
                 hooks = self._hooks(cpu, w, "cpu", noise=False) if w is not None else ()
@@ -2922,7 +3006,7 @@ def full_set_run(results: dict, smi: str, dev=None) -> dict:
     # the new paths' card forwards now; their CPU references overlap the run
     card_cpu = CardVsCpu(val[0]["train"], trainer._place)
     for name in FULL_NEW_MODELS:
-        card_cpu.card(name, trainer.models[name])
+        card_cpu.card(name, trainer.models[name], depth=FULL_CPU_DEPTH.get(name))
     card_cpu.start()
     frozen = {n: p.detach().clone() for n, p in trainer.trained.named_parameters()
               if ".video_backbone." in f".{n}"}
@@ -3061,12 +3145,15 @@ def patchtst_step(results: dict, dev, smi: str) -> dict:
 # The GEM data path: a recording written by the port's writer
 # (``io/gem_fixture.py``), read by its readers, loaded by its loader and
 # trained on by the driver's flagship. Subjects 001 and 003 are the train
-# split, 002 the val split; 62 s each so that the train split has 48
-# windows (three batches of 16). The GoPro pair at (540, 960) and the
+# split, 002 the val split. The train subjects take 46 s, so that the
+# train split has 32 windows (two batches of 16: the steps are timed after
+# the first; 62 s gave three, cut for the smoke's time); the val subject
+# 62 s, so that 18 of its 24 windows pass MIN_PCI 20 (one val batch of 16
+# needs 16). The GoPro pair at (540, 960) and the
 # world camera at (544, 540), scaled 0.4 and 0.6, reach the model at the
 # driver's real GEM geometry: GoPro crop (216, 153), front (326, 324).
 GEM_SUBJECTS = (("001", 0), ("003", 20), ("002", 10))  # (subject, seed)
-GEM = {"duration_s": 62.0, "gopro_hw": (540, 960), "world_hw": (544, 540), "fps": 5.0,
+GEM = {"duration_s": 62.0, "train_duration_s": 46.0, "gopro_hw": (540, 960), "world_hw": (544, 540), "fps": 5.0,
        "scaling": (0.4, 0.6), "turn": 1.0, "batch": TRAIN_BATCH, "env": {}}
 GEM_RUN_DIR = ROOT / "build" / "smoke_gem"
 GEM_TIMED_FRAMES = 12  # frames per host-op timing
@@ -3084,23 +3171,31 @@ def gem_windows(duration_s: float) -> int:
     return int(span // fc.STEP_SIZE_SECONDS) + 1 if span >= 0 else 0
 
 
+def gem_duration(geo: dict, subject: str) -> float:
+    """A subject's seconds: the val subject (the last of GEM_SUBJECTS)
+    ``duration_s``, the train subjects ``train_duration_s``."""
+    return geo["duration_s"] if subject == GEM_SUBJECTS[-1][0] else geo["train_duration_s"]
+
+
 def write_gem_recording(root: Path, geo: dict) -> dict:
     """The three subjects, halving the duration while the disk cannot
     hold them twice over."""
     from routeformer_torch.io.gem_fixture import build_gem_fixture
 
-    n = int(geo["duration_s"] * geo["fps"])
-    need = len(GEM_SUBJECTS) * n * 3 * (2 * math.prod(geo["gopro_hw"])
-                                        + math.prod(geo["world_hw"]))
+    seconds = geo["duration_s"] + 2 * geo["train_duration_s"]
+    need = int(seconds * geo["fps"]) * 3 * (2 * math.prod(geo["gopro_hw"])
+                                            + math.prod(geo["world_hw"]))
     free = shutil.disk_usage(root).free
     cuts = []
     while 2 * need > free and geo["duration_s"] > 30:
-        geo = dict(geo, duration_s=geo["duration_s"] / 2)
+        geo = dict(geo, duration_s=geo["duration_s"] / 2,
+                   train_duration_s=geo["train_duration_s"] / 2)
         need //= 2
-        cuts.append(f"duration halved to {geo['duration_s']} s: {free / 1e9:.1f} GB free")
+        cuts.append(f"durations halved to {geo['train_duration_s']} and "
+                    f"{geo['duration_s']} s: {free / 1e9:.1f} GB free")
     t0 = time.perf_counter()
     for subject, seed in GEM_SUBJECTS:
-        build_gem_fixture(root, duration_s=geo["duration_s"], subject=subject,
+        build_gem_fixture(root, duration_s=gem_duration(geo, subject), subject=subject,
                           hw=geo["gopro_hw"], world_hw=geo["world_hw"], fps=geo["fps"],
                           seed=seed, turn=geo["turn"])
     nbytes = sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
@@ -3361,7 +3456,8 @@ def gem_audio_path(data_root: Path, geo: dict, dev, smi: str) -> dict:
         videos[f"02EyeTracker/{subject}/world.mp4"] = 13
         for name, tone in videos.items():
             inject_pcm_audio_track(data_root / name,
-                                   audio_tone(geo["duration_s"], GEM_AUDIO_RATE, tone),
+                                   audio_tone(gem_duration(geo, subject), GEM_AUDIO_RATE,
+                                              tone),
                                    GEM_AUDIO_RATE)
     out["inject_s"] = time.perf_counter() - t0
     out["walkers"] = gem_walkers(data_root)
@@ -3426,14 +3522,14 @@ def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
         unfiltered = GEMDataset(root=data_root, split=["002"], min_pci=None, with_video=False,
                                 with_gaze=False)
         pcis = [item["pci"] for item in unfiltered._indexer.values()]
-        want = {"train": 2 * gem_windows(geo["duration_s"]),
+        want = {"train": 2 * gem_windows(geo["train_duration_s"]),
                 "val_unfiltered": gem_windows(geo["duration_s"]),
                 "val": sum(p >= s.min_pci for p in pcis)}
         got = {"train": len(ds_train), "val_unfiltered": len(unfiltered), "val": len(ds_val)}
         out["index"] = {"seconds": index_s, "samples": got, "predicted": want}
         log(f"GEM index: {json.dumps(out['index'])}")
         assert got == want, out["index"]
-        assert len(train) == 3 and len(val) >= 1, (len(train), len(val))
+        assert len(train) == 2 and len(val) >= 1, (len(train), len(val))
 
         # 3. The loader alone: two epochs, every batch's bits checked.
         loader = DataLoader(ds_train, batch_size=s.batch_size, shuffle=True, to_device=True,
@@ -3537,10 +3633,11 @@ def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
 # The DR(eye)VE data path: sessions written by the port's writer
 # (``io/dreyeve_fixture.py``), read by ``io/dataset_dreyeve.py``, loaded
 # with the driver's placed split stage and trained on by the driver's
-# flagship. 62 s sessions give 24 windows each: 01 and 02 (train) three
-# batches of 16, 45 (val) >= 16 at MIN_PCI 20.
+# flagship. 54 s sessions give 20 windows each: 01 and 02 (train) two
+# batches of 16 (62 s gave three, cut for the smoke's time), 45 (val) one
+# batch of 16 at MIN_PCI 20.
 DREYEVE_SESSIONS = (1, 2, 45)
-DREYEVE = {"duration_s": 62.0, "garmin_hw": (540, 960), "etg_hw": (720, 960),
+DREYEVE = {"duration_s": 54.0, "garmin_hw": (540, 960), "etg_hw": (720, 960),
            "scaling": (0.8, 1 / 3.0), "turn": 1.0, "batch": TRAIN_BATCH, "env": {}}
 DREYEVE_RUN_DIR = ROOT / "build" / "smoke_dreyeve"
 DREYEVE_TIMED_FRAMES = 12
@@ -3698,7 +3795,7 @@ def dreyeve_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
         out["index"] = {"seconds": index_s, "samples": got, "predicted": want}
         log(f"DR(eye)VE index: {json.dumps(out['index'], default=str)}")
         assert got == want, out["index"]
-        assert len(train) == 3 and len(val) >= 1, (len(train), len(val))
+        assert len(train) == 2 and len(val) >= 1, (len(train), len(val))
 
         # The loader alone, with the driver's placed split: two epochs.
         loader = DataLoader(ds_train, batch_size=s.batch_size, shuffle=True, to_device=True,
@@ -3790,6 +3887,397 @@ def dreyeve_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     results["dreyeve_data_path"] = out
     log(f"DR(eye)VE data path phase: {out['phase_s']:.1f} s")
+    return launches
+
+
+# --------------------------------------------------------------- phase 7g #
+
+# The zoo's remainder at the flagship's widths (GEM geometry, batch 16):
+# (GPS backbone, video backbone) of ``flagship.GPS_VARIANTS``/``VIDEO_VARIANTS``.
+ZOO_VARIANTS = (("Autoformer", "SwinV2"), ("FEDformer-Fourier", "SwinV2"),
+                ("FEDformer-Wavelets", "SwinV2"), ("Informer", "InverseForm"))
+ZOO_BATCH = 16
+ZOO_TIMED_STEPS = 2  # train steps timed after one warm step, 7g and 7h alike
+# InverseForm reads its frames raw, at their own size (the SwinV2 variants
+# resize every frame to 256), so its variant runs on frames at the driver's
+# real GEM geometry, phase 7d's scaled sizes, in the loader's uint8
+# (``VIDEO_DTYPE``): the GoPro pair's crop (216, 153), the world camera's
+# (326, 324).
+GEM_MODEL_HW = {"left_video": (216, 153), "right_video": (216, 153), "front_video": (326, 324)}
+# Launches per train step and per batch-16 eval forward (the fused stack):
+# the tanh SwinV2's 24 blocks run K1 (one K2 inside each) per backbone
+# pass; InverseForm's HRNet-16 runs no kernel of the port; the three
+# Perceive stacks run K3a per layer, K3b per trained layer.
+ZOO_PER_STEP = {"SwinV2": PER_STEP,
+                "InverseForm": dict(PER_STEP, K1=(0,), K2=(0,))}
+ZOO_PER_FORWARD = {"SwinV2": {"K1": 24, "K2": 24, "K3a": 24, "K3b": 0, "K4": 0},
+                   "InverseForm": {"K1": 0, "K2": 0, "K3a": 24, "K3b": 0, "K4": 0}}
+
+
+def zoo_name(gps: str, video: str) -> str:
+    return f"{gps}_{video}"
+
+
+def place_numpy(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def zoo_batch(seed: int, video: str) -> dict:
+    """A batch-16 synthetic GEM clip (numpy): frames at (54, 96) for the
+    SwinV2 variants, at ``GEM_MODEL_HW`` in uint8 for InverseForm."""
+    import numpy as np
+
+    import routeformer_torch as rt
+    from routeformer_torch.io.synthetic import synthetic_batch_numpy
+
+    cfg = rt.flagship_config()
+    g = cfg.gps_backbone_config
+    kw = dict(seq_len=g.seq_len, pred_len=g.pred_len, fps=cfg.output_fps, with_video=True,
+              with_gaze=True)
+    if video != "InverseForm":
+        return synthetic_batch_numpy(seed, ZOO_BATCH, frame_hw=(54, 96), **kw)
+    by_hw = {hw: synthetic_batch_numpy(seed, ZOO_BATCH, frame_hw=hw, **kw)
+             for hw in set(GEM_MODEL_HW.values())}
+    out = by_hw[GEM_MODEL_HW["left_video"]]
+    for part in ("train", "target"):
+        for key, hw in GEM_MODEL_HW.items():
+            out[part][key] = np.round(by_hw[hw][part][key] * 255).astype(np.uint8)
+    return out
+
+
+def zoo_remainder(results: dict, smi: str):
+    """Phase 7g: each variant's batch-16 serving, three train steps (the
+    mean time of two after a warm one) and a profiled one; its batch-1 card
+    forward and a CPU copy go into the returned ``CardVsCpu`` (started
+    here, checked in phase 7h before its timed steps)."""
+    import torch
+
+    import routeformer_torch as rt
+
+    set_fusion("1")
+    g = rt.flagship_config().gps_backbone_config
+    data = {video: zoo_batch(5, video) for video in {v for _, v in ZOO_VARIANTS}}
+    card_cpu = CardVsCpu(data["SwinV2"]["train"], place_numpy)
+    out, launches = {}, {}
+    for gps, video in ZOO_VARIANTS:
+        name = zoo_name(gps, video)
+        request = data[video]["train"]
+        inp, tgt = place_numpy(request), place_numpy(data[video]["target"])
+        t0 = time.perf_counter()
+        model, optimizer, step = rt.build_flagship_training(seed=0, gps=gps, video=video)
+        optimizer.count = TRAIN_EPOCH  # past the warmup's rate 0
+        rec = {"parameters": sum(p.numel() for p in model.parameters()),
+               "build_s": time.perf_counter() - t0}
+        # the CPU copy runs 8 of SwinV2's 24 blocks, as the card's
+        card_cpu.card(name, model, depth=1 if video == "SwinV2" else None, batch=request)
+        serving = rt.ServingModel(model, torch.device("cuda"))
+        reset_counts()  # the variant's serving path: counts from 0 just before
+        pred, dense = serving(request)
+        torch.cuda.synchronize()
+        per_forward = launch_counts()
+        assert pred.shape == (ZOO_BATCH, g.pred_len, 2), pred.shape
+        assert torch.isfinite(pred).all() and torch.isfinite(dense).all(), name
+        assert per_forward == ZOO_PER_FORWARD[video], (name, per_forward)
+        reset_peak()
+        rec["request_ms_b16"] = cuda_ms(lambda: serving(request), iters=2, warmup=1)
+        rec["request_peak_gib"] = peak_gib()
+
+        model.train()
+        before = params_of(model)
+        reset_counts()  # the variant's train path: counts from 0 just before
+        per_step, metrics, times = [], [], []
+        reset_peak()
+        for _ in range(1 + ZOO_TIMED_STEPS):
+            counts = launch_counts()
+            times.append(event_ms(lambda: metrics.append(
+                {k: v.item() for k, v in step(inp, tgt, TRAIN_EPOCH).items()})))
+            per_step.append({k: v - counts[k] for k, v in launch_counts().items()})
+        rec["step_peak_gib"] = peak_gib()
+        rec["step_ms"] = sum(times[1:]) / ZOO_TIMED_STEPS  # after the warm step
+        rec["step_ms_each"] = times
+        launches[name] = per_step
+        want = ZOO_PER_STEP[video]
+        assert all(c[k] in want[k] for c in per_step for k in want), (name, per_step)
+        assert all(math.isfinite(v) for m in metrics for v in m.values()), (name, metrics)
+        moved = {"backbone": 0.0, "rest": 0.0}
+        for n, p in model.named_parameters():
+            key = "backbone" if "video_backbone" in n else "rest"
+            moved[key] = max(moved[key], (p.detach() - before[n]).abs().max().item())
+        del before
+        assert moved["rest"] > 0.0 and moved["backbone"] < 1e-7, (name, moved)
+        prof = profile_step(lambda: step(inp, tgt, TRAIN_EPOCH), rec["step_ms"], {}, name)
+        rec.update(busy_ms_per_step=prof["device_busy_ms_per_step"],
+                   idle_share=prof["idle_share"], launches_per_step=per_step[-1],
+                   launches_per_forward=per_forward, loss=metrics[0].get("loss"), moved=moved,
+                   frames_hw={k: list(v.shape[2:4]) for k, v in request.items()
+                              if k.endswith("_video")})
+        out[name] = rec
+        log(f"{smi}: zoo {name} " + json.dumps(rec))
+        del model, optimizer, step, serving, inp, tgt
+        free_device()
+    card_cpu.start()
+    results["zoo"] = out
+    return card_cpu, launches
+
+
+# --------------------------------------------------------------- phase 7h #
+
+# Backbone training (``train_backbone=True``): (name, video variant, the
+# kernel its backbone runs, the Perceive stacks' path, the batches to start
+# from without and with remat). DinoV2's frame encoder sees 1370 tokens,
+# above K3b's 208: its stacks take K3a with the recompute backward
+# (``hybrid``). A variant halves its batch until a step fits; DinoV2 starts
+# at 2 and 4 (16, 8 and 4 did not fit without remat, 16 and 8 with it), and
+# goes first, so that its CPU reference, the longest, starts first.
+BACKBONE_VARIANTS = (("dinov2", "DinoV2", "K4", "hybrid", (2, 4)),
+                     ("swinv2_tanh", "SwinV2", "K1", "1", (ZOO_BATCH, ZOO_BATCH)),
+                     ("swinv2_exact", "SwinV2-exact", "K2", "1", (ZOO_BATCH, ZOO_BATCH)))
+# Remat on against off on the card, the same weights, batch and augment
+# draws, dropout off: the loss to 1e-5 relative, each gradient to 1e-3 of
+# the largest (cuDNN's convolution backward is not deterministic, and a
+# bf16 block recomputed in the backward may round one sum differently; the
+# H100 read 1.3e-4 to 1.6e-4 for SwinV2 and 2e-5 for DinoV2, same losses).
+REMAT_LOSS_TOL, REMAT_GRAD_TOL = 1e-5, 1e-3
+# The first step's loss on the card against the CPU plain step (batch 1,
+# the depth cut below on both, the augment draws shared, dropout off):
+# relative, the bf16 backbone's limit (PRED_TOL).
+BACKBONE_LOSS_TOL = PRED_TOL
+# The CPU comparison's depth: SwinV2's stage 2 keeps its first pair (8 of
+# 24 blocks), DinoV2 its first block (the CPU's loss of three took 58.9 s).
+BACKBONE_CPU_DEPTH = 1
+
+
+class ThreadDraws:
+    """``photometric_augment`` for phase 7h: a thread that set
+    ``local.draws`` (a ``SharedDraws``) gets those draws, any other the real
+    augment, so the CPU references can run beside the card's steps."""
+
+    def __init__(self, real):
+        import threading
+
+        self.real, self.local = real, threading.local()
+
+    def __call__(self, images, generator=None, **kwargs):
+        shared = getattr(self.local, "draws", None)
+        if shared is None:
+            return self.real(images, generator, **kwargs)
+        return shared(images, **kwargs)
+
+
+class SharedDraws:
+    """``photometric_augment`` with draws made on the CPU from a generator
+    seeded per call (``seed`` + the call's index) and moved to the frames'
+    device: the card and the CPU augment alike."""
+
+    def __init__(self, seed: int):
+        self.seed, self.calls = seed, 0
+
+    def __call__(self, images, generator=None, **kwargs):
+        import torch
+
+        from routeformer_torch.ops import augment
+
+        n, h, w, _ = images.shape
+        gen = torch.Generator().manual_seed(self.seed + self.calls)
+        self.calls += 1
+        draws = augment.draw_augment(n, h, w, gen, **kwargs)
+        return augment.apply_augment(images, {k: v.to(images.device) for k, v in draws.items()})
+
+
+def step_loss(model, inp, tgt, draws_seed: int, backward: bool):
+    """The train-mode loss (and gradients) with the augment's draws shared
+    (``ThreadDraws`` installed)."""
+    from routeformer_torch.ops import augment
+    from routeformer_torch.train import TrainingLosses, routeformer_training_loss
+
+    local = augment.photometric_augment.local
+    local.draws = SharedDraws(draws_seed)
+    try:
+        model.zero_grad(set_to_none=True)
+        loss, _ = routeformer_training_loss(model, inp, tgt, TRAIN_EPOCH,
+                                            TrainingLosses.from_config(model.configs))
+        if backward:
+            loss.backward()
+    finally:
+        local.draws = None
+    return loss.detach().float().cpu()
+
+
+def cpu_step_loss(cpu, b_in, b_tgt) -> dict:
+    """The CPU plain step's first loss (a worker thread's job)."""
+    import torch
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = step_loss(cpu, b_in, b_tgt, 100, backward=False)
+    return {"loss": loss, "cpu_s": time.perf_counter() - t0}
+
+
+def fitting_batch(fn, start: int):
+    """``fn(batch)`` at ``start`` rows, halved while it does not fit."""
+    import torch
+
+    size = start
+    while True:
+        try:
+            return size, fn(size)
+        except torch.cuda.OutOfMemoryError:
+            log(f"batch {size} does not fit in device memory")
+            free_device()
+            size //= 2
+            assert size >= 1, "no batch fits"
+
+
+def backbone_training(results: dict, smi: str, card_cpu) -> dict:
+    """Phase 7h: ``build_flagship_training(train_backbone=True)`` per
+    backbone variant. First, beside the CPU references (7g's and the
+    first-step losses, in worker threads): the card's depth-cut loss for
+    the CPU comparison and remat on against off. Then, with the CPU
+    references joined and checked: optimizer steps each way, timed."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from routeformer_torch.ops import augment
+
+    real = augment.photometric_augment
+    augment.photometric_augment = ThreadDraws(real)
+    pool = ThreadPoolExecutor(max_workers=1)
+    try:
+        return _backbone_training(results, smi, card_cpu, pool)
+    finally:
+        pool.shutdown(wait=True)
+        augment.photometric_augment = real
+        set_fusion("1")
+
+
+def backbone_variant(video: str):
+    """``(model, optimizer, step)`` with ``train_backbone=True``, dropout
+    off, in train mode; the backbone's parameters are the optimizer's
+    ``video_backbone`` group."""
+    import routeformer_torch as rt
+
+    model, optimizer, step = rt.build_flagship_training(seed=0, video=video,
+                                                        train_backbone=True)
+    optimizer.count = TRAIN_EPOCH
+    quiet(model)
+    model.train()
+    group = {id(p) for p in optimizer.opt.param_groups[1]["params"]}
+    assert group == {id(p) for p in model.video_backbone.parameters()}, "video_backbone group"
+    return model, optimizer, step
+
+
+def _backbone_training(results: dict, smi: str, card_cpu, pool) -> dict:
+    import torch
+
+    inp, tgt = train_batches(21)
+    out, launches, cpu_jobs = {}, {}, []
+
+    def rows(batch, n):
+        return {k: v[:n] for k, v in batch.items()}
+
+    for name, video, kernel, fusion, start in BACKBONE_VARIANTS:
+        set_fusion(fusion)
+        t0 = time.perf_counter()
+        model, optimizer, step = backbone_variant(video)
+        bb = model.video_backbone
+        rec = {"build_s": time.perf_counter() - t0}
+
+        # the card's batch-1 loss, depth cut, for the CPU comparison
+        restore = cut_depth(model, BACKBONE_CPU_DEPTH)
+        card_loss = step_loss(model, rows(inp, 1), rows(tgt, 1), 100, backward=False)
+        restore()
+        cpu = rebuild_on_cpu(model).train()
+        quiet(cpu)
+        cut_depth(cpu, BACKBONE_CPU_DEPTH)
+        cpu_jobs.append((name, card_loss, pool.submit(
+            cpu_step_loss, cpu, {k: v[:1].cpu() for k, v in inp.items()},
+            {k: v[:1].cpu() for k, v in tgt.items()})))
+        del cpu
+
+        # remat off against on: the same batch, weights and draws
+        def grads_at(remat):
+            def run(size):
+                bb.configs.remat = remat
+                reset_counts()
+                loss = step_loss(model, rows(inp, size), rows(tgt, size), 200, backward=True)
+                torch.cuda.synchronize()
+                return loss, {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                              if p.grad is not None}, launch_counts()
+            return run
+
+        size, (loss_off, g_off, counts_off) = fitting_batch(grads_at(False), start[0])
+        loss_on, g_on, counts_on = grads_at(True)(size)
+        scale = max(float(g.abs().max()) for g in g_off.values())
+        grad_gap = max(float((g_on[n] - g).abs().max()) for n, g in g_off.items()) / scale
+        loss_gap = abs(float(loss_on - loss_off)) / abs(float(loss_off))
+        bb_grads = [g_off[n] for n, _ in model.named_parameters()
+                    if n.startswith("video_backbone.") and n in g_off]
+        bb_norm = float(torch.linalg.vector_norm(torch.stack([g.norm() for g in bb_grads])))
+        assert len(bb_grads) == len(list(bb.parameters())), "backbone parameters without grad"
+        assert math.isfinite(bb_norm) and bb_norm > 0, bb_norm
+        assert loss_gap <= REMAT_LOSS_TOL and grad_gap <= REMAT_GRAD_TOL, (loss_gap, grad_gap)
+        assert counts_on[kernel] > counts_off[kernel], (counts_on, counts_off)
+        del g_off, g_on
+        rec.update(compare_batch=size, remat_loss_gap=loss_gap, remat_grad_gap=grad_gap,
+                   backbone_grad_norm=bb_norm, launches_loss_and_backward_remat_off=counts_off,
+                   launches_loss_and_backward_remat_on=counts_on)
+        out[name] = rec
+        del model, optimizer, step, bb
+        free_device()
+
+    # the CPU references joined and checked before any step is timed
+    zoo_errs = card_cpu.check()
+    results["zoo_card_vs_cpu"] = zoo_errs
+    log(f"zoo card vs CPU (batch 1, max|diff|/max|cpu|): {json.dumps(zoo_errs)}")
+    for name, card_loss, job in cpu_jobs:
+        rec = job.result()
+        cpu_loss = rec["loss"]
+        gap = abs(float(card_loss - cpu_loss)) / abs(float(cpu_loss))
+        out[name].update(first_loss_card=float(card_loss), first_loss_cpu=float(cpu_loss),
+                         first_loss_gap=gap, cpu_s=rec["cpu_s"])
+        log(f"{name}: first-step loss card {float(card_loss):.6f} CPU {float(cpu_loss):.6f} "
+            f"(relative {gap:.3e})")
+        assert gap <= BACKBONE_LOSS_TOL, (name, gap)
+
+    # optimizer steps each way at the largest batch that fits: one warm
+    # step, then ZOO_TIMED_STEPS timed
+    for name, video, kernel, fusion, start in BACKBONE_VARIANTS:
+        set_fusion(fusion)
+        model, optimizer, step = backbone_variant(video)
+        bb = model.video_backbone
+        rec = out[name]
+        for remat in (False, True):
+            bb.configs.remat = remat
+            free_device()
+
+            def steps(n):
+                b_in, b_tgt = rows(inp, n), rows(tgt, n)
+                before = {k: p.detach().clone() for k, p in bb.named_parameters()}
+                per, metrics, times = [], [], []
+                reset_peak()
+                for _ in range(1 + ZOO_TIMED_STEPS):
+                    reset_counts()
+                    times.append(event_ms(lambda: metrics.append(step(b_in, b_tgt,
+                                                                      TRAIN_EPOCH))))
+                    per.append(launch_counts())
+                assert all(math.isfinite(v.item()) for m in metrics for v in m.values())
+                moved = max(float((p.detach() - before[k]).abs().max())
+                            for k, p in bb.named_parameters())
+                return per, moved, times, peak_gib()
+
+            n, (per, moved, times, peak) = fitting_batch(
+                steps, start[1] if remat else rec["compare_batch"])
+            assert moved > 0.0, f"{name}: the backbone did not move"
+            key = "remat" if remat else "no_remat"
+            rec[key] = {"batch": n, "launches_per_step": per[-1],
+                        "step_ms": sum(times[1:]) / ZOO_TIMED_STEPS, "step_ms_each": times,
+                        "peak_gib": peak, "backbone_moved": moved}
+            launches[f"{name}_{key}"] = per[-1]
+        log(f"{smi}: backbone training {name} " + json.dumps(rec))
+        del model, optimizer, step, bb
+        free_device()
+    results["backbone_training"] = out
     return launches
 
 
@@ -4096,6 +4584,11 @@ def kernel_line(launches: dict, results: dict) -> dict:
                 "dinov2" if name == "K4" else "flagship"][name],
             "dreyeve_data_path_launches": results["dreyeve_data_path_launches"][name],
             "mesh_launches_per_step": results["mesh_launches_per_step"][name],
+            "zoo_launches_per_step": {run: counts[-1][name] for run, counts
+                                      in results["zoo_launches_per_step"].items()},
+            "backbone_training_launches_per_step": {
+                run: counts[name] for run, counts
+                in results["backbone_training_launches_per_step"].items()},
             "max_abs_err": err, "ms_per": ms_per, "ms_timing": ms_timing,
             "ms": acc["ms"], "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": "operations" if acc["ops_s"] >= acc["bytes_s"] else "bytes",
@@ -4216,6 +4709,8 @@ def main() -> int:
     results["full_set_launches"] = full_set_run(results, smi)
     results["gem_data_path_launches"] = gem_data_path(results, smi)
     results["dreyeve_data_path_launches"] = dreyeve_data_path(results, smi)
+    card_cpu, results["zoo_launches_per_step"] = zoo_remainder(results, smi)
+    results["backbone_training_launches_per_step"] = backbone_training(results, smi, card_cpu)
     line = kernel_line(launches, results)
     log(f"results: {json.dumps(results)}")
     log(f"total {time.perf_counter() - t_start:.1f} s")

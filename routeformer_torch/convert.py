@@ -18,9 +18,15 @@ after the flax paths:
   module has an attribute of these names;
 - other names pass through (the ViT's ``pos_embed``).
 
-Any parameter left unmatched, in either direction, raises.
+A module shared by several parents (FEDformer's tied frequency blocks) is
+one entry, under its first path, in flax's state and here. Buffers that
+are not flax state are left alone: non-persistent ones (constant tables
+and filters) and those a module names in ``port_only_buffers`` (the
+Fourier blocks' mode indices, which the JAX package keeps as a Python
+list). Any parameter left unmatched, in either direction, raises.
 """
 
+import itertools
 import re
 from typing import Dict
 
@@ -64,13 +70,23 @@ def flax_to_torch_names(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
+def flax_state(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The port's counterpart of flax's parameter and batch-statistic state:
+    each parameter and persistent buffer once, under its first path, less
+    ``num_batches_tracked`` and the ``port_only_buffers``."""
+    skip = set()
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        skip.update(prefix + b for b in module._non_persistent_buffers_set)
+        skip.update(prefix + b for b in getattr(module, "port_only_buffers", ()))
+    return {k: v for k, v in itertools.chain(model.named_parameters(), model.named_buffers())
+            if k not in skip and not k.endswith("num_batches_tracked")}
+
+
 def load_flax_params(model: nn.Module, flat: Dict[str, np.ndarray]) -> int:
     """Copy flax parameters into ``model``; return the number copied."""
     incoming = flax_to_torch_names(flat)
-    state = {
-        k: v for k, v in model.state_dict().items()
-        if not k.endswith("num_batches_tracked")
-    }
+    state = flax_state(model)
     missing = sorted(set(state) - set(incoming))
     unexpected = sorted(set(incoming) - set(state))
     if missing or unexpected:

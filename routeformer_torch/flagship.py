@@ -14,16 +14,37 @@ its ViT reaches K4 (1369 tokens per frame), and its frame encoder sees
 1e-5, weight decay 1e-4, backbone 1e-6, warmup 2 of 200 epochs, clip 2.5)
 and returns a train step. ``ROUTEFORMER_FUSION_KERNEL`` chooses the Perceive
 stacks' path (``models/cross_modal.py``).
+
+Each build function takes ``gps`` and ``video`` to swap a backbone at the same
+widths (``GPS_VARIANTS``, ``VIDEO_VARIANTS``): Autoformer and FEDformer
+(Fourier, or multiwavelet with 32 modes) in the Informer's slot; the
+driver's exact-gelu SwinV2, DinoV2 or InverseForm in the video slot. With
+``train_backbone`` the video backbone trains with the model (the augment,
+gradients through K1, K2 or K4); its config's ``remat``, read at each
+forward, recomputes its blocks in the backward.
 """
 
+import dataclasses
 import math
 
 import torch
 import torch.nn as nn
 
 from routeformer_torch.models import Routeformer, RouteformerConfig
-from routeformer_torch.models.gps_backbone import GPSBackboneConfig
-from routeformer_torch.models.video_backbone import DinoV2, TimmBackboneConfig
+from routeformer_torch.models.gps_backbone import (
+    Autoformer,
+    FEDformer,
+    FEDFormerBackboneConfig,
+    GPSBackboneConfig,
+    Informer,
+)
+from routeformer_torch.models.video_backbone import (
+    DinoV2,
+    InverseForm,
+    InverseFormBackboneConfig,
+    SwinV2Backbone,
+    TimmBackboneConfig,
+)
 from routeformer_torch.optimizers import build_optimizer
 from routeformer_torch.parallel import make_train_step
 from routeformer_torch.train import TrainingLosses, routeformer_training_loss
@@ -68,6 +89,38 @@ def dinov2_config() -> RouteformerConfig:
     return cfg
 
 
+# name -> (GPS backbone class, its config class, fields over the flagship's)
+GPS_VARIANTS = {
+    "Informer": (Informer, GPSBackboneConfig, {}),
+    "Autoformer": (Autoformer, GPSBackboneConfig, {}),
+    "FEDformer-Fourier": (FEDformer, FEDFormerBackboneConfig, {"version": "Fourier"}),
+    "FEDformer-Wavelets": (FEDformer, FEDFormerBackboneConfig,
+                           {"version": "Wavelets", "modes": 32}),
+}
+# name -> video backbone class; its config is made by ``variant_config``
+VIDEO_VARIANTS = {"SwinV2": SwinV2Backbone, "SwinV2-exact": SwinV2Backbone,
+                  "DinoV2": DinoV2, "InverseForm": InverseForm}
+
+
+def variant_config(gps: str = "Informer", video: str = "SwinV2",
+                   train_backbone: bool = False) -> RouteformerConfig:
+    """``flagship_config`` with the named backbones (``GPS_VARIANTS``,
+    ``VIDEO_VARIANTS``) at the flagship's widths."""
+    cfg = dinov2_config() if video == "DinoV2" else flagship_config()
+    _, gps_cls, fields = GPS_VARIANTS[gps]
+    g = cfg.gps_backbone_config
+    base = {f.name: getattr(g, f.name) for f in dataclasses.fields(GPSBackboneConfig) if f.init}
+    cfg.gps_backbone_config = gps_cls(**dict(base, **fields))
+    if video == "InverseForm":
+        cfg.video_backbone_config = InverseFormBackboneConfig(train_backbone=train_backbone)
+    else:
+        v = cfg.video_backbone_config
+        v.train_backbone = train_backbone
+        if video == "SwinV2-exact":
+            v.gelu = "exact"
+    return cfg.override()
+
+
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded initialisation, the same on every device: Linear/conv weights
     normal(0, 1/fan_in), biases 0, norms 1/0, the view embeddings
@@ -93,11 +146,13 @@ def init_weights(model: nn.Module, seed: int) -> None:
             p.copy_(value.to(p.device))
 
 
-def build_flagship(seed: int = 0, device: DeviceLike = None) -> Routeformer:
-    """The flagship model with seeded weights, in eval mode, on ``device``
-    (CUDA by default)."""
+def build_flagship(seed: int = 0, device: DeviceLike = None, gps: str = "Informer",
+                   video: str = "SwinV2", train_backbone: bool = False) -> Routeformer:
+    """The flagship model (or a variant: ``variant_config``) with seeded
+    weights, in eval mode, on ``device`` (CUDA by default)."""
     dev = resolve_device(device)
-    model = Routeformer(flagship_config())
+    model = Routeformer(variant_config(gps, video, train_backbone),
+                        gps_backbone=GPS_VARIANTS[gps][0], video_backbone=VIDEO_VARIANTS[video])
     init_weights(model, seed)
     return model.to(dev).eval()
 
@@ -105,16 +160,16 @@ def build_flagship(seed: int = 0, device: DeviceLike = None) -> Routeformer:
 def build_dinov2(seed: int = 0, device: DeviceLike = None) -> Routeformer:
     """The DinoV2-backbone model with seeded weights, in eval mode, on
     ``device`` (CUDA by default)."""
-    dev = resolve_device(device)
-    model = Routeformer(dinov2_config(), video_backbone=DinoV2)
-    init_weights(model, seed)
-    return model.to(dev).eval()
+    return build_flagship(seed, device, video="DinoV2")
 
 
-def build_flagship_training(seed: int = 0, device: DeviceLike = None):
-    """``(model, optimizer, step)`` for the flagship on ``device`` (CUDA by
-    default): ``step(input_batch, target_batch, epoch) -> metrics``."""
-    model = build_flagship(seed, device)
+def build_flagship_training(seed: int = 0, device: DeviceLike = None, gps: str = "Informer",
+                            video: str = "SwinV2", train_backbone: bool = False):
+    """``(model, optimizer, step)`` for the flagship (or a variant) on
+    ``device`` (CUDA by default): ``step(input_batch, target_batch, epoch)
+    -> metrics``. The video backbone's parameters form the optimizer's
+    ``video_backbone`` group (rate 1e-6)."""
+    model = build_flagship(seed, device, gps, video, train_backbone)
     optimizer = build_optimizer(
         model, learning_rate=1e-5, weight_decay=1e-4, video_backbone_lr=1e-6,
         warmup_epochs=2, max_epochs=200, gradient_clip_val=2.5,

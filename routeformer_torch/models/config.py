@@ -6,14 +6,14 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from routeformer_torch.models.gps_backbone.config import GPSBackboneConfig
-from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
+from routeformer_torch.models.video_backbone.config import VideoBackboneConfig
 from routeformer_torch.utils.config import BaseConfig
 
 
 @dataclass
 class RouteformerConfig(BaseConfig):
     gps_backbone_config: GPSBackboneConfig
-    video_backbone_config: Optional[TimmBackboneConfig] = None
+    video_backbone_config: Optional[VideoBackboneConfig] = None
     output_attention: bool = False
     with_video: Optional[bool] = None
     with_gaze: bool = False

@@ -1,6 +1,6 @@
 """GPS backbone configs (the port's copy of
 ``routeformer_tpu/models/gps_backbone/config.py``): the base config, and
-PatchTST's and DLinear/NLinear's."""
+PatchTST's, DLinear/NLinear's and FEDformer's."""
 
 from dataclasses import dataclass, field
 from typing import Optional
@@ -87,3 +87,16 @@ class PatchTSTBackboneConfig(GPSBackboneConfig):
 @dataclass
 class LinearBackboneConfig(GPSBackboneConfig):
     kernel_size: int = 25
+
+
+@dataclass
+class FEDFormerBackboneConfig(GPSBackboneConfig):
+    """FEDformer's config: ``version`` ``Wavelets`` (multiwavelet blocks) or
+    ``Fourier`` (selected-mode Fourier blocks)."""
+
+    version: str = "Wavelets"
+    mode_select: str = "random"
+    modes: int = 32
+    L: int = 0
+    base: str = "legendre"
+    cross_activation: str = "tanh"

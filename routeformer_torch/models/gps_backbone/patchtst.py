@@ -63,13 +63,15 @@ def positional_encoding(q_len: int, d_model: int,
 
 
 class BatchNorm(nn.Module):
-    """flax's ``nnx.BatchNorm`` over the last dimension (see the module
-    docstring): ``weight``/``bias`` and the ``running_mean``/``running_var``
+    """flax's ``nnx.BatchNorm`` over the feature dimension ``axis`` (the
+    last by default; see the module docstring): ``weight``/``bias`` and the ``running_mean``/``running_var``
     buffers that ``load_flax_params`` fills from ``scale``/``bias``/
     ``mean``/``var``."""
 
-    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, num_features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 axis: int = -1):
         super().__init__()
+        self.axis = axis  # the feature dimension (1 for NCHW maps)
         self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features))
@@ -81,8 +83,9 @@ class BatchNorm(nn.Module):
         self.data_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        axis = self.axis % x.ndim
         if self.training:
-            dims = tuple(range(x.ndim - 1))
+            dims = tuple(d for d in range(x.ndim) if d != axis)
             if self.data_group is None:
                 mean = x.mean(dim=dims)
                 var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
@@ -96,7 +99,9 @@ class BatchNorm(nn.Module):
                 self.running_var.mul_(m).add_((1.0 - m) * var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        shape = [-1] + [1] * (x.ndim - 1 - axis)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * scale.reshape(shape) + self.bias.reshape(shape)
 
 
 class _BatchNormSublayer(nn.Module):

@@ -19,7 +19,9 @@ data shards the trainer sets ``shared_generator`` (the same stream on every
 rank): the per-batch decisions come from it, so every rank runs the same
 modules, while the per-row noise and masks stay on each rank's own stream. The video backbone is
 frozen, as the JAX package's ``stop_gradient`` makes it: it runs without
-autograd unless its ``unfreeze`` attribute (or ``train_backbone``) is set.
+autograd unless its ``unfreeze`` attribute (or its config's
+``train_backbone``) is set. A backbone without a canonical input size
+(InverseForm) runs once per pixel stream.
 A batch may carry the frozen backbone's feature maps instead of pixels
 (``left_video_features`` etc., full timeline, zeros where no frame is
 sampled; ``models/video_backbone/cache.py`` makes them): those streams skip
@@ -278,19 +280,26 @@ class Routeformer(nn.Module):
 
     def _encode_frame_streams(self, streams):
         """``[(frames, precomputed)]`` -> per-stream ``(N_i, emb)``: the pixel
-        streams through one backbone pass, the precomputed feature maps as
-        f32, then one frame-encoder call over all of them."""
+        streams through one backbone pass (or one per stream, for a backbone
+        without the ``preprocess_frames``/``encode_frames`` split), the
+        precomputed feature maps as f32, then one frame-encoder call over
+        all of them. The backbone keeps autograd only when it trains
+        (``train_backbone`` or ``unfreeze``)."""
         bb = self.video_backbone
         sizes = [s.shape[0] for s, _ in streams]
         maps = [s.float() if pre else None for s, pre in streams]
         pixel = [i for i, (_, pre) in enumerate(streams) if not pre]
         if pixel:
-            trainable = bb.unfreeze or bb.configs.train_backbone
+            trainable = bool(getattr(bb, "unfreeze", False)
+                             or getattr(bb.configs, "train_backbone", False))
             with torch.set_grad_enabled(torch.is_grad_enabled() and trainable):
-                feats = bb.encode_frames(
-                    torch.cat([bb.preprocess_frames(streams[i][0]) for i in pixel], dim=0)
-                )
-            for i, part in zip(pixel, torch.split(feats, [sizes[i] for i in pixel])):
+                if hasattr(bb, "encode_frames"):
+                    feats = bb.encode_frames(torch.cat(
+                        [bb.preprocess_frames(streams[i][0]) for i in pixel], dim=0))
+                    parts = torch.split(feats, [sizes[i] for i in pixel])
+                else:  # no canonical input size (InverseForm): once per stream
+                    parts = [bb(streams[i][0]) for i in pixel]
+            for i, part in zip(pixel, parts):
                 maps[i] = part
         tokens = torch.cat([f.reshape(f.shape[0], -1, f.shape[-1]) for f in maps])
         tokens = torch.cat([tokens, -torch.ones_like(tokens[:, :1])], dim=1)

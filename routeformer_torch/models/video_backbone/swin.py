@@ -13,6 +13,12 @@ LayerNorm layers. The JAX package's TPU-only gates (the batch-8 bad-frame
 guard and the C <= 512 VMEM gate of the fused block) are not carried over.
 Parameter names follow the flax paths; a scanned stage's pairs are a
 ``ModuleList``.
+
+Backbone training (``train_backbone``): training frames go through the
+photometric augment (``ops/augment.py``) in [0, 1], before the
+normalisation; ``remat`` recomputes each block pair in the backward
+(``torch.utils.checkpoint``, non-reentrant), so the pair's kernels run
+again there.
 """
 
 import math
@@ -23,11 +29,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from routeformer_torch.models.layers.attention import Linear
 from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
 from routeformer_torch.ops.flash_attention import flash_window_attention
-from routeformer_torch.ops.image import condition_frames
+from routeformer_torch.ops import augment
+from routeformer_torch.ops.image import condition_frames, to_float16
 from routeformer_torch.ops.swin_block_fusion import fused_swin_block
 from routeformer_torch.ops.weight_cache import derived
 
@@ -246,9 +254,9 @@ class SwinStage(nn.Module):
             for _ in range(depth // 2)
         )
 
-    def forward(self, x):
+    def forward(self, x, remat=False):
         for pair in self.pairs:
-            x = pair(x)
+            x = checkpoint(pair, x, use_reentrant=False) if remat else pair(x)
         return x
 
 
@@ -297,6 +305,19 @@ def resolve_preset(model_type: Optional[str]) -> SwinPreset:
     return SWIN_PRESETS["swinv2_base"]
 
 
+def augment_frames(backbone: nn.Module, images: torch.Tensor) -> torch.Tensor:
+    """The photometric augment of a training backbone's [0, 1] frames,
+    gated on ``train_backbone`` and training mode, never on ``unfreeze``
+    alone (the reference's gate). Its draws come from the frames' device's
+    default generator, which snapshots save and the mesh reseeds per data
+    shard."""
+    if not (backbone.configs.train_backbone and backbone.training):
+        return images
+    if images.dtype == torch.uint8:
+        images = to_float16(images)
+    return augment.photometric_augment(images)
+
+
 class SwinV2Backbone(nn.Module):
     """Hierarchical SwinV2 encoder producing a (H/32, W/32, 8*embed) map."""
 
@@ -330,8 +351,10 @@ class SwinV2Backbone(nn.Module):
         self.unfreeze = False
 
     def preprocess_frames(self, images: torch.Tensor) -> torch.Tensor:
-        """``condition_frames`` to the native size (ImageNet statistics),
-        then the compute dtype."""
+        """The augment (training with ``train_backbone``), then
+        ``condition_frames`` to the native size (ImageNet statistics) and
+        the compute dtype."""
+        images = augment_frames(self, images)
         x = condition_frames(images, self.preset.img_size,
                              pad_to_square=self.configs.pad_to_square)
         return x.to(self.compute_dtype) if self.compute_dtype is not None else x
@@ -343,8 +366,9 @@ class SwinV2Backbone(nn.Module):
         x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b,
                      stride=self.preset.patch_size).permute(0, 2, 3, 1)
         x = self.patch_norm(x.float()).to(x.dtype)
+        remat = self.configs.remat and torch.is_grad_enabled()
         for si, stage in enumerate(self.stages):
-            x = stage(x)
+            x = stage(x, remat)
             if str(si) in self.merges:
                 x = self.merges[str(si)](x)
         return self.final_norm(x.float())

@@ -12,7 +12,12 @@ them. The blocks' attention is ``ops/attention.py``
 ``dot_product_attention``, which takes K4 at 512 tokens or more (DinoV2 at
 518 px: 1369). The JAX package scans its stacked blocks; here they are a
 ``ModuleList`` named ``blocks`` (``convert.py`` unstacks the weights).
-Block remat and the photometric augment wait for backbone training.
+
+Backbone training (``train_backbone``): training frames go through the
+photometric augment before the normalisation (``swin.augment_frames``),
+and ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``, non-reentrant): K4's forward runs again there,
+its backward a plain recompute.
 """
 
 from dataclasses import dataclass
@@ -21,9 +26,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from routeformer_torch.models.layers.attention import Linear
 from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
+from routeformer_torch.models.video_backbone.swin import augment_frames
 from routeformer_torch.ops.attention import dot_product_attention
 from routeformer_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD, condition_frames
 
@@ -120,7 +127,9 @@ class TimmBackbone(nn.Module):
                                 pad_to_square=self.configs.pad_to_square)
 
     def preprocess_frames(self, images: torch.Tensor) -> torch.Tensor:
-        x = self.preprocess(images)
+        """The augment (training with ``train_backbone``), then
+        ``preprocess`` and the compute dtype."""
+        x = self.preprocess(augment_frames(self, images))
         return x.to(self.compute_dtype) if self.compute_dtype is not None else x
 
     def encode_frames(self, x: torch.Tensor) -> torch.Tensor:
@@ -130,8 +139,9 @@ class TimmBackbone(nn.Module):
                      self.patch_embed.bias.to(dt), stride=self.preset.patch_size)
         n, c, gh, gw = x.shape
         x = x.flatten(2).transpose(1, 2) + self.pos_embed.to(dt)
+        remat = self.configs.remat and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x)
+            x = checkpoint(block, x, use_reentrant=False) if remat else block(x)
         return self.norm(x.float()).reshape(n, gh, gw, c)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,10 @@
   queries, and each row keeps the dense output when its sparsity measure
   is at least the ``u``-th largest, else the mean of V (non-causal) or the
   running sum of V (causal).
+- ``autocorrelation_attention``: Autoformer's FFT AutoCorrelation
+  (``torch.fft``, f32), its top-k delays taken by a stable descending
+  sort, so that tied correlations pick the lower delay first as
+  ``jax.lax.top_k`` does.
 
 Rounding follows the JAX code: scores of bf16 inputs accumulate in f32
 (``preferred_element_type``) for ProbSparse; the dense path rounds its
@@ -163,3 +167,70 @@ def prob_sparse_attention(
     update = torch.softmax(scores, dim=-1) @ vf
     out = torch.where(selected[..., None], update, context)
     return out.transpose(1, 2)
+
+
+def autocorrelation_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    factor: int = 1,
+    training: bool = True,
+    data_group=None,
+):
+    """Autoformer AutoCorrelation on ``(B, L, H, E)`` tensors; returns
+    ``(out (B, L, H, E) in v's dtype, corr (B, L, H, E) f32)``.
+
+    Keys and values are cut or zero-padded to the query length; the
+    per-(head, channel) circular cross-correlation
+    ``irfft(rfft(q) * conj(rfft(k)))`` runs over time in f32; the top
+    ``int(factor * ln L)`` delays are softmax-weighted and V is aggregated
+    by circularly shifting it by each delay. In training the delays come
+    from the batch mean of the correlation (shared by every row: on a mesh
+    with several data shards, ``data_group``, the global batch's mean);
+    in eval each row takes its own. Ties go to the lower delay."""
+    b, l, h, e = q.shape
+    s = k.shape[1]
+    if l > s:
+        pad = v.new_zeros(b, l - s, h, v.shape[-1])
+        v = torch.cat([v, pad], dim=1)
+        k = torch.cat([k, pad.to(k.dtype)], dim=1)
+    else:
+        v, k = v[:, :l], k[:, :l]
+    qt = q.permute(0, 2, 3, 1).float()  # (B, H, E, L)
+    kt = k.permute(0, 2, 3, 1).float()
+    vt = v.permute(0, 2, 3, 1).float()
+    corr = torch.fft.irfft(torch.fft.rfft(qt, dim=-1) * torch.conj(torch.fft.rfft(kt, dim=-1)),
+                           n=l, dim=-1)
+    top_k = int(factor * math.log(l))
+    mean_value = corr.mean(dim=(1, 2))  # (B, L)
+    positions = torch.arange(l, device=q.device)
+    if training:
+        batch_mean = mean_value.mean(dim=0)
+        if data_group is not None:
+            import torch.distributed as dist
+
+            total = torch.cat([mean_value.detach().sum(dim=0),
+                               mean_value.new_full((1,), float(b))])
+            dist.all_reduce(total, group=data_group)
+            batch_mean = total[:-1] / total[-1]
+        delay = _top_indices(batch_mean, top_k)  # (k,)
+        weights = mean_value[:, delay]  # (B, k)
+        idx = (positions[None, :] + delay[:, None]) % l  # (k, L)
+        patterns = vt[..., idx]  # (B, H, E, k, L)
+    else:
+        delay = _top_indices(mean_value, top_k)  # (B, k)
+        weights = torch.gather(mean_value, 1, delay)
+        idx = (positions[None, None, :] + delay[:, :, None]) % l  # (B, k, L)
+        patterns = torch.gather(
+            vt[:, :, :, None, :].expand(b, h, vt.shape[2], top_k, l), 4,
+            idx[:, None, None].expand(b, h, vt.shape[2], top_k, l))
+    out = torch.einsum("bhekl,bk->bhel", patterns, torch.softmax(weights, dim=-1))
+    return out.permute(0, 3, 1, 2).to(v.dtype), corr.permute(0, 3, 1, 2)
+
+
+def _top_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the ``k`` largest entries along the last dim, larger
+    first and the lower index first among equals (``jax.lax.top_k``'s
+    order; ``torch.topk`` promises none on CUDA)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]

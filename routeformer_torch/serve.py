@@ -1,8 +1,10 @@
 """Serving bundles (counterpart of ``routeformer_tpu/serve.py``).
 
 A bundle is one ``torch.save`` file holding the model's config (as nested
-plain dicts), the name of its video backbone class and its ``state_dict``.
-``load_serving_bundle`` rebuilds the model, backbone class included, in
+plain dicts), the names of its GPS and video backbone classes and of their
+config classes, and its ``state_dict`` (with the Fourier blocks' mode
+indices and the HRNet BatchNorm statistics). ``load_serving_bundle``
+rebuilds the model, backbone classes included, in
 eval mode on a device (CUDA by default) and wraps it in a
 ``ServingModel`` that answers ``(gps, dense_features)`` for a batch of
 numpy arrays or tensors. StableHLO export has no counterpart here.
@@ -17,8 +19,8 @@ import numpy as np
 import torch
 
 from routeformer_torch.models import Routeformer, RouteformerConfig
-from routeformer_torch.models.gps_backbone import GPSBackboneConfig
-from routeformer_torch.models.video_backbone import VIDEO_BACKBONES, TimmBackboneConfig
+from routeformer_torch.models.gps_backbone import GPS_BACKBONES, GPS_CONFIGS
+from routeformer_torch.models.video_backbone import VIDEO_BACKBONES, VIDEO_CONFIGS
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 BUNDLE_FILE = "model.pt"
@@ -63,8 +65,18 @@ def export_model(model: torch.nn.Module, example_batch: dict, platforms=None) ->
 
     The program is traced on the device the model lies on (its kernels are
     the registered ops of that device); ``platforms``, the JAX signature's
-    list of targets, may only name that device's type.
+    list of targets, may only name that device's type. Autoformer and
+    InverseForm models export; a FEDformer one is refused (the reason is
+    in the error).
     """
+    from routeformer_torch.models.gps_backbone import FEDformer
+
+    if isinstance(getattr(model, "gps_backbone", None), FEDformer):
+        raise NotImplementedError(
+            "export_model: FEDformer's spectral blocks multiply complex tensors (its "
+            "real/imag weights joined by torch.complex), and the program torch.export "
+            "makes of them returns fake tensors in this torch; serve FEDformer through "
+            "save_serving_bundle/load_serving_bundle")
     forward, leaves = _eval_forward(model)
     device = leaves[0].device
     if platforms is not None and set(platforms) != {device.type}:
@@ -101,24 +113,32 @@ def _from_dict(cls, d):
     return cls(**{k: v for k, v in d.items() if k in names})
 
 
-def config_from_dict(d: dict) -> RouteformerConfig:
+def config_from_dict(d: dict, gps_config: str = "GPSBackboneConfig",
+                     video_config: str = "TimmBackboneConfig") -> RouteformerConfig:
+    """A config from its nested dict; ``gps_config``/``video_config`` name
+    the backbone configs' classes."""
     d = dict(d)
-    d["gps_backbone_config"] = _from_dict(GPSBackboneConfig, d["gps_backbone_config"])
+    d["gps_backbone_config"] = _from_dict(GPS_CONFIGS[gps_config], d["gps_backbone_config"])
     if d.get("video_backbone_config") is not None:
-        d["video_backbone_config"] = _from_dict(TimmBackboneConfig,
+        d["video_backbone_config"] = _from_dict(VIDEO_CONFIGS[video_config],
                                                 d["video_backbone_config"])
     return _from_dict(RouteformerConfig, d)
 
 
 def save_serving_bundle(path, model: Routeformer) -> None:
-    """Write ``path/model.pt``: the config, the video backbone's class name
-    and the ``state_dict``."""
+    """Write ``path/model.pt``: the config, the backbones' and their
+    configs' class names and the ``state_dict``."""
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     backbone = getattr(model, "video_backbone", None)
-    torch.save({"config": model.configs.to_dict(), "state_dict": state,
-                "video_backbone": None if backbone is None else type(backbone).__name__},
+    cfg = model.configs
+    torch.save({"config": cfg.to_dict(), "state_dict": state,
+                "gps_backbone": type(model.gps_backbone).__name__,
+                "gps_config": type(cfg.gps_backbone_config).__name__,
+                "video_backbone": None if backbone is None else type(backbone).__name__,
+                "video_config": None if backbone is None
+                else type(cfg.video_backbone_config).__name__},
                path / BUNDLE_FILE)
 
 
@@ -139,7 +159,12 @@ def load_serving_bundle(path, device: DeviceLike = None) -> ServingModel:
     dev = resolve_device(device)
     payload = torch.load(Path(path) / BUNDLE_FILE, map_location="cpu",
                          weights_only=True)
-    backbone = VIDEO_BACKBONES[payload.get("video_backbone") or "SwinV2Backbone"]
-    model = Routeformer(config_from_dict(payload["config"]), video_backbone=backbone)
+    config = config_from_dict(payload["config"],
+                              payload.get("gps_config") or "GPSBackboneConfig",
+                              payload.get("video_config") or "TimmBackboneConfig")
+    model = Routeformer(config,
+                        gps_backbone=GPS_BACKBONES[payload.get("gps_backbone") or "Informer"],
+                        video_backbone=VIDEO_BACKBONES[
+                            payload.get("video_backbone") or "SwinV2Backbone"])
     model.load_state_dict(payload["state_dict"])
     return ServingModel(model.to(dev), dev)

@@ -29,9 +29,9 @@ from test_torch_trainer import one_torch_thread  # noqa: F401  (autouse)
 JAX_DRIVER = Path(__file__).resolve().parents[1] / "experiments" / "full_comparison.py"
 # TimmBackboneConfig knobs of the JAX package that the port does not carry:
 # the TPU's frame minibatching, its persistent disk cache, checkpoint
-# import, block remat and the Pallas window-kernel switch.
+# import and the Pallas window-kernel switch.
 JAX_ONLY_FIELDS = {"backbone_minibatch_size", "max_persistent_cache_size", "checkpoint_path",
-                   "remat", "window_flash"}
+                   "window_flash"}
 
 BASE = {"ROUTEFORMER_FORCE_CPU": "1", "DEBUG": "1", "EPOCHS": "2", "BATCH_SIZE": "2",
         "MODEL_SET": "flagship", "DATASET": "GEM"}

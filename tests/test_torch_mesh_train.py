@@ -10,7 +10,9 @@ with FSDP (``min_shard_dim=32``, so the Routeformer's matrices shard);
 the MC eval before and after the FSDP mesh's steps (the second after an
 optimizer step, so a stale derived weight would show); PatchTST's
 BatchNorm at ``data=2``; a snapshot under FSDP restored on a fresh mesh;
-the mesh loader's order, rows and frame store; the mesh memo. While the
+the mesh loader's order, rows and frame store; the mesh memo; at (4, 1),
+Autoformer's training-mode delays and InverseForm's train-mode BatchNorm
+(each rank's rows against the one process's global batch). While the
 ranks run, the parent computes the references: the port's trainer in one
 process on the global batch, and the JAX trainer on the conftest's virtual
 mesh at (2, 2) with FSDP (one JAX mesh: its compile takes a minute; JAX's
@@ -133,6 +135,34 @@ def _patchtst_step(trainer, batch):
     return {"loss": loss, "stats": stats, "params": _params(trainer)}
 
 
+ZOO_ROWS = 8
+
+
+def _zoo_run(arg, rows=slice(None), group=None):
+    """Train-mode forwards of a small Autoformer (its delays are the batch
+    mean's) and InverseForm (BatchNorm's batch statistics) on ``rows`` of
+    the global batch, the data shards' ``group`` set on the modules that
+    take one; their outputs and InverseForm's running statistics."""
+    from routeformer_torch.models.gps_backbone import Autoformer, GPSBackboneConfig
+    from routeformer_torch.models.video_backbone import InverseForm, InverseFormBackboneConfig
+
+    torch.manual_seed(11)
+    auto = Autoformer(GPSBackboneConfig(seq_len=20, label_len=20, pred_len=10, d_model=32,
+                                        n_heads=4, e_layers=2, d_layers=1, d_ff=64,
+                                        dropout=0.0, factor=2, moving_avg=5, _enc_in=7,
+                                        _c_out=3)).train()
+    inv = InverseForm(InverseFormBackboneConfig()).train()
+    for m in (*auto.modules(), *inv.modules()):
+        if hasattr(m, "data_group"):
+            m.data_group = group
+    with torch.no_grad():
+        out = {"auto": auto(torch.from_numpy(arg["zoo"]["series"][rows])).numpy(),
+               "inv": inv(torch.from_numpy(arg["zoo"]["frames"][rows])).numpy()}
+    out["stats"] = {k: v.numpy().copy() for k, v in inv.state_dict().items()
+                    if k.endswith(("running_mean", "running_var"))}
+    return out
+
+
 def rank_checks(rank, n, arg):
     """Every rank-side check; rank 0 returns its records, every rank its
     loader and memo records."""
@@ -180,6 +210,10 @@ def rank_checks(rank, n, arg):
     out["patchtst"] = _patchtst_step(_trainer(_patchtst(arg), arg, mesh22), arg["patch_batch"])
 
     mesh41 = make_mesh(4, 1, device="cpu")
+    from routeformer_torch.parallel.mesh import DATA_AXIS
+
+    out["zoo"] = _zoo_run(arg, row_block(ZOO_ROWS, mesh41), mesh41.get_group(DATA_AXIS))
+    out["zoo"]["rows"] = row_block(ZOO_ROWS, mesh41)
     orders = {}
     for dedup in (True, False):
         for shuffle in (True, False):
@@ -279,7 +313,9 @@ def _arg(tmp_dir):
     return {"kwargs": _configs(), "exhaustive": EXHAUSTIVE, "flat": flat, "opt": OPT,
             "train": [_batch4(7, [30.0] * 4), _batch4(11, [30.0] * 4)],
             "val": [_batch4(21, [23.0, 70.0, 45.0, 90.0])], "dir": str(tmp_dir),
-            "patch_batch": {"train": {"gps": gps[:, :8]}, "target": {"gps": gps[:, 8:]}}}
+            "patch_batch": {"train": {"gps": gps[:, :8]}, "target": {"gps": gps[:, 8:]}},
+            "zoo": {"series": rng.normal(size=(ZOO_ROWS, 20, 7)).astype(np.float32),
+                    "frames": rng.uniform(size=(ZOO_ROWS, 32, 32, 3)).astype(np.float32)}}
 
 
 def _jax_fsdp_run(arg):
@@ -339,6 +375,7 @@ def _one_process(arg):
     out["grads"] = grads
     out["params"] = _params(ref)
     out["patchtst"] = _patchtst_step(_trainer(_patchtst(arg), arg), arg["patch_batch"])
+    out["zoo"] = _zoo_run(arg)
     return out
 
 
@@ -448,6 +485,25 @@ def test_patchtst_batchnorm_is_the_global_batch(runs):
     lr = runs["arg"]["opt"]["learning_rate"]
     for k, v in want["params"].items():
         assert np.abs(got["params"][k] - v).max() <= 2 * lr, k
+
+
+@pytest.mark.parametrize("part", ["auto", "inv"])
+def test_zoo_batch_coupling_is_the_global_batch(runs, part):
+    """At (4, 1): Autoformer's training delays (chosen from the global
+    batch's mean correlation) and InverseForm's train-mode BatchNorm
+    (global statistics, and the running ones after the forward) give each
+    rank the one process's rows of the global batch (f32: Autoformer at
+    1e-4, InverseForm's output at 1e-3, its statistics' sums reordered
+    through a 40-conv trunk, and its running statistics at 1e-4)."""
+    want = runs["one"]["zoo"]
+    tol = 1e-4 if part == "auto" else 1e-3
+    for rec in runs["ranks"]:
+        got = rec["zoo"]
+        np.testing.assert_allclose(got[part], want[part][got["rows"]], rtol=tol, atol=tol)
+        if part == "inv":
+            assert set(got["stats"]) == set(want["stats"]) and want["stats"]
+            for k, v in want["stats"].items():
+                np.testing.assert_allclose(got["stats"][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
 
 
 def test_snapshot_restores_on_a_fresh_mesh(runs):
