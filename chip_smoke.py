@@ -124,7 +124,9 @@ Phases (any failure exits non-zero):
    next step, and a fresh trainer on the mesh restoring it and taking that
    step, cuDNN's convolution backward held deterministic: the same bits.
    Each variant's step time and peak memory beside the card's name and
-   power limit.
+   power limit. The mesh gathers one unit at a time (a SwinV2 block pair,
+   a Perceive stack, a layer); at world 1 no parameter is sharded, so no
+   unit gathers (``gather_units`` 0, gathered bytes 0).
 7c. The driver's whole model zoo (``MODEL_SET=full``, the JAX driver's 13
    models, ``ROUTEFORMER_FUSION_KERNEL=1``, batch 16, GEM geometry, full
    width) through ``build_models``/``build_data``/``build_trainer``/
@@ -202,6 +204,22 @@ Phases (any failure exits non-zero):
    loader's batches (step ms, busy, idle share, launches per step), and
    the card's ``ops/image.remap`` against the CPU's on a batch of frames
    warped by a fixed homography (the stitcher's warp), timed.
+7i. Gaze heatmaps (``ops/heatmap.py``, ``visualize/gaze.py``) on one
+   placed batch of phase 7d's GEM loader and one of 7e's DR(eye)VE loader
+   (its gaze with the logs' NaN gaps): each front-camera frame's gaze
+   samples as the batch carries them, at the driver's front geometry,
+   rasterized on the card and with ``device="cpu"``: the same NaN mask
+   (a NaN sample makes its frame's map NaN, as in JAX; the loaders'
+   gaze is interpolated, so one sample of one frame is set to NaN on
+   both sides, and only that frame turns NaN), within
+   ``HEATMAP_TOL`` of the max where finite, ms per batch (CUDA events);
+   ``visualize.gaze.overlay_heatmap_on_frame`` on the card against the
+   CPU's on the clip's first ``HEATMAP_OVERLAY_FRAMES`` uint8 frames: at
+   most 1 level apart, but for pixels whose heat lies within
+   ``HEATMAP_TOL`` of the 0.2 mask (counted: there the two sides may fall
+   either way). An information line says whether matplotlib imports and,
+   where it does, renders the batch's first trajectory with
+   ``plot_gps_data_on_map`` (no check).
 7g. The zoo's remainder (``ROUTEFORMER_FUSION_KERNEL=1``, batch 16): the
    flagship (tanh SwinV2) with its GPS backbone swapped at
    the driver's full GPS width (d_model 832, 8 heads, e6/d1, d_ff 3328,
@@ -292,6 +310,13 @@ PEAK_BF16 = 989e12   # H100 SXM dense bf16 FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12     # H100 SXM f32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 BUNDLE_DIR = ROOT / "build" / "smoke_bundle"
+
+# Phase 7i takes one placed batch of each data path (7d, 7e), kept on the
+# host (``heatmap_batch``): its gaze (every frame's samples), its GPS and
+# the first clip's front frames.
+HEATMAP_SIGMA = 10.0
+HEATMAP_TOL = 1e-5  # of the max where finite: f32 sums over the samples reordered
+HEATMAP_OVERLAY_FRAMES = 16
 
 # K1/K2 geometry per flagship forward at batch 1 (24 frames):
 # (name, windows, tokens, channels, heads, blocks per forward, window kinds
@@ -2514,6 +2539,10 @@ def mesh_phase(results: dict, smi: str, dev=None, env=None) -> dict:
                     assert per_step[k] == RUN_PER_STEP[k], (variant, per_step)
                 assert 16 <= per_step["K3b"] <= 24, (variant, per_step)
             launches[variant] = got["launches"]
+            rec["gather_units"] = sum(len(lay.units) for lay in trainer.layouts.values())
+            rec["gathered_high_water_bytes"] = sum(
+                lay.high_water for lay in trainer.layouts.values())
+            assert rec["gather_units"] == 0 or dist.get_world_size() > 1, rec
             rec["same_bits"] = rec["loss_bits"] and rec["params_vs_no_mesh"] is None
             assert rec["eval_bits"], rec
             if not rec["same_bits"]:  # phase 7's limit on the first step, the op named
@@ -3482,7 +3511,8 @@ def gem_audio_path(data_root: Path, geo: dict, dev, smi: str) -> dict:
 
 
 def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
-    """Phase 7d. Returns the launches of the cold epoch's run."""
+    """Phase 7d. Returns the launches of the cold epoch's run and the
+    first loader batch kept for phase 7i (``heatmap_batch``)."""
     import dataclasses
     import tempfile
 
@@ -3537,6 +3567,7 @@ def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
         epochs = [loader_epoch(loader, 0), loader_epoch(loader, 1)]
         for e in epochs:
             check_epoch_bits(loader, e)
+        kept = heatmap_batch(epochs[0]["batches"][0])
         distinct = check_distinct_keys(ds_train, epochs[0]["order"])
         out["loader"] = [{k: v for k, v in e.items() if k not in ("batches", "order")}
                          for e in epochs]
@@ -3625,7 +3656,7 @@ def gem_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     results["gem_data_path"] = out
     log(f"GEM data path phase: {out['phase_s']:.1f} s")
-    return launches
+    return launches, kept
 
 
 # --------------------------------------------------------------- phase 7e #
@@ -3643,6 +3674,109 @@ DREYEVE_RUN_DIR = ROOT / "build" / "smoke_dreyeve"
 DREYEVE_TIMED_FRAMES = 12
 REMAP_TOL = 1e-3  # card vs CPU remap of [0, 255] frames, absolute: f32 lerps, FMA or not
 REMAP_H = ((0.98, 0.03, 12.5), (-0.02, 1.01, -4.0), (2e-5, -1e-5, 1.0))
+
+
+def heatmap_batch(placed: dict) -> dict:
+    """Phase 7i's input from a placed batch: its gaze and GPS and its first
+    clip's front frames, on the host."""
+    train = placed["train"]
+    return {"gaze": train["gaze"].float().cpu().numpy(),
+            "gps": train["gps"].float().cpu().numpy(),
+            "frames": train["front_video"][0].cpu().numpy()}
+
+
+def frame_gaze_pixels(gaze, n_frames: int, h: int, w: int):
+    """(B, G, 2) normalised gaze (x from the left, y from the bottom) ->
+    (B * n_frames, G // n_frames, 2) pixel points: each frame's samples."""
+    import numpy as np
+
+    b, g, _ = gaze.shape
+    per = g // n_frames
+    pts = gaze[:, :per * n_frames].reshape(b * n_frames, per, 2).astype(np.float64)
+    return np.stack([pts[..., 0] * w, (1.0 - pts[..., 1]) * h], axis=-1)
+
+
+def gaze_heatmaps(results: dict, smi: str, batches: dict, dev=None) -> None:
+    """Phase 7i over ``batches`` (``{"gem": .., "dreyeve": ..}``, each a
+    ``heatmap_batch`` of phases 7d and 7e). (``dev`` the CPU rehearses it.)"""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from routeformer_torch.ops import heatmap
+    from routeformer_torch.visualize import gaze as vgaze
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda") if dev is None else dev
+    out = {"card": smi}
+    assert set(batches) == {"gem", "dreyeve"}, sorted(batches)
+    for name, batch in batches.items():
+        frames = batch["frames"]
+        t, h, w, _ = frames.shape
+        pts = frame_gaze_pixels(batch["gaze"], t, h, w)
+        on_card = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        card = heatmap.rasterize_gaze_heatmap(on_card, h, w, HEATMAP_SIGMA)
+        assert card.device.type == dev.type and card.shape == (len(pts), h, w)
+        card = card.cpu().numpy()
+        host = heatmap.rasterize_gaze_heatmap(pts, h, w, HEATMAP_SIGMA, device="cpu").numpy()
+        nan_items = np.isnan(host).all(axis=(1, 2))
+        assert np.array_equal(np.isnan(card), np.isnan(host)), name
+        assert np.array_equal(np.isnan(host).any(axis=(1, 2)), nan_items), name
+        finite = ~np.isnan(host)
+        peak = float(np.abs(host[finite]).max()) if finite.any() else 0.0
+        err = float(np.abs(card[finite] - host[finite]).max() / peak) if peak else 0.0
+        ms = cuda_ms(lambda: heatmap.rasterize_gaze_heatmap(on_card, h, w, HEATMAP_SIGMA)) \
+            if dev.type == "cuda" else None
+        # The loaders' gaze carries no NaN (the datasets interpolate the
+        # logs' gaps): a NaN sample in one frame, on both sides, makes that
+        # frame's map NaN and leaves the others' bits.
+        pts[1, 0] = np.nan
+        on_card[1, 0] = float("nan")
+        card_nan = heatmap.rasterize_gaze_heatmap(on_card, h, w, HEATMAP_SIGMA).cpu().numpy()
+        host_nan = heatmap.rasterize_gaze_heatmap(pts, h, w, HEATMAP_SIGMA, device="cpu").numpy()
+        keep = np.arange(len(pts)) != 1
+        nan_witness = bool(np.isnan(card_nan[1]).all() and np.isnan(host_nan[1]).all()
+                           and np.array_equal(card_nan[keep], card[keep], equal_nan=True)
+                           and np.array_equal(host_nan[keep], host[keep], equal_nan=True))
+        assert nan_witness, name
+        per = pts.shape[1]
+        clip_gaze = batch["gaze"][0, :per * t].reshape(t, per, 2)
+        worst, near, near_diff = 0, 0, 0
+        for i in range(min(HEATMAP_OVERLAY_FRAMES, t)):
+            got = vgaze.overlay_heatmap_on_frame(frames[i], clip_gaze[i], HEATMAP_SIGMA,
+                                                 device=dev)
+            want = vgaze.overlay_heatmap_on_frame(frames[i], clip_gaze[i], HEATMAP_SIGMA,
+                                                  device="cpu")
+            diff = np.abs(got.astype(int) - want.astype(int)).max(axis=-1)
+            edge = np.abs(host[i] - 0.2) <= HEATMAP_TOL  # the mask may fall either way
+            worst = max(worst, int(diff[~edge].max(initial=0)))
+            near += int(edge.sum())
+            near_diff += int((diff[edge] > 1).sum())
+        rec = {"frames": len(pts), "hw": [h, w], "samples_per_frame": per,
+               "nan_frames": int(nan_items.sum()), "nan_witness": nan_witness,
+               "max_err": err, "ms_per_batch": ms,
+               "overlay_max_level_diff": worst, "overlay_pixels_at_mask_edge": near,
+               "overlay_edge_pixels_differing": near_diff}
+        log(f"{smi}: gaze heatmaps {name}: {json.dumps(rec)}")
+        assert err <= HEATMAP_TOL and worst <= 1, (name, rec)
+        out[name] = rec
+    if importlib.util.find_spec("matplotlib") is None:
+        out["matplotlib"] = "not importable here: plot_gps_data_on_map not run"
+    else:
+        from routeformer_torch.visualize import plot_gps_data_on_map, render_figure_to_image
+
+        import matplotlib.pyplot as plt
+
+        gps = batches["gem"]["gps"][0]
+        fig = plot_gps_data_on_map({"x": gps[:, 0], "y": gps[:, 1]}, offset=5.0,
+                                   figure_kwargs={"figsize": (4, 4), "frameon": False}
+                                   ).get_figure()
+        out["matplotlib"] = f"rendered a trajectory: {render_figure_to_image(fig).shape}"
+        plt.close(fig)
+    log(f"information: matplotlib {out['matplotlib']}")
+    log(f"gaze heatmap phase: {time.perf_counter() - t0:.1f} s")
+    results["gaze_heatmaps"] = out
 
 
 def dreyeve_windows(duration_s: float) -> int:
@@ -3738,7 +3872,8 @@ def remap_check(dataset, dev, smi: str) -> dict:
 
 
 def dreyeve_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
-    """Phase 7e. Returns the launches of the cold epoch's run."""
+    """Phase 7e. Returns the launches of the cold epoch's run and the
+    first loader batch kept for phase 7i (``heatmap_batch``)."""
     import dataclasses
     import tempfile
 
@@ -3808,6 +3943,7 @@ def dreyeve_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
                 want_batch = maybe_split_video(
                     default_collate([ds_train[int(i)] for i in idx]), True)
                 same_bits(placed, want_batch, f"batch {b}")
+        kept = heatmap_batch(epochs[0]["batches"][0])
         keys_of = {}
         for i in (int(i) for idx in epochs[0]["order"] for i in idx):
             sample, entry = ds_train.get_with_info(i)
@@ -3887,7 +4023,7 @@ def dreyeve_data_path(results: dict, smi: str, dev=None, geo=None) -> dict:
     out["phase_s"] = time.perf_counter() - t_phase
     results["dreyeve_data_path"] = out
     log(f"DR(eye)VE data path phase: {out['phase_s']:.1f} s")
-    return launches
+    return launches, kept
 
 
 # --------------------------------------------------------------- phase 7g #
@@ -4707,8 +4843,11 @@ def main() -> int:
     results["training_run_launches"] = training_run(results, smi)
     results["mesh_launches_per_step"] = mesh_phase(results, smi)
     results["full_set_launches"] = full_set_run(results, smi)
-    results["gem_data_path_launches"] = gem_data_path(results, smi)
-    results["dreyeve_data_path_launches"] = dreyeve_data_path(results, smi)
+    heatmap_batches = {}
+    results["gem_data_path_launches"], heatmap_batches["gem"] = gem_data_path(results, smi)
+    results["dreyeve_data_path_launches"], heatmap_batches["dreyeve"] = dreyeve_data_path(
+        results, smi)
+    gaze_heatmaps(results, smi, heatmap_batches)
     card_cpu, results["zoo_launches_per_step"] = zoo_remainder(results, smi)
     results["backbone_training_launches_per_step"] = backbone_training(results, smi, card_cpu)
     line = kernel_line(launches, results)

@@ -9,7 +9,7 @@ passes ``device="cpu"``; when CUDA is asked for and absent they raise:
   and ``ExportedModel`` (a ``torch.export`` serving artifact over the
   kernels' registered ops);
 - data: ``synthetic_batch`` (tensors on a device), ``SyntheticDataset``
-  (numpy batches, no device);
+  (numpy batches, no device), ``GEMDataset`` and ``DreyeveDataset``;
 - training: ``ParallelTrainer`` (lockstep multi-model trainer with the
   Monte-Carlo, PCI-bucketed eval), ``CheckpointManager`` (best-ADE
   checkpoints and the latest snapshot for exact resume), and the driver,
@@ -34,12 +34,24 @@ from routeformer_torch.serve import (
     load_serving_bundle,
     save_serving_bundle,
 )
+from routeformer_torch.models import Routeformer, RouteformerConfig
 from routeformer_torch.train import CheckpointManager, ParallelTrainer
+from routeformer_torch.utils.logging import set_logger_config
+
+
+def __getattr__(name):
+    # the datasets are imported on first use: they pull in scipy and the readers
+    if name in ("GEMDataset", "DreyeveDataset"):
+        from routeformer_torch import io
+
+        return getattr(io, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
-    "CheckpointManager", "ExportedModel", "ParallelTrainer", "ServingModel",
-    "SyntheticDataset", "build_dinov2", "build_flagship", "build_flagship_training",
-    "dinov2_config", "export_model", "flagship_config", "full_comparison",
-    "load_serving_bundle", "save_serving_bundle",
-    "synthetic_batch",
+    "CheckpointManager", "DreyeveDataset", "ExportedModel", "GEMDataset", "ParallelTrainer",
+    "Routeformer", "RouteformerConfig", "ServingModel", "SyntheticDataset", "build_dinov2",
+    "build_flagship", "build_flagship_training", "dinov2_config", "export_model",
+    "flagship_config", "full_comparison", "load_serving_bundle", "save_serving_bundle",
+    "set_logger_config", "synthetic_batch",
 ]

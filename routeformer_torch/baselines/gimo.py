@@ -22,6 +22,8 @@ from routeformer_torch.models.video_backbone.swin import SwinV2Backbone
 from routeformer_torch.ops.attention import dot_product_attention
 from routeformer_torch.utils.filter import median_downsampler
 
+BetterPerceiveEncoder = PerceiveEncoder  # the JAX module's name for the frame encoder
+
 
 def _latent(*shape) -> nn.Parameter:
     return nn.Parameter(torch.clamp(0.02 * torch.randn(*shape), -2.0, 2.0))

@@ -15,6 +15,10 @@ def __getattr__(name):
         from routeformer_torch.io.dataset import GEMDataset
 
         return GEMDataset
+    if name == "DreyeveDataset":
+        from routeformer_torch.io.dataset_dreyeve import DreyeveDataset
+
+        return DreyeveDataset
     if name == "DataLoader":
         from routeformer_torch.io.loader import DataLoader
 
@@ -22,5 +26,5 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["ContentRing", "DataLoader", "GEMDataset", "SyntheticDataset", "hash_frames",
+__all__ = ["ContentRing", "DataLoader", "DreyeveDataset", "GEMDataset", "SyntheticDataset", "hash_frames",
            "synthetic_batch", "synthetic_batch_numpy"]

@@ -54,6 +54,88 @@ def extract_gps_raw(data: bytes) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     return out[:n], out_time[:n]
 
 
+def native_available() -> bool:
+    """Whether ``csrc/gpmf.cpp`` builds and loads here. The walker itself
+    does not fall back: ``extract_gps_raw`` raises the build's or the
+    load's ``ImportError``."""
+    try:
+        _load()
+    except ImportError:
+        return False
+    return True
+
+
+def fix_timestamps_array(times: np.ndarray) -> np.ndarray:
+    """Vectorized equivalent of ``gpmf.fix_timestamps``/``estimate_fps`` on
+    posix-seconds arrays (NaN = missing): estimates the per-gap rate, drops
+    stamps outside the 17.5-18.5 Hz plausibility window, fills missing stamps
+    forward (and the head backward) at the estimated rate, 18.17 Hz default.
+    """
+    times = times.astype(np.float64).copy()
+    n = len(times)
+    if n == 0:
+        return times
+
+    valid_idx = np.flatnonzero(~np.isnan(times))
+    # per-gap fps with the plausibility rejection (drops the EARLIER stamp,
+    # matching the reference's behavior)
+    fps_gap = np.full(max(len(valid_idx) - 1, 0), np.nan)
+    if len(valid_idx) >= 2:
+        counts = np.diff(valid_idx).astype(np.float64)
+        dts = np.diff(times[valid_idx])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            est = np.where(dts != 0, counts / dts, np.nan)
+        bad = np.isnan(est) | (est > 18.5) | (est < 17.5)
+        times[valid_idx[:-1][bad]] = np.nan
+        fps_gap = np.where(bad, np.nan, est)
+
+    # per-point fps: gap estimates spread over their ranges, 18.17 fallback
+    fps = np.full(n, np.nan)
+    if len(valid_idx) >= 2:
+        reps = np.diff(valid_idx)
+        fps[valid_idx[0] : valid_idx[-1]] = np.repeat(fps_gap, reps)
+    # backward fill of NaN fps (reference fills from the next valid estimate)
+    rev_valid = ~np.isnan(fps[::-1])
+    rev_idx = np.where(rev_valid, np.arange(n), -1)
+    rev_prev = np.maximum.accumulate(rev_idx)
+    fps_rev = fps[::-1]
+    filled_rev = np.where(rev_prev >= 0, fps_rev[np.maximum(rev_prev, 0)], 18.17)
+    fps = filled_rev[::-1].copy()
+
+    valid_idx = np.flatnonzero(~np.isnan(times))
+    if valid_idx.size == 0:
+        return times
+    # forward fill from the previous valid stamp at the local rate
+    arange = np.arange(n)
+    prev = np.maximum.accumulate(np.where(~np.isnan(times), arange, -1))
+    missing = np.isnan(times) & (prev >= 0)
+    times[missing] = (
+        times[np.maximum(prev, 0)][missing]
+        + (arange - prev)[missing] / fps[missing]
+    )
+    # head backfill from the first valid stamp
+    first = valid_idx[0]
+    if first > 0:
+        head = np.arange(first)
+        times[head] = times[first] - (first - head) / fps[head]
+    return times
+
+
+def build_gps_arrays(
+    data: bytes, dilution_threshold: float = 500.0
+) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Array-level fast path: ``(values (N, 4) [lat, lon, alt, speed],
+    posix_times (N,), dilutions (N,))`` filtered by dilution, with no
+    per-point Python objects; None on a non-canonical stream."""
+    raw = extract_gps_raw(data)
+    if raw is None:
+        return None
+    values, times = raw
+    times = fix_timestamps_array(times)
+    keep = values[:, 4] < dilution_threshold
+    return values[keep, :4], times[keep], values[keep, 4]
+
+
 def build_gps_points_native(
     data: bytes, dilution_threshold: float = 500.0
 ) -> Optional[Tuple[List[GPSPoint], List[float]]]:

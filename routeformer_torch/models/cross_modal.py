@@ -60,6 +60,10 @@ def torch_dtype(compute_dtype: Optional[str]) -> Optional[torch.dtype]:
 class PerceiveEncoder(nn.Module):
     """ProbSparse self-attention encoder emitting the last ``out_len`` tokens."""
 
+    # A mesh gathers the whole stack's weights together: K3a and K3b take
+    # every layer's weights in one call.
+    mesh_gather_unit = True
+
     def __init__(self, in_channels: int, out_channels: int, out_len: int,
                  factor: int = 5, d_model: int = 128, n_heads: int = 8,
                  layers: int = 3, d_ff: Optional[int] = None,

@@ -26,8 +26,11 @@ from routeformer_torch.models.layers.autoformer_layers import (
     AutoformerEncoder,
     AutoformerEncoderLayer,
     SeasonalLayerNorm,
+    SeriesDecomp,  # noqa: F401  (re-exported as in the JAX module)
+    SeriesDecompMulti,  # noqa: F401
     make_decomp,
 )
+from routeformer_torch.models.layers.embed import DataEmbedding_wo_pos  # noqa: F401
 from routeformer_torch.models.layers.fourier import FourierBlock, FourierCrossAttention
 from routeformer_torch.models.layers.multiwavelet import MultiWaveletCross, MultiWaveletTransform
 

@@ -128,6 +128,8 @@ class AutoCorrelationLayer(nn.Module):
 class AutoformerEncoderLayer(nn.Module):
     """Progressive-decomposition encoder layer."""
 
+    mesh_gather_unit = True  # a mesh gathers the layer's weights together
+
     def __init__(self, attention: nn.Module, d_model: int, d_ff: Optional[int] = None,
                  moving_avg: Union[int, List[int]] = 25, dropout: float = 0.1,
                  activation: str = "relu"):
@@ -168,6 +170,8 @@ class AutoformerEncoder(nn.Module):
 
 class AutoformerDecoderLayer(nn.Module):
     """Decoder layer accumulating a trend stream."""
+
+    mesh_gather_unit = True  # a mesh gathers the layer's weights together
 
     def __init__(self, self_attention: nn.Module, cross_attention: nn.Module, d_model: int,
                  c_out: int, d_ff: Optional[int] = None,

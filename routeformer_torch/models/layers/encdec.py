@@ -57,6 +57,8 @@ class ConvLayer(nn.Module):
 
 
 class EncoderLayer(nn.Module):
+    mesh_gather_unit = True  # a mesh gathers the layer's weights together
+
     def __init__(self, attention: nn.Module, d_model: int,
                  d_ff: Optional[int] = None, dropout: float = 0.1,
                  activation: str = "relu",
@@ -121,6 +123,8 @@ class Encoder(nn.Module):
 
 
 class DecoderLayer(nn.Module):
+    mesh_gather_unit = True  # a mesh gathers the layer's weights together
+
     def __init__(self, self_attention: nn.Module, cross_attention: nn.Module,
                  d_model: int, d_ff: Optional[int] = None,
                  dropout: float = 0.1, activation: str = "relu",

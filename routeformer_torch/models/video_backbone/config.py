@@ -14,7 +14,19 @@ excludes the embedding cache, whose features would go stale.
 from dataclasses import dataclass
 from typing import Optional
 
+import torch.nn as nn
+
 from routeformer_torch.utils.config import BaseConfig
+
+
+class VideoBackboneModule(nn.Module):
+    """The video backbones' base: a flattened channel-last frame batch
+    ``(N, H, W, C)`` in, a feature map ``(N, H', W', C')`` out, with
+    ``output_feature_shape`` ``(H', W', C')`` set by each backbone.
+    ``epoch_unfreeze``: whether the trainer's epoch-10 boundary flips the
+    backbone's ``unfreeze`` (the timm encoders opt in)."""
+
+    epoch_unfreeze = False
 
 
 @dataclass

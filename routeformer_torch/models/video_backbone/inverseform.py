@@ -24,7 +24,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from routeformer_torch.models.video_backbone.config import InverseFormBackboneConfig
+from routeformer_torch.models.video_backbone.config import (
+    InverseFormBackboneConfig,
+    VideoBackboneModule,
+)
 from routeformer_torch.models.video_backbone.hrnet import HighResolutionNet16
 from routeformer_torch.ops.image import resize_video, to_float16
 from routeformer_torch.utils.logging import get_logger
@@ -32,7 +35,7 @@ from routeformer_torch.utils.logging import get_logger
 logger = get_logger("video_backbone.inverseform")
 
 
-class InverseForm(nn.Module):
+class InverseForm(VideoBackboneModule):
     """HRNet-16 trunk and an adaptive 8x8 pool."""
 
     POOL_HW = (8, 8)

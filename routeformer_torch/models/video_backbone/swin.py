@@ -32,10 +32,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from routeformer_torch.models.layers.attention import Linear
-from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
+from routeformer_torch.models.video_backbone.config import TimmBackboneConfig, VideoBackboneModule
 from routeformer_torch.ops.flash_attention import flash_window_attention
 from routeformer_torch.ops import augment
 from routeformer_torch.ops.image import condition_frames, to_float16
+from routeformer_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD  # noqa: F401  (as in JAX)
 from routeformer_torch.ops.swin_block_fusion import fused_swin_block
 from routeformer_torch.ops.weight_cache import derived
 
@@ -229,6 +230,8 @@ class SwinBlock(nn.Module):
 class SwinBlockPair(nn.Module):
     """One W-MSA + SW-MSA block pair."""
 
+    mesh_gather_unit = True  # a mesh gathers the pair's weights together
+
     def __init__(self, dim, n_heads, window, input_hw, compute_dtype=None,
                  gelu_approximate=False):
         super().__init__()
@@ -258,6 +261,16 @@ class SwinStage(nn.Module):
         for pair in self.pairs:
             x = checkpoint(pair, x, use_reentrant=False) if remat else pair(x)
         return x
+
+
+class PatchEmbed(nn.Conv2d):
+    """The patch embedding: a strided convolution of channel-last frames in
+    ``dtype`` (its weights cast to it), NCHW out. A module call of its own,
+    so that a mesh gathers its weight around it (``parallel/mesh.py``)."""
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return F.conv2d(x.to(dtype).permute(0, 3, 1, 2), self.weight.to(dtype),
+                        self.bias.to(dtype), stride=self.stride)
 
 
 class PatchMerging(nn.Module):
@@ -318,7 +331,7 @@ def augment_frames(backbone: nn.Module, images: torch.Tensor) -> torch.Tensor:
     return augment.photometric_augment(images)
 
 
-class SwinV2Backbone(nn.Module):
+class SwinV2Backbone(VideoBackboneModule):
     """Hierarchical SwinV2 encoder producing a (H/32, W/32, 8*embed) map."""
 
     epoch_unfreeze = True  # the trainer's epoch-10 flip sets ``unfreeze``
@@ -331,7 +344,7 @@ class SwinV2Backbone(nn.Module):
         dt = torch.bfloat16 if configs.compute_dtype == "bfloat16" else None
         self.compute_dtype = dt
         gelu_tanh = configs.gelu == "tanh"
-        self.patch_embed = nn.Conv2d(3, p.embed_dim, p.patch_size, stride=p.patch_size)
+        self.patch_embed = PatchEmbed(3, p.embed_dim, p.patch_size, stride=p.patch_size)
         self.patch_norm = nn.LayerNorm(p.embed_dim, eps=LN_EPS)
         hw, dim = p.img_size // p.patch_size, p.embed_dim
         self.stages = nn.ModuleList()
@@ -361,10 +374,7 @@ class SwinV2Backbone(nn.Module):
 
     def encode_frames(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or x.dtype
-        w = self.patch_embed.weight.to(dt)
-        b = self.patch_embed.bias.to(dt)
-        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, b,
-                     stride=self.preset.patch_size).permute(0, 2, 3, 1)
+        x = self.patch_embed(x, dt).permute(0, 2, 3, 1)
         x = self.patch_norm(x.float()).to(x.dtype)
         remat = self.configs.remat and torch.is_grad_enabled()
         for si, stage in enumerate(self.stages):
@@ -375,3 +385,8 @@ class SwinV2Backbone(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         return self.encode_frames(self.preprocess_frames(images))
+
+
+class SwinV2(SwinV2Backbone):
+    """The flagship's SwinV2 encoder under a class of its own (the JAX
+    package's subclass, which keeps its embedding-cache keys apart)."""

@@ -29,8 +29,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from routeformer_torch.models.layers.attention import Linear
-from routeformer_torch.models.video_backbone.config import TimmBackboneConfig
-from routeformer_torch.models.video_backbone.swin import augment_frames
+from routeformer_torch.models.video_backbone.config import TimmBackboneConfig, VideoBackboneModule
+from routeformer_torch.models.video_backbone.swin import PatchEmbed, augment_frames
 from routeformer_torch.ops.attention import dot_product_attention
 from routeformer_torch.ops.image import IMAGENET_MEAN, IMAGENET_STD, condition_frames
 
@@ -76,6 +76,8 @@ def resolve_preset(model_type: Optional[str]) -> str:
 class ViTBlock(nn.Module):
     """Pre-norm block: ``x + proj(attn(norm1 x))``, ``x + fc2(gelu(fc1(norm2 x)))``."""
 
+    mesh_gather_unit = True  # a mesh gathers the block's weights together
+
     def __init__(self, width: int, heads: int, compute_dtype: Optional[torch.dtype] = None,
                  gelu_approximate: bool = False):
         super().__init__()
@@ -96,7 +98,7 @@ class ViTBlock(nn.Module):
         return x + self.fc2(F.gelu(self.fc1(self.norm2(x.float())), approximate=self.gelu))
 
 
-class TimmBackbone(nn.Module):
+class TimmBackbone(VideoBackboneModule):
     """ViT image encoder with the reference's input conditioning."""
 
     epoch_unfreeze = True  # the trainer's epoch-10 flip sets ``unfreeze``
@@ -108,7 +110,7 @@ class TimmBackbone(nn.Module):
         self.preset = p = PRESETS[resolve_preset(configs.model_type)]
         self.compute_dtype = torch.bfloat16 if configs.compute_dtype == "bfloat16" else None
         grid = p.img_size // p.patch_size
-        self.patch_embed = nn.Conv2d(3, p.width, p.patch_size, stride=p.patch_size)
+        self.patch_embed = PatchEmbed(3, p.width, p.patch_size, stride=p.patch_size)
         self.pos_embed = nn.Parameter(torch.randn(1, grid * grid, p.width) * 0.02)
         self.blocks = nn.ModuleList(
             ViTBlock(p.width, p.heads, self.compute_dtype, configs.gelu == "tanh")
@@ -135,8 +137,7 @@ class TimmBackbone(nn.Module):
     def encode_frames(self, x: torch.Tensor) -> torch.Tensor:
         """Encoder over preprocessed (N, S, S, C) frames -> (N, H', W', C')."""
         dt = self.compute_dtype or torch.float32
-        x = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.patch_embed.weight.to(dt),
-                     self.patch_embed.bias.to(dt), stride=self.preset.patch_size)
+        x = self.patch_embed(x, dt)
         n, c, gh, gw = x.shape
         x = x.flatten(2).transpose(1, 2) + self.pos_embed.to(dt)
         remat = self.configs.remat and torch.is_grad_enabled()

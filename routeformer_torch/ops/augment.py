@@ -121,10 +121,7 @@ def draw_augment(n: int, h: int, w: int, generator: Optional[torch.Generator] = 
     def uniform(lo, hi):
         return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
 
-    area = h * w * uniform(*erase_scale)
-    aspect = torch.exp(uniform(math.log(erase_ratio[0]), math.log(erase_ratio[1])))
-    eh = torch.clamp(torch.round(torch.sqrt(area * aspect)), 1, h).long()
-    ew = torch.clamp(torch.round(torch.sqrt(area / aspect)), 1, w).long()
+    eh, ew = _erase_size(h, w, uniform, erase_scale, erase_ratio)
     draws = {
         "sharp": uniform(0.0, 1.0) < sharpness_p,
         "auto": uniform(0.0, 1.0) < autocontrast_p,
@@ -135,17 +132,66 @@ def draw_augment(n: int, h: int, w: int, generator: Optional[torch.Generator] = 
         "order": torch.argsort(torch.rand(n, 4, generator=generator, device=device), dim=1),
         "erase_h": eh, "erase_w": ew,
     }
+    draws["erase_top"], draws["erase_left"] = _erase_corner(h, w, eh, ew, generator, device)
+    return draws
+
+
+def _erase_size(h: int, w: int, uniform, scale, ratio):
+    """The erased rectangle's height and width per frame (torchvision's
+    sampling, clamped rather than retried)."""
+    area = h * w * uniform(*scale)
+    aspect = torch.exp(uniform(math.log(ratio[0]), math.log(ratio[1])))
+    eh = torch.clamp(torch.round(torch.sqrt(area * aspect)), 1, h).long()
+    ew = torch.clamp(torch.round(torch.sqrt(area / aspect)), 1, w).long()
+    return eh, ew
+
+
+def _erase_corner(h: int, w: int, eh, ew, generator, device):
+    """Its top-left corner, moved in so the rectangle fits."""
+    n = eh.shape[0]
     top = torch.randint(0, h, (n,), generator=generator, device=device)
     left = torch.randint(0, w, (n,), generator=generator, device=device)
-    draws["erase_top"] = torch.minimum(top, h - eh)
-    draws["erase_left"] = torch.minimum(left, w - ew)
-    return draws
+    return torch.minimum(top, h - eh), torch.minimum(left, w - ew)
+
+
+def erase_rectangle(img: torch.Tensor, draws: dict, value: float = 0.0) -> torch.Tensor:
+    """(N, H, W, C) frames with each frame's rectangle of ``draws``
+    (``erase_top``, ``erase_left``, ``erase_h``, ``erase_w``) set to
+    ``value``."""
+    _, h, w, _ = img.shape
+    pf = _per_frame
+    rows = torch.arange(h, device=img.device)[None, :, None, None]
+    cols = torch.arange(w, device=img.device)[None, None, :, None]
+    top, left = pf(draws["erase_top"]), pf(draws["erase_left"])
+    inside = ((rows >= top) & (rows < top + pf(draws["erase_h"]))
+              & (cols >= left) & (cols < left + pf(draws["erase_w"])))
+    return torch.where(inside, torch.full_like(img, value), img)
+
+
+def random_erase(img: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 scale: Tuple[float, float] = (0.02, 0.2),
+                 ratio: Tuple[float, float] = (0.3, 3.3), value: float = 0.0) -> torch.Tensor:
+    """Set a random rectangle of an (H, W, C) image, or of each frame of
+    (N, H, W, C) frames, to ``value`` (the counterpart of the JAX
+    package's ``random_erase``, its key replaced by ``generator``; the
+    draws are ``draw_augment``'s)."""
+    frames = img if img.dim() == 4 else img[None]
+    n, h, w, _ = frames.shape
+    device = frames.device if generator is None else generator.device
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
+
+    eh, ew = _erase_size(h, w, uniform, scale, ratio)
+    top, left = _erase_corner(h, w, eh, ew, generator, device)
+    out = erase_rectangle(frames, {"erase_top": top, "erase_left": left,
+                                   "erase_h": eh, "erase_w": ew}, value)
+    return out if img.dim() == 4 else out[0]
 
 
 def apply_augment(images: torch.Tensor, draws: dict) -> torch.Tensor:
     """Apply ``draws`` to (N, H, W, 3) frames in [0, 1]."""
     img = images.float()
-    n, h, w, _ = img.shape
     pf = _per_frame
     img = torch.where(pf(draws["sharp"]), adjust_sharpness(img, 2.0), img)
     img = torch.where(pf(draws["auto"]), autocontrast(img), img)
@@ -157,13 +203,7 @@ def apply_augment(images: torch.Tensor, draws: dict) -> torch.Tensor:
     for step in range(4):
         for op_index, op in enumerate(jitter):
             img = torch.where(pf(order[:, step] == op_index), op(img), img)
-    rows = torch.arange(h, device=img.device)[None, :, None, None]
-    cols = torch.arange(w, device=img.device)[None, None, :, None]
-    top, left = pf(draws["erase_top"]), pf(draws["erase_left"])
-    inside = ((rows >= top) & (rows < top + pf(draws["erase_h"]))
-              & (cols >= left) & (cols < left + pf(draws["erase_w"])))
-    img = torch.where(inside, torch.zeros_like(img), img)
-    return img.to(images.dtype)
+    return erase_rectangle(img, draws).to(images.dtype)
 
 
 def photometric_augment(images: torch.Tensor, generator: Optional[torch.Generator] = None,

@@ -283,3 +283,21 @@ def fused_swin_block(x_windows, params, bias, n_heads, compute_bf16=True):
         )
     return _FusedBlock.apply(n_heads, compute_bf16, x_windows, bias,
                              *(params[k] for k in PARAM_KEYS))
+
+
+def fused_swin_block_forward(x_windows, params, *, n_heads, bias, compute_bf16=True):
+    """K1's forward without autograd (the JAX package's name and keywords):
+    on the card the kernel's three ops, on the CPU their plain versions;
+    ``compute_bf16=False`` is the f32 ``swin_block_reference`` (CPU only).
+    ``params`` as ``fused_swin_block`` takes them: the port's weights,
+    ``(out, in)`` like ``nn.Linear``, where the JAX package's are ``(in,
+    out)``."""
+    with torch.no_grad():
+        return fused_swin_block(x_windows, params, bias, n_heads, compute_bf16)
+
+
+def swin_block_reference(x_windows, params, *, n_heads, bias):
+    """The plain f32 block on window rows (the JAX package's executable spec
+    of K1), differentiable: ``fused_swin_block_plain`` without the bf16
+    rounding points."""
+    return fused_swin_block_plain(x_windows, params, bias, n_heads, compute_bf16=False)

@@ -6,10 +6,12 @@ and kernel weights (``models/cross_modal.py``, K3a/K3b).
 
 On a ``(data, model)`` mesh the sources of a sharded weight are the whole
 tensors ``parallel.mesh.MeshParams.gathered`` makes: new tensors at every
-gather, which live through the model's forward and backward (so K3b's
-backward reads the weights its forward read). A value cached from one
-gather is never served to the next: its weak references die with the
-gathered tensors, and the entry with them.
+gather, one gather unit at a time, which die when the unit returns (the
+backward gathers again). So the cache misses on every unit call under a
+mesh, and a value cached from one gather is never served to the next: its
+weak references die with the gathered tensors, and the entry with them. A
+value the backward needs (K3b's derived weights) is saved by autograd
+itself, so K3b's backward reads the weights its forward read.
 """
 
 import weakref

@@ -7,8 +7,11 @@ For each model: the parameters' f32 bytes whole, and on the ``(n_data,
 n_model)`` mesh (default ``(2, 2)``) the bytes one rank stores of the
 parameters and of AdamW's two moments, without and with FSDP, at
 ``min_shard_dim=512`` (``mesh.module_specs``: the rule on the JAX
-package's layout). The gathered weights a rank holds while a model steps
-are not counted.
+package's layout); beside them the whole weights a rank holds gathered at
+once while the model steps: the largest gather unit's
+(``largest_unit_gathered_bytes``; ``MeshParams`` gathers one unit at a
+time), against all the sharded weights whole (``sharded_whole_bytes``,
+what a whole-model gather would hold).
 """
 
 import json
@@ -32,6 +35,34 @@ def rank_bytes(module, n_data: int, n_model: int, fsdp: bool,
     return total
 
 
+def largest_unit_bytes(module, n_data: int, n_model: int, fsdp: bool,
+                       min_shard_dim: int = 512) -> int:
+    """Bytes of the whole weights one rank holds gathered at once while the
+    largest gather unit of ``module`` runs (``mesh.gather_units``, the
+    resident units' weights included), on the ``(n_data, n_model)`` mesh."""
+    from routeformer_torch.parallel.mesh import (
+        gather_units,
+        module_specs,
+        resident_units,
+        unit_gather_bytes,
+    )
+
+    specs = module_specs(module, n_model, min_shard_dim, n_data if fsdp else 1)
+    sharded = {p for name, p in module.named_parameters() if specs[name]}
+    units = gather_units(module, sharded)
+    return max(unit_gather_bytes(units, resident_units(module, units)).values(), default=0)
+
+
+def sharded_whole_bytes(module, n_data: int, n_model: int, fsdp: bool,
+                        min_shard_dim: int = 512) -> int:
+    """Bytes of every sharded parameter of ``module`` whole."""
+    from routeformer_torch.parallel.mesh import module_specs
+
+    specs = module_specs(module, n_model, min_shard_dim, n_data if fsdp else 1)
+    return sum(p.numel() * p.element_size() for name, p in module.named_parameters()
+               if specs[name])
+
+
 def flagships() -> dict:
     """The driver's flagship on the meta device (the serving flagship of
     ``flagship.py`` has the same parameters: only its gelu differs)."""
@@ -53,7 +84,10 @@ def table(n_data: int = 2, n_model: int = 2) -> dict:
             key = "fsdp" if fsdp else "no_fsdp"
             b = rank_bytes(model, n_data, n_model, fsdp)
             row[key] = {"params_bytes_per_rank": b, "adam_bytes_per_rank": 2 * b,
-                        "share_of_whole": b / whole}
+                        "share_of_whole": b / whole,
+                        "largest_unit_gathered_bytes": largest_unit_bytes(
+                            model, n_data, n_model, fsdp),
+                        "sharded_whole_bytes": sharded_whole_bytes(model, n_data, n_model, fsdp)}
         out[name] = row
     return out
 

@@ -16,18 +16,27 @@ caller asks for the CPU, and the ranks form a
   and its AdamW moments: its largest dim splits over ``model`` when it is
   at least ``min_shard_dim`` and divisible by ``n_model``; with FSDP the
   largest remaining eligible dim also splits over ``data``; the rest is
-  replicated. A rank stores its block of each parameter (``MeshParams``)
-  and gathers the whole weights of a model around that model's forward and
-  backward (``MeshParams.gathered``); its gradient is summed over the data
-  shards and cut back to the rank's block. In this slice the ``model`` axis
-  gives GSPMD's parameter and optimizer layout and its math, with the
-  sharded weights gathered at use: splitting the sharded matmuls' compute
-  over ``model`` (column- and row-parallel linears) is a later item.
+  replicated. A rank stores its block of each parameter (``MeshParams``).
+  Where GSPMD keeps 1/n of each sharded weight and inserts the gathers, a
+  rank here gathers the sharded weights of one *unit* at a time: the
+  module a kernel or a layer consumes whole (a SwinV2 block pair, a ViT
+  block, a whole Perceive stack, an encoder or decoder layer: classes
+  with ``mesh_gather_unit``; otherwise the module that owns the
+  parameter), just before the unit runs, released when it returns, and
+  gathered again when the backward needs them (``MeshParams.gathered``).
+  A module with children that owns a sharded parameter itself (a ViT's
+  positional embedding, the Routeformer's stream embeddings) is read
+  outside its own call too, so its weights stay gathered for the whole
+  step; a read of a block outside its unit raises.
+  Each sharded gradient is cut to the rank's ``model`` block first, then
+  reduced over ``data`` (a reduce-scatter along the dim FSDP split, else
+  an all-reduce of the block). Splitting the sharded matmuls' compute over
+  ``model`` (column- and row-parallel linears) is a later item.
 
 FSDP2's ``fully_shard`` places one sharded dim per parameter over one mesh
 (HSDP: replicate over one dim, shard over the other), while the rule under
 FSDP splits two dims over two axes; so the port stores the rule's blocks
-itself, with plain collectives, and gathers a whole model at a time.
+itself, with plain collectives and its own per-unit gathers.
 
 A batch under the mesh: a numpy leaf is the global batch (this rank takes
 its row block, as JAX's ``device_put`` shards a host array), a tensor is
@@ -39,12 +48,14 @@ import contextlib
 import datetime
 import os
 import re
-from typing import Dict, Optional
+import weakref
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+from torch.utils import _pytree
 
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
@@ -127,6 +138,11 @@ def row_block(n_rows: int, mesh) -> slice:
     rows = n_rows // n_data
     d = mesh.get_local_rank(DATA_AXIS)
     return slice(d * rows, (d + 1) * rows)
+
+
+def batch_spec() -> tuple:
+    """The placement of a batch's leading dim: over ``data``."""
+    return (DATA_AXIS,)
 
 
 def leaf_batch_spec(x) -> tuple:
@@ -389,6 +405,123 @@ def spec_gather(block: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return out
 
 
+def _owner_params(module: nn.Module, sharded) -> list:
+    """``(module name, module, attribute, parameter)`` for every attribute
+    that holds a parameter of ``sharded`` (a tied parameter once per
+    owner), in module order."""
+    return [(name, m, k, p) for name, m in module.named_modules()
+            for k, p in m._parameters.items() if p is not None and p in sharded]
+
+
+def gather_units(module: nn.Module, sharded) -> Dict[str, list]:
+    """``{unit name: [(owner module, attribute, parameter), ...]}``: the
+    gather units of a module tree over the parameters in ``sharded``. A
+    parameter's unit is its owner's outermost ancestor (the owner included)
+    whose class sets ``mesh_gather_unit``, else its owner."""
+    modules = dict(module.named_modules())
+    units: Dict[str, list] = {}
+    for name, m, k, p in _owner_params(module, sharded):
+        parts = name.split(".") if name else []
+        unit = name
+        for i in range(len(parts) + 1):
+            prefix = ".".join(parts[:i])
+            if getattr(type(modules[prefix]), "mesh_gather_unit", False):
+                unit = prefix
+                break
+        units.setdefault(unit, []).append((m, k, p))
+    return units
+
+
+def resident_units(module: nn.Module, units: Dict[str, list]) -> set:
+    """The units ``MeshParams.gathered`` holds for the whole of its body:
+    a module with children that owns a sharded parameter and is no
+    ``mesh_gather_unit`` class. Such a module reads its own parameters in
+    methods that its callers call directly (``TimmBackbone.encode_frames``
+    the positional embedding, ``Routeformer.preprocess_batch`` the stream
+    embeddings), where no hook on its call would see the read."""
+    modules = dict(module.named_modules())
+    return {u for u in units
+            if not getattr(type(modules[u]), "mesh_gather_unit", False)
+            and next(modules[u].children(), None) is not None}
+
+
+def unit_gather_bytes(units: Dict[str, list], resident) -> Dict[str, int]:
+    """The bytes gathered at once while each unit runs: its own distinct
+    parameters' whole bytes plus those of the ``resident`` units, which
+    stay gathered throughout."""
+    own = {u: sum(p.numel() * p.element_size()
+                  for p in {id(p): p for _, _, p in owners}.values())
+           for u, owners in units.items()}
+    always = sum(own[u] for u in resident)
+    return {u: always + (0 if u in resident else own[u]) for u in units}
+
+
+class _Block(torch.Tensor):
+    """A sharded parameter's block as its module holds it inside
+    ``MeshParams.gathered`` while its unit is not running. Its metadata
+    (``dtype``, ``device``, ``shape``) reads as the block's; any operation
+    on it raises, naming the parameter: the module would compute with a
+    block where it expects the whole weight."""
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if getattr(func, "__name__", None) == "__get__":  # a property
+            with torch._C.DisableTorchFunctionSubclass():
+                return func(*args)
+        leaves = _pytree.tree_leaves((args, kwargs or {}))
+        names = sorted({a.mesh_name for a in leaves if isinstance(a, _Block)})
+        raise RuntimeError(
+            f"sharded parameter {', '.join(names)} read outside its gather unit's call "
+            "under MeshParams.gathered: only this rank's block is in place there. Read it "
+            "inside a module call of its unit (parallel/mesh.py, gather_units).")
+
+
+class _Slot:
+    """One gather of one parameter under autograd: its gradient's arrival
+    and the backward's re-gather, cached from the first unpack of the
+    weight to the arrival of its gradient (every consumer of the weight
+    has run its backward by then)."""
+
+    __slots__ = ("layout", "param", "regathered")
+
+    def __init__(self, layout, param):
+        self.layout, self.param, self.regathered = layout, param, None
+
+    def regather(self) -> torch.Tensor:
+        if self.regathered is None:
+            self.regathered = self.layout._gather(self.param)
+        return self.regathered
+
+
+class _GatherGrad(torch.autograd.Function):
+    """The gathered weight as a function of the parameter: its gradient,
+    the whole weight's, goes to ``MeshParams._grad_arrived``; the
+    parameter's ``.grad`` is written by ``reduce_grads``."""
+
+    @staticmethod
+    def forward(ctx, param, full, slot):
+        ctx.slot = slot
+        return full
+
+    @staticmethod
+    def backward(ctx, grad):
+        slot = ctx.slot
+        slot.regathered = None
+        slot.layout._grad_arrived(slot.param, grad)
+        return None, None, None
+
+
+class _Packed:
+    """A saved gathered weight (or a view of it), kept as its parameter and
+    its view's geometry instead of its bytes."""
+
+    __slots__ = ("slot", "param", "size", "stride", "offset")
+
+    def __init__(self, slot, param, t):
+        self.slot, self.param = slot, param
+        self.size, self.stride, self.offset = t.size(), t.stride(), t.storage_offset()
+
+
 class MeshParams:
     """A module's parameters laid out on ``mesh`` by ``param_spec``.
 
@@ -397,7 +530,12 @@ class MeshParams:
     sharded parameter's data by this rank's block, in place: the
     ``nn.Parameter`` objects and their names stay, so an optimizer built
     over them steps the blocks, and the AdamW moments take the blocks'
-    shapes. Each sharded parameter carries ``mesh_spec``."""
+    shapes. Each sharded parameter carries ``mesh_spec``.
+
+    The sharded parameters fall into gather units (``gather_units``);
+    ``unit_bytes`` is each unit's gathered bytes, and ``live_bytes`` /
+    ``high_water`` count the gathered weights alive at once on this rank
+    (``reset_high_water`` starts a new count)."""
 
     def __init__(self, module: nn.Module, mesh, min_shard_dim: int = 512,
                  fsdp: bool = False):
@@ -409,54 +547,172 @@ class MeshParams:
             for t in list(module.parameters()) + list(module.buffers()):
                 dist.broadcast(t.data, src=0)
         sharded = {p: self.specs[n] for n, p in module.named_parameters() if self.specs[n]}
-        # every (owner module, attribute) that holds a sharded parameter
-        self.owners = [(m, k, p) for m in module.modules()
-                       for k, p in m._parameters.items() if p is not None and p in sharded]
+        self.units = gather_units(module, sharded)
+        modules = dict(module.named_modules())
+        self._unit_modules = {u: modules[u] for u in self.units}
+        self.resident = resident_units(module, self.units)
+        self.unit_bytes = unit_gather_bytes(self.units, self.resident)
+        names = {p: n for n, p in module.named_parameters()}
+        self._names = {p: names[p] for p in sharded}
         self.full_shapes = {}
         for p, spec in sharded.items():
             self.full_shapes[p] = tuple(p.shape)
             p.data = spec_block(p.data, spec, mesh).clone()
             p.mesh_spec = spec
         self.sharded = sharded
-        self._fulls: Dict[nn.Parameter, torch.Tensor] = {}
+        self.live_bytes = self.high_water = 0
+        self._storages = {}  # storage address -> (weak ref to the gathered weight, slot, param)
+        self._pending: Dict[nn.Parameter, torch.Tensor] = {}
+        self._idle: Dict[nn.Parameter, torch.Tensor] = {}  # what a module holds between calls
+
+    def reset_high_water(self) -> None:
+        self.high_water = self.live_bytes
+
+    # -- gathers ----------------------------------------------------------- #
+
+    def _gather(self, p: nn.Parameter, slot: Optional[_Slot] = None,
+                packed: bool = True) -> torch.Tensor:
+        """The whole weight of ``p`` (a collective over its spec's axes),
+        counted while it lives and, when ``packed``, recognised when
+        autograd saves it."""
+        with torch.no_grad():
+            full = spec_gather(p.detach(), self.sharded[p], self.mesh)
+        nbytes = full.numel() * full.element_size()
+        self.live_bytes += nbytes
+        self.high_water = max(self.high_water, self.live_bytes)
+        if packed and torch.is_grad_enabled() and not torch.is_inference_mode_enabled():
+            ptr = full.untyped_storage().data_ptr()
+            self._storages[ptr] = (weakref.ref(full), slot, p)
+        else:
+            ptr = None
+        weakref.finalize(full, self._freed, ptr, nbytes)
+        return full
+
+    def _freed(self, ptr, nbytes) -> None:
+        self.live_bytes -= nbytes
+        entry = self._storages.get(ptr)
+        if entry is not None and entry[0]() is None:
+            del self._storages[ptr]
+
+    def _enter(self, unit: str) -> None:
+        """The unit's whole weights in place of its blocks. A resident
+        unit's stay for the whole body, so autograd keeps them as they are
+        instead of gathering them again."""
+        packed = unit not in self.resident
+        fulls = {}
+        for m, k, p in self.units[unit]:
+            if p not in fulls:
+                if torch.is_grad_enabled() and p.requires_grad:
+                    slot = _Slot(self, p)
+                    fulls[p] = _GatherGrad.apply(p, self._gather(p, slot, packed), slot)
+                else:
+                    fulls[p] = self._gather(p, packed=packed)
+            m._parameters[k] = fulls[p]
+
+    def _exit(self, unit: str) -> None:
+        for m, k, p in self.units[unit]:
+            m._parameters[k] = self._idle.get(p, p)
+
+    def _guard(self, p: nn.Parameter) -> torch.Tensor:
+        g = p.detach().requires_grad_(p.requires_grad).as_subclass(_Block)
+        g.mesh_name, g.mesh_spec = self._names[p], self.sharded[p]
+        return g
+
+    def _pack(self, t: torch.Tensor):
+        """A saved tensor that is a gathered weight, or a view of one, is
+        kept as ``_Packed``; anything else as it is."""
+        try:
+            entry = self._storages.get(t.untyped_storage().data_ptr())
+        except (RuntimeError, NotImplementedError):  # no storage (sparse, fake)
+            return t
+        if entry is None:
+            return t
+        full = entry[0]()
+        if full is None or full.device != t.device or full.dtype != t.dtype:
+            return t
+        return _Packed(entry[1], entry[2], t)
+
+    def _unpack(self, x):
+        if not isinstance(x, _Packed):
+            return x
+        full = x.slot.regather() if x.slot is not None else self._gather(x.param)
+        return full.as_strided(x.size, x.stride, x.offset)
 
     @contextlib.contextmanager
     def gathered(self):
-        """The whole weights in place of the blocks while the body runs (a
-        collective: every rank enters together). Each gathered weight is a
-        leaf that takes the gradient of the parameter; ``reduce_grads``,
-        inside the body after the backward, sums it over the data shards
-        and cuts this rank's block into the parameter's ``.grad``."""
-        fulls, grad = {}, torch.is_grad_enabled()
-        with torch.no_grad():
-            for p, spec in self.sharded.items():
-                fulls[p] = spec_gather(p.detach(), spec, self.mesh).requires_grad_(
-                    grad and p.requires_grad)
-        for m, k, p in self.owners:
-            m._parameters[k] = fulls[p]
-        self._fulls = fulls
-        try:
+        """Per-unit gathers while the body runs (a collective: every rank
+        runs the same modules). Each unit's sharded weights are gathered
+        just before it runs and put in place of the blocks, and dropped
+        when it returns; a gathered weight that autograd saves is kept as
+        its parameter and gathered again when the backward unpacks it (the
+        same order on every rank). Under remat the recomputed forward
+        gathers as the first one did. The resident units
+        (``resident_units``) are gathered once for the whole body. Between
+        its unit's calls a module holds a ``_Block`` in place of the
+        weight, so a read outside the unit raises. A gradient is cut to
+        this rank's ``model`` block as it arrives; ``reduce_grads``, after
+        the backward, reduces the blocks over the data shards."""
+        if not self.sharded:
             yield
+            return
+        self._pending = {}
+        handles = []
+        try:
+            for unit, module in self._unit_modules.items():
+                if unit in self.resident:
+                    self._enter(unit)
+                    continue
+                for m, k, p in self.units[unit]:
+                    self._idle[p] = m._parameters[k] = self._guard(p)
+                handles.append(module.register_forward_pre_hook(
+                    lambda _m, _a, unit=unit: self._enter(unit)))
+                handles.append(module.register_forward_hook(
+                    lambda _m, _a, _o, unit=unit: self._exit(unit), always_call=True))
+            with torch.autograd.graph.saved_tensors_hooks(self._pack, self._unpack):
+                yield
         finally:
-            for m, k, p in self.owners:
-                m._parameters[k] = p
-            self._fulls = {}
+            for h in handles:
+                h.remove()
+            self._idle = {}
+            for unit in self.units:
+                self._exit(unit)
+
+    def _grad_arrived(self, p: nn.Parameter, grad: torch.Tensor) -> None:
+        """The whole weight's gradient from one gather, cut to this rank's
+        ``model`` block and summed with the earlier ones of the step."""
+        spec = self.sharded[p]
+        if MODEL_AXIS in spec:
+            d = spec.index(MODEL_AXIS)
+            size = grad.shape[d] // self.n_model
+            grad = grad.narrow(d, self.mesh.get_local_rank(MODEL_AXIS) * size, size).clone()
+        have = self._pending.get(p)
+        self._pending[p] = grad if have is None else have + grad
 
     def reduce_grads(self) -> None:
-        """Inside ``gathered``: each sharded parameter's gradient is the mean
-        over the data shards of its whole-weight gradient, cut to this
-        rank's block (accumulated into ``.grad``). A weight no gradient
-        reached (the same on every rank) keeps ``.grad``."""
+        """After the backward: each sharded parameter's gradient is the mean
+        over the data shards of its ``model`` block (a reduce-scatter along
+        the dim FSDP split over ``data``, else an all-reduce of the block),
+        accumulated into ``.grad``. A weight no gradient reached (the same
+        on every rank) keeps ``.grad``."""
+        pending, self._pending = self._pending, {}
         group = self.mesh.get_group(DATA_AXIS)
-        for p, full in self._fulls.items():
-            g = full.grad
+        for p, spec in self.sharded.items():  # the same order on every rank
+            g = pending.get(p)
             if g is None:
                 continue
             if self.n_data > 1:
-                dist.all_reduce(g, group=group)
+                if DATA_AXIS in spec:
+                    d = spec.index(DATA_AXIS)
+                    whole = g.movedim(d, 0).contiguous()
+                    out = whole.new_empty((whole.shape[0] // self.n_data,) + whole.shape[1:])
+                    dist.reduce_scatter_tensor(out, whole, group=group)
+                    g = out.movedim(0, d)
+                else:
+                    g = g.contiguous()
+                    dist.all_reduce(g, group=group)
                 g = g / self.n_data
-            block = spec_block(g, self.sharded[p], self.mesh).clone()
-            p.grad = block if p.grad is None else p.grad + block
+            g = g.contiguous()
+            p.grad = g if p.grad is None else p.grad + g
 
     def full_state_dict(self, module: nn.Module) -> Dict[str, torch.Tensor]:
         """``module.state_dict()`` with every sharded parameter gathered
@@ -472,6 +728,13 @@ class MeshParams:
         specs = {n: self.sharded[p] for n, p in module.named_parameters() if p in self.sharded}
         return {k: spec_block(v, specs[k], self.mesh).clone() if k in specs else v
                 for k, v in state.items()}
+
+
+def shard_params(module: nn.Module, mesh, min_shard_dim: int = 512,
+                 fsdp: bool = False) -> MeshParams:
+    """Lay ``module``'s parameters out on ``mesh`` by the structural rule
+    (the JAX package's ``shard_params``): its ``MeshParams``."""
+    return MeshParams(module, mesh, min_shard_dim, fsdp)
 
 
 def replicated_grads_mean(params, mesh) -> None:

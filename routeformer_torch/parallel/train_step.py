@@ -14,6 +14,7 @@ import torch.nn as nn
 
 from routeformer_torch.optimizers.optimizer import Optimizer
 from routeformer_torch.parallel import mesh as meshlib
+from routeformer_torch.parallel.mesh import DATA_AXIS  # noqa: F401  (re-exported as in the JAX module)
 
 
 def _layout(model: nn.Module, mesh, min_shard_dim: int, fsdp: bool):
@@ -72,8 +73,9 @@ def make_eval_step(model: nn.Module, eval_fn: Callable, mesh=None, min_shard_dim
                    fsdp: bool = False) -> Callable:
     """``step(*args) -> eval_fn(model, *args)`` with the model in eval mode,
     under ``torch.inference_mode``. On a mesh the model's weights are
-    gathered whole around the call (every rank calls the step together) and
-    ``eval_fn`` gets the arguments as given."""
+    gathered one unit at a time while the call runs (``MeshParams.gathered``;
+    every rank calls the step together) and ``eval_fn`` gets the arguments
+    as given."""
     layout = None if mesh is None else _layout(model, mesh, min_shard_dim, fsdp)
     model.eval()
 

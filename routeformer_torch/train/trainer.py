@@ -33,8 +33,9 @@ rank) runs the same math as one device on the global batch: each rank takes
 its row block of every batch (numpy leaves are global, tensors are its rows
 already: a mesh loader's or the mesh memo's), every model's parameters are
 laid out by the structural rule (``parallel.mesh.MeshParams``; ``fsdp``
-also over ``data``) and gathered around its forward and backward, the
-gradients and reported losses are the data shards' means, and one clipped
+also over ``data``) and gathered one unit at a time through its forward
+and backward, the gradients and reported losses are the data shards'
+means, and one clipped
 AdamW step over the blocks follows (the clip's norm is the whole
 gradient's). With several data shards the per-batch decisions and the
 training key samples come from a generator shared by every rank, the
@@ -159,8 +160,8 @@ class ParallelTrainer:
                                                       self.device)
 
     def _gathered(self, name: str):
-        """The model's whole weights while the body runs (a no-op without
-        a mesh)."""
+        """The model's per-unit gathers while the body runs
+        (``MeshParams.gathered``; a no-op without a mesh)."""
         layout = self.layouts.get(name)
         return contextlib.nullcontext() if layout is None else layout.gathered()
 

@@ -8,8 +8,8 @@ back to the CPU. Under an initialised process group (one rank per card)
 the current device, so no rank lands on another rank's card.
 """
 
+import contextlib
 import os
-
 from typing import Optional, Union
 
 import torch
@@ -40,3 +40,12 @@ def _process_group() -> bool:
     import torch.distributed as dist
 
     return dist.is_available() and dist.is_initialized()
+
+
+@contextlib.contextmanager
+def init_on_cpu():
+    """Modules built under this context allocate their parameters on the
+    CPU (the JAX package builds on the host CPU, then moves the weights in
+    one transfer); move them with ``.to(device)`` afterwards."""
+    with torch.device("cpu"):
+        yield

@@ -93,3 +93,40 @@ def test_a_walker_that_cannot_build_raises(tmp_path, monkeypatch):
     with pytest.raises(ImportError, match="libgpmf: g\\+\\+ not found"):
         gpmf.build_gps_points(STREAMS["fixture"])
     assert len(gpmf.build_gps_points(STREAMS["fixture"], prefer_native=False)[0]) > 0
+
+
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_gps_arrays_match_jax(name):
+    """``build_gps_arrays`` (values, fixed stamps, dilutions) and
+    ``fix_timestamps_array`` on the walker's raw stamps, exactly JAX's."""
+    data = STREAMS[name]
+    got, want = gpmf_native.build_gps_arrays(data, 500.0), jax_native.build_gps_arrays(data, 500.0)
+    assert got is not None and want is not None and len(got[0]) > 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    _, times = gpmf_native.extract_gps_raw(data)
+    np.testing.assert_array_equal(gpmf_native.fix_timestamps_array(times),
+                                  jax_native.fix_timestamps_array(times))
+
+
+def test_fix_timestamps_array_matches_jax_on_gaps():
+    """NaN gaps, a missing head, implausible rates (dropped stamps) and an
+    all-NaN track."""
+    rng = np.random.default_rng(5)
+    times = 1_630_000_000.0 + np.arange(200) / 18.17
+    times[rng.random(200) < 0.6] = np.nan
+    times[:7] = np.nan
+    times[50] += 0.4  # an implausible rate around it
+    for t in (times, np.full(9, np.nan), times[:1], np.empty(0)):
+        np.testing.assert_array_equal(gpmf_native.fix_timestamps_array(t),
+                                      jax_native.fix_timestamps_array(t))
+
+
+def test_native_available_reports_the_build(tmp_path, monkeypatch):
+    assert gpmf_native.native_available() is True
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native.shutil, "which", lambda _: None)
+    monkeypatch.setattr(native, "_libs", {})
+    assert gpmf_native.native_available() is False
+    with pytest.raises(ImportError, match="libgpmf"):
+        gpmf_native.build_gps_arrays(STREAMS["fixture"])

@@ -327,3 +327,111 @@ def test_model_zoo_and_backbone_training_need_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split()[-2:] == ["zoo", "ran"]
+
+
+# Names bound at the top level of a JAX-package module that the port, by
+# design, does not carry:
+JAX_ONLY = {
+    # the JAX, flax, Pallas and optax modules themselves
+    "jax", "jnp", "nnx", "optax", "pl", "pltpu",
+    # jax.sharding's placement types (the port's mesh takes a DeviceMesh
+    # and spec tuples)
+    "Mesh", "NamedSharding", "P",
+    # typing names
+    "Any", "Callable", "Dict", "Iterable", "Iterator", "List", "Literal", "NamedTuple",
+    "Optional", "Sequence", "Tuple", "Type", "Union",
+    # a checkpoint helper that builds a uint32 JAX array from raw bytes
+    "jnp_asarray_u32",
+}
+
+
+def _public_names(module) -> list:
+    """A JAX-package module's public top-level names: its ``__all__`` where
+    it has one, else every name without a leading underscore that the
+    module defines (a function or class whose ``__module__`` is the
+    module's), that is an UPPER_CASE constant, or that is bound to a JAX,
+    flax, optax or typing object."""
+    import inspect
+    import types
+
+    if hasattr(module, "__all__"):
+        return list(module.__all__)
+    out = []
+    for name, value in vars(module).items():
+        if name.startswith("_"):
+            continue
+        origin = value.__name__ if isinstance(value, types.ModuleType) else getattr(
+            value, "__module__", None)
+        foreign = isinstance(origin, str) and origin.split(".")[0] in (
+            "jax", "jaxlib", "flax", "optax", "typing")
+        defined = ((inspect.isclass(value) or callable(value))
+                   and not isinstance(value, types.ModuleType) and origin == module.__name__)
+        constant = name.isupper() and not isinstance(value, types.ModuleType)
+        if foreign or defined or constant:
+            out.append(name)
+    return out
+
+
+def test_every_public_jax_name_has_a_port_counterpart():
+    """Every module of ``routeformer_tpu`` that has a counterpart in the
+    port (the same path under ``routeformer_torch``) and every public
+    top-level name of it resolve in the port, but for ``JAX_ONLY``."""
+    import importlib
+    import importlib.util
+    import pkgutil
+
+    import routeformer_tpu
+
+    names = ["routeformer_tpu"] + [m.name for m in pkgutil.walk_packages(
+        routeformer_tpu.__path__, "routeformer_tpu.")]
+    missing, modules = [], 0
+    for name in names:
+        port_name = "routeformer_torch" + name[len("routeformer_tpu"):]
+        if importlib.util.find_spec(port_name) is None:
+            continue
+        modules += 1
+        jax_module, port_module = importlib.import_module(name), importlib.import_module(port_name)
+        missing += [f"{name}.{n}" for n in _public_names(jax_module)
+                    if n not in JAX_ONLY and not hasattr(port_module, n)]
+    assert not missing, missing
+    assert modules >= 80, modules
+    for name in ("ops.heatmap", "visualize", "visualize.gaze", "visualize.plot",
+                 "visualize.basemap"):
+        assert importlib.util.find_spec(f"routeformer_torch.{name}") is not None, name
+
+
+_VISUALIZE_BLOCKER = _ZOO_BLOCKER.split("import torch\n")[0].replace(
+    '"pandas")', '"pandas", "matplotlib")') + r"""
+import numpy as np
+import torch
+import routeformer_torch.visualize as vis
+from routeformer_torch.ops import augment, heatmap
+from routeformer_torch.utils.device import init_on_cpu
+heat = heatmap.rasterize_gaze_heatmap(np.array([[[3.0, 4.0], [np.nan, 1.0]]]), 8, 12,
+                                      device="cpu")
+assert heat.shape == (1, 8, 12) and torch.isnan(heat).all()
+frame = np.zeros((16, 20, 3), np.uint8)
+assert vis.overlay_heatmap_on_frame(frame, [[0.5, 0.5]], sigma=3.0, device="cpu").any()
+try:
+    vis.plot_gps_data_on_map({"x": np.zeros(2), "y": np.zeros(2)})
+    raise AssertionError("plotted without matplotlib")
+except ImportError as e:
+    assert "matplotlib" in str(e), e
+with init_on_cpu():
+    assert torch.nn.Linear(2, 2).weight.device.type == "cpu"
+assert augment.random_erase(torch.ones(8, 8, 3), torch.Generator().manual_seed(0)).min() == 0
+leaked = sorted(n for n, m in sys.modules.items() if n.split(".")[0] in BLOCKED and m)
+assert not leaked, leaked
+print("visualize ran")
+"""
+
+
+def test_heatmaps_and_visualize_need_no_host_package():
+    """With jax, flax, routeformer_tpu, cv2, msgpack, zstandard, pandas and
+    matplotlib blocked: a NaN-poisoned heatmap, the gaze overlay, the
+    plot's ``ImportError`` naming matplotlib, ``init_on_cpu`` and
+    ``random_erase``."""
+    out = subprocess.run([sys.executable, "-c", _VISUALIZE_BLOCKER], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.split()[-2:] == ["visualize", "ran"]

@@ -136,6 +136,31 @@ def test_block_wrapper_uses_plain_version_on_cpu(rng):
         got, fused_swin_block_plain(torch.from_numpy(x), tp, torch.from_numpy(bias), 4, False))
 
 
+@pytest.mark.parametrize("nw", [None, 2])
+def test_block_jax_names_match_jax(rng, nw):
+    """``fused_swin_block_forward`` (no autograd; f32 at 5e-5, bf16 within
+    1e-2 of the max as above) and ``swin_block_reference`` (at 5e-5)
+    against the JAX functions of those names."""
+    from routeformer_tpu.ops.swin_block_fusion import swin_block_reference as jax_reference
+
+    x, p, bias = _block_inputs(rng, 4, 16, 64, 4, nw)
+    tx, tp, tb = torch.from_numpy(x), _torch_params(p), torch.from_numpy(bias)
+    for bf16, tol in ((False, 5e-5), (True, 1e-2)):
+        want = np.asarray(fused_swin_block_forward(jnp.asarray(x), p, n_heads=4,
+                                                   bias=jnp.asarray(bias), compute_bf16=bf16,
+                                                   interpret=True))
+        tx.requires_grad_(True)
+        got = swin_block_fusion.fused_swin_block_forward(tx, tp, n_heads=4, bias=tb,
+                                                         compute_bf16=bf16)
+        assert not got.requires_grad
+        scale = 1.0 if not bf16 else np.abs(want).max()
+        assert np.abs(got.numpy() - want).max() <= tol * scale, bf16
+    want = np.asarray(jax_reference(jnp.asarray(x), p, n_heads=4, bias=jnp.asarray(bias)))
+    got = swin_block_fusion.swin_block_reference(tx, tp, n_heads=4, bias=tb)
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=5e-5, rtol=1e-5)
+
+
 # ------------------------------------------------------ K1/K2 gradients --- #
 
 

@@ -36,7 +36,8 @@ def _jax_flat(build):
             for path, var in nnx.to_flat_state(nnx.state(model, nnx.Param))}
 
 
-def _jax_specs_in_torch_layout(flat_shapes: dict, n_data_fsdp: int) -> dict:
+def _jax_specs_in_torch_layout(flat_shapes: dict, n_data_fsdp: int, n_model: int = N_MODEL,
+                               min_shard: int = MIN_SHARD) -> dict:
     """JAX's ``param_spec`` of each flax parameter, carried to the port's
     name and layout by ``flax_to_torch_names``: each parameter goes through
     it as a stand-in of distinct prime dims (the stacked axis at its real
@@ -45,7 +46,7 @@ def _jax_specs_in_torch_layout(flat_shapes: dict, n_data_fsdp: int) -> dict:
 
     out = {}
     for name, shape in flat_shapes.items():
-        spec = tuple(jax_param_spec(_Shape(shape), N_MODEL, MIN_SHARD,
+        spec = tuple(jax_param_spec(_Shape(shape), n_model, min_shard,
                                     n_data_fsdp=n_data_fsdp))
         spec = spec + (None,) * (len(shape) - len(spec))
         stacked = bool(_SCANNED.search(name))

@@ -12,7 +12,10 @@ optimizer step, so a stale derived weight would show); PatchTST's
 BatchNorm at ``data=2``; a snapshot under FSDP restored on a fresh mesh;
 the mesh loader's order, rows and frame store; the mesh memo; at (4, 1),
 Autoformer's training-mode delays and InverseForm's train-mode BatchNorm
-(each rank's rows against the one process's global batch). While the
+(each rank's rows against the one process's global batch); at (2, 2) with
+FSDP and at (1, 4), the per-unit gathers: the gradients against a gather
+of the whole model (the Routeformer, and a small SwinV2 trained under
+remat), and the gathered bytes a rank holds at once. While the
 ranks run, the parent computes the references: the port's trainer in one
 process on the global batch, and the JAX trainer on the conftest's virtual
 mesh at (2, 2) with FSDP (one JAX mesh: its compile takes a minute; JAX's
@@ -33,6 +36,7 @@ import torch
 
 N = 4
 MESHES = {"dp": ((4, 1), False), "dp_tp": ((2, 2), False), "fsdp": ((2, 2), True)}
+UNIT_MESHES = {"fsdp": ((2, 2), True), "tp": ((1, 4), False)}
 EPOCHS = (3, 12)
 MIN_SHARD = 32
 WINDOW, POOL, LOADER_B = 4, 12, 8
@@ -163,6 +167,196 @@ def _zoo_run(arg, rows=slice(None), group=None):
     return out
 
 
+def _whole_gather_grads(layout, model, closure):
+    """The sharded parameters' gradients as a gather of the whole model
+    gives them: every sharded weight gathered whole before ``closure`` (the
+    forward and backward) runs, each whole gradient averaged over the data
+    shards, then cut to this rank's block."""
+    import torch.distributed as dist
+
+    from routeformer_torch.parallel.mesh import DATA_AXIS, spec_block, spec_gather
+
+    with torch.no_grad():
+        fulls = {p: spec_gather(p.detach(), spec, layout.mesh).requires_grad_(p.requires_grad)
+                 for p, spec in layout.sharded.items()}
+    owners = [(m, k, p) for m in model.modules() for k, p in m._parameters.items()
+              if p is not None and p in layout.sharded]
+    for m, k, p in owners:
+        m._parameters[k] = fulls[p]
+    try:
+        closure()
+    finally:
+        for m, k, p in owners:
+            m._parameters[k] = p
+    out = {}
+    for name, p in model.named_parameters():
+        g = fulls[p].grad if p in fulls else None
+        if g is None:
+            continue
+        if layout.n_data > 1:
+            dist.all_reduce(g, group=layout.mesh.get_group(DATA_AXIS))
+            g = g / layout.n_data
+        out[name] = spec_block(g, layout.sharded[p], layout.mesh).clone()
+    return out
+
+
+def _unit_grads(layout, model, closure):
+    """The sharded parameters' gradients from the per-unit gathers."""
+    for p in model.parameters():
+        p.grad = None
+    with layout.gathered():
+        closure()
+        layout.reduce_grads()
+    return {name: p.grad.clone() for name, p in model.named_parameters()
+            if p in layout.sharded and p.grad is not None}
+
+
+def _same(got, want):
+    return sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+
+def _unit_checks(arg, shape, fsdp):
+    """On one mesh: the Routeformer's first-step gradients and a small
+    SwinV2's (``train_backbone`` under remat) from the per-unit gathers
+    against ``_whole_gather_grads`` on the same draws; the gathered bytes
+    held at once through a trainer step and an MC eval, beside the largest
+    unit's (``layout.largest_unit_bytes``) and the whole model's."""
+    from routeformer_torch.models.video_backbone import SwinV2Backbone, TimmBackboneConfig
+    from routeformer_torch.parallel import make_mesh
+    from routeformer_torch.parallel.layout import largest_unit_bytes
+    from routeformer_torch.parallel.mesh import MeshParams
+
+    mesh = make_mesh(*shape, device="cpu")
+    trainer = _trainer(_models(arg), arg, mesh, fsdp)
+    model, layout = trainer.models["routeformer"], trainer.layouts["routeformer"]
+    batch = arg["train"][0]
+    inp, tgt = trainer._place(batch["train"]), trainer._place(batch["target"])
+    rng = torch.get_rng_state()
+    shared = trainer.shared_generator
+
+    def step():
+        torch.set_rng_state(rng)
+        if shared is not None:
+            shared.manual_seed(7)
+        loss, _ = trainer._loss_fn("routeformer", model, inp, tgt, EPOCHS[0])
+        loss.backward()
+
+    rec = {"routeformer_same": _same(_unit_grads(layout, model, step),
+                                     _whole_gather_grads(layout, model, step))}
+    torch.manual_seed(3)
+    swin = SwinV2Backbone(TimmBackboneConfig(model_type="swinv2_tiny_test",
+                                             compute_dtype="float32", gelu="tanh",
+                                             train_backbone=True, remat=True)).train()
+    swin_layout = MeshParams(swin, mesh, 16, fsdp)
+    frames = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    rng_swin = torch.get_rng_state()
+
+    def swin_step():
+        torch.set_rng_state(rng_swin)
+        swin(frames).square().sum().backward()
+
+    rec["swin_same"] = _same(_unit_grads(swin_layout, swin, swin_step),
+                             _whole_gather_grads(swin_layout, swin, swin_step))
+    rec["vit"] = _vit_unit_checks(arg, mesh, fsdp)
+    rec["block_read"] = _block_read_check(mesh, fsdp)
+    rec["swin_sharded"] = len(swin_layout.sharded)
+    rec["swin_high_water"] = swin_layout.high_water
+    rec["swin_largest_unit"] = max(swin_layout.unit_bytes.values())
+    layout.reset_high_water()
+    trainer.epoch = EPOCHS[0]
+    trainer.training_step(batch)
+    trainer.evaluate(arg["val"])
+    rec["high_water"] = layout.high_water
+    rec["largest_unit"] = largest_unit_bytes(_models(arg)["routeformer"], *shape, fsdp,
+                                             MIN_SHARD)
+    rec["whole"] = sum(int(np.prod(s)) * 4 for s in layout.full_shapes.values())
+    rec["live_after"] = layout.live_bytes
+    return rec
+
+
+def _vit_unit_checks(arg, mesh, fsdp):
+    """A Routeformer over the ViT (``vit_tiny_test``: width 32, so its
+    positional embedding shards at ``MIN_SHARD``) with 32-wide stream
+    embeddings (the gaze decoder takes them at the hidden width, so that is
+    32 too), the backbone trained under remat and the dense loss on: the
+    positional embedding is read in ``encode_frames``, the stream
+    embeddings also in the loss's direct ``preprocess_batch`` call, neither
+    inside a module call of their own. The first-step gradients from the
+    per-unit gathers against a whole-model gather, and the gathered bytes
+    held at once through a trainer step."""
+    from routeformer_torch.models import Routeformer, RouteformerConfig
+    from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+    from routeformer_torch.models.video_backbone import TimmBackbone, TimmBackboneConfig
+
+    gps, video, top = arg["kwargs"]
+    torch.manual_seed(5)
+    model = Routeformer(
+        RouteformerConfig(gps_backbone_config=GPSBackboneConfig(**gps),
+                          video_backbone_config=TimmBackboneConfig(
+                              **dict(video, model_type="vit_tiny_test", train_backbone=True,
+                                     remat=True)),
+                          **dict(top, image_embedding_size=MIN_SHARD,
+                                 encoder_hidden_size=MIN_SHARD)),
+        video_backbone=TimmBackbone)
+    trainer = _trainer({"routeformer": model}, arg, mesh, fsdp)
+    layout = trainer.layouts["routeformer"]
+    batch = arg["train"][0]
+    inp, tgt = trainer._place(batch["train"]), trainer._place(batch["target"])
+    rng = torch.get_rng_state()
+    shared = trainer.shared_generator
+
+    def step():
+        torch.set_rng_state(rng)
+        if shared is not None:
+            shared.manual_seed(7)
+        loss, _ = trainer._loss_fn("routeformer", model, inp, tgt, EPOCHS[1])
+        loss.backward()
+
+    rec = {"same": _same(_unit_grads(layout, model, step),
+                         _whole_gather_grads(layout, model, step)),
+           "sharded": sorted(k for k, p in model.named_parameters() if hasattr(p, "mesh_spec")),
+           "resident": sorted(layout.resident)}
+    layout.reset_high_water()
+    trainer.epoch = EPOCHS[1]
+    trainer.training_step(batch)
+    rec["high_water"] = layout.high_water
+    rec["largest_unit"] = max(layout.unit_bytes.values())
+    rec["live_after"] = layout.live_bytes
+    return rec
+
+
+class _ReadsChildWeight(torch.nn.Module):
+    """Computes with its child's weight without calling the child."""
+
+    def __init__(self):
+        super().__init__()
+        self.lin = torch.nn.Linear(2 * MIN_SHARD, 2 * MIN_SHARD)
+
+    def forward(self, x):
+        return torch.nn.functional.linear(x, self.lin.weight)
+
+
+def _block_read_check(mesh, fsdp):
+    """Under ``gathered`` a read of a sharded weight outside its unit's
+    call raises, naming the weight; the unit's own call still works, and
+    the module holds its parameter again after the body."""
+    from routeformer_torch.parallel.mesh import MeshParams
+
+    torch.manual_seed(6)
+    module = _ReadsChildWeight()
+    layout = MeshParams(module, mesh, MIN_SHARD, fsdp)
+    x = torch.ones(1, 2 * MIN_SHARD)
+    rec = {"error": None}
+    with layout.gathered():
+        try:
+            module(x)
+        except RuntimeError as e:
+            rec["error"] = str(e)
+        rec["unit_call"] = tuple(module.lin(x).shape)
+    rec["restored"] = module.lin.weight is next(iter(layout.sharded))
+    return rec
+
+
 def rank_checks(rank, n, arg):
     """Every rank-side check; rank 0 returns its records, every rank its
     loader and memo records."""
@@ -206,7 +400,18 @@ def rank_checks(rank, n, arg):
             rec["restored"] = restored
         out["mesh"][key] = rec
 
+    out["units"] = {key: _unit_checks(arg, shape, fsdp)
+                    for key, (shape, fsdp) in UNIT_MESHES.items()}
+
     mesh22 = make_mesh(2, 2, device="cpu")
+    from routeformer_torch.parallel import MeshParams, batch_spec, shard_params
+
+    laid_out = _models(arg)["routeformer"]
+    layout = shard_params(laid_out, mesh22, MIN_SHARD, fsdp=True)
+    out["shard_params"] = {
+        "is_layout": isinstance(layout, MeshParams), "batch_spec": batch_spec(),
+        "specs": {k: tuple(p.mesh_spec) for k, p in laid_out.named_parameters()
+                  if hasattr(p, "mesh_spec")}}
     out["patchtst"] = _patchtst_step(_trainer(_patchtst(arg), arg, mesh22), arg["patch_batch"])
 
     mesh41 = make_mesh(4, 1, device="cpu")
@@ -517,6 +722,75 @@ def test_snapshot_restores_on_a_fresh_mesh(runs):
     for k, v in rec["params"].items():
         assert np.array_equal(same["params"][k], v), k
     assert other["loss"] == pytest.approx(rec["steps"][1]["train_total_loss"], rel=1e-5)
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_unit_gathers_hold_at_most_the_largest_unit(runs, key):
+    """Through a trainer step and an MC eval, the whole weights a rank
+    holds at once never exceed the largest gather unit's (``layout.py``),
+    which is below the whole model's; none is left after them."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]
+        assert 0 < rec["high_water"] <= rec["largest_unit"] < rec["whole"], (r["rank"], rec)
+        assert 0 < rec["swin_high_water"] <= rec["swin_largest_unit"], (r["rank"], rec)
+        assert rec["live_after"] == 0, (r["rank"], rec)
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_unit_gathers_give_the_whole_gather_gradients(runs, key):
+    """Cut to the rank's ``model`` block before the ``data`` reduction, the
+    per-unit gradients are the bits of the whole-model gather's (each
+    element's sum over at most 2 data shards is one addition either way),
+    for the Routeformer and for a SwinV2 trained under remat (its forward
+    gathers again inside the backward's recomputation)."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]
+        assert rec["routeformer_same"] and rec["swin_same"], (r["rank"], rec)
+        assert rec["swin_sharded"] >= 8, rec
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_unit_gathers_reach_weights_read_outside_a_unit_call(runs, key):
+    """A ViT Routeformer whose positional embedding and stream embeddings
+    are sharded (read in ``encode_frames`` and in the loss's direct
+    ``preprocess_batch``): the per-unit gradients are the bits of the
+    whole-model gather's, and the gathered bytes stay within its largest
+    unit's, the resident embeddings included."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]["vit"]
+        for name in ("video_backbone.pos_embed", "video_backbone.patch_embed.weight",
+                     "left_video_embedding", "gaze_video_embedding"):
+            assert name in rec["sharded"], (name, rec["sharded"])
+        assert rec["resident"] == ["", "video_backbone"], rec
+        assert rec["same"], (r["rank"], rec)
+        assert 0 < rec["high_water"] <= rec["largest_unit"], (r["rank"], rec)
+        assert rec["live_after"] == 0, (r["rank"], rec)
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_unit_gathers_refuse_a_block_read_outside_its_unit(runs, key):
+    """A module that computes with its child's sharded weight without
+    calling the child raises under ``gathered``, naming the weight, where
+    it would otherwise compute with this rank's block."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]["block_read"]
+        assert rec["error"] is not None and "lin.weight" in rec["error"], rec
+        assert rec["unit_call"] == (1, 2 * MIN_SHARD) and rec["restored"], rec
+
+
+def test_shard_params_and_batch_spec_match_jax(runs):
+    """``shard_params`` at (2, 2) with FSDP lays the Routeformer out as
+    JAX's ``param_spec`` does (mapped to the port's names and layouts), and
+    ``batch_spec`` is JAX's ``P("data")``."""
+    from routeformer_tpu.parallel.mesh import batch_spec as jax_batch_spec
+    from test_torch_mesh import _jax_flat, _jax_specs_in_torch_layout
+
+    rec = runs["ranks"][0]["shard_params"]
+    assert rec["is_layout"] and rec["batch_spec"] == tuple(jax_batch_spec())
+    want = _jax_specs_in_torch_layout(_jax_flat(lambda: _jax_model(runs["arg"]["kwargs"])),
+                                      2, n_model=2, min_shard=MIN_SHARD)
+    assert rec["specs"] == {k: v for k, v in want.items() if v}
+    assert len(rec["specs"]) >= 10
 
 
 def test_mesh_loader_order_matches_jax(runs):
