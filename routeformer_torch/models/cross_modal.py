@@ -92,6 +92,11 @@ class PerceiveEncoder(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=LN_EPS)
         self.projection = nn.Linear(d_model, out_channels)
 
+    def mesh_whole_weights(self) -> bool:
+        """K3a/K3b take the stack's whole weights; the plain layers' Linear
+        layers split on a mesh."""
+        return self.fused_kernel_mode() is not None
+
     def fused_kernel_mode(self) -> Optional[str]:
         """"kernel", "hybrid", or None for the plain layer stack."""
         if self.d_model % self.n_heads:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from routeformer_torch.models.gps_backbone.config import PatchTSTBackboneConfig
 from routeformer_torch.models.gps_backbone.linear import series_decomp
+from routeformer_torch.models.layers.encdec import feature_dropout
 
 
 class RevIN(nn.Module):
@@ -120,6 +121,8 @@ class TSTEncoderLayer(nn.Module):
     FFN, whose attention adds the previous layer's pre-softmax scores
     (residual attention) and returns its own."""
 
+    mesh_split_pairs = (("ff1", "ff2"),)  # ff1 -> gelu -> dropout -> ff2
+
     def __init__(self, d_model: int, n_heads: int, d_ff: int, dropout: float = 0.0):
         super().__init__()
         d_k = d_model // n_heads
@@ -153,7 +156,7 @@ class TSTEncoderLayer(nn.Module):
     def forward(self, src, prev=None):
         src2, scores = self._attention(src, prev)
         src = self.norm_attn(src + self.dropout_attn(src2))
-        src2 = self.ff2(self.dropout_ffn(F.gelu(self.ff1(src))))
+        src2 = self.ff2(feature_dropout(self.dropout_ffn, F.gelu(self.ff1(src)), self.ff1))
         return self.norm_ffn(src + self.dropout_ffn(src2)), scores
 
 

@@ -129,6 +129,7 @@ class AutoformerEncoderLayer(nn.Module):
     """Progressive-decomposition encoder layer."""
 
     mesh_gather_unit = True  # a mesh gathers the layer's weights together
+    mesh_whole_weights = True  # and computes it unsplit (no split of its layers yet)
 
     def __init__(self, attention: nn.Module, d_model: int, d_ff: Optional[int] = None,
                  moving_avg: Union[int, List[int]] = 25, dropout: float = 0.1,
@@ -172,6 +173,7 @@ class AutoformerDecoderLayer(nn.Module):
     """Decoder layer accumulating a trend stream."""
 
     mesh_gather_unit = True  # a mesh gathers the layer's weights together
+    mesh_whole_weights = True  # and computes it unsplit (no split of its layers yet)
 
     def __init__(self, self_attention: nn.Module, cross_attention: nn.Module, d_model: int,
                  c_out: int, d_ff: Optional[int] = None,

@@ -21,6 +21,16 @@ def activation_fn(name: str):
     return F.gelu  # the exact erf form, as the JAX package uses
 
 
+def feature_dropout(dropout: nn.Dropout, x: torch.Tensor, producer: nn.Module) -> torch.Tensor:
+    """``dropout(x)``, where ``x`` is ``producer``'s output through
+    elementwise ops. Where a mesh's ``model`` axis keeps that output split
+    over the ranks (``parallel/mesh.py``: ``producer.mesh_split``), the mask
+    is drawn on the whole activation and cut to the rank's columns
+    (``_Split.dropout``)."""
+    split = getattr(producer, "mesh_split", None)
+    return dropout(x) if split is None else split.dropout(dropout, x)
+
+
 class ConvLayer(nn.Module):
     """Distillation stage: circular pad, VALID kernel-3 conv, BatchNorm
     (running stats in eval, eps 1e-5), ELU, MaxPool(3, 2, pad 1). On a mesh
@@ -58,6 +68,9 @@ class ConvLayer(nn.Module):
 
 class EncoderLayer(nn.Module):
     mesh_gather_unit = True  # a mesh gathers the layer's weights together
+    # ff1's output reaches ff2 through elementwise ops only: on a mesh it
+    # stays split over ``model`` between the two
+    mesh_split_pairs = (("ff1", "ff2"),)
 
     def __init__(self, attention: nn.Module, d_model: int,
                  d_ff: Optional[int] = None, dropout: float = 0.1,
@@ -81,7 +94,7 @@ class EncoderLayer(nn.Module):
         a, attn = a if with_attn else (a, None)
         x = x + self.dropout(a)
         y = x = self.norm1(x)
-        y = self.dropout(self.activation(self.ff1(y)))
+        y = feature_dropout(self.dropout, self.activation(self.ff1(y)), self.ff1)
         y = self.dropout(self.ff2(y))
         out = self.norm2(x + y)
         return (out, attn) if with_attn else out
@@ -124,6 +137,7 @@ class Encoder(nn.Module):
 
 class DecoderLayer(nn.Module):
     mesh_gather_unit = True  # a mesh gathers the layer's weights together
+    mesh_split_pairs = (("ff1", "ff2"),)  # as EncoderLayer's
 
     def __init__(self, self_attention: nn.Module, cross_attention: nn.Module,
                  d_model: int, d_ff: Optional[int] = None,
@@ -145,7 +159,7 @@ class DecoderLayer(nn.Module):
         x = self.norm1(x + self.dropout(self.self_attention(x, x, x)))
         x = x + self.dropout(self.cross_attention(x, cross, cross))
         y = x = self.norm2(x)
-        y = self.dropout(self.activation(self.ff1(y)))
+        y = feature_dropout(self.dropout, self.activation(self.ff1(y)), self.ff1)
         y = self.dropout(self.ff2(y))
         return self.norm3(x + y)
 

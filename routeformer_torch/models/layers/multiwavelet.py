@@ -9,8 +9,16 @@ by their recurrence, Gauss quadrature, the G rows an SVD completion of the
 H rows; Gauss-Chebyshev quadrature for the Chebyshev base), copied here
 line for line so the arrays are the same bits. A block keeps them as
 non-persistent f32 buffers: constants, not parameters, rebuilt with the
-module. Complex Fourier weights are real/imag f32 parameters; the FFTs
-are ``torch.fft`` (cuFFT on the card).
+module. Complex Fourier weights are real/imag f32 parameters; the spectral
+products are real, as in ``fourier.py`` (the DFT at the lowest modes
+against cosine and sine tables, a complex product one real product), so
+that ``torch.export`` takes them. A ``SparseKernelFT1d`` takes every level
+of its block in one call and lays its weight out once for all of them,
+mode first with the real and imaginary outputs side by side (once for
+every call while the weight is unchanged, out of autograd:
+``weight_cache.derived``): a level is one batched product over its modes
+of the stacked real and imaginary inputs, whose four real products the
+inverse DFT's table combines.
 """
 
 import math
@@ -20,7 +28,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from routeformer_torch.models.layers.fourier import activate
+from routeformer_torch.models.layers.fourier import (_tables, activate, blocks, complex_einsum,
+                                                     irdft, kept, rdft)
+from routeformer_torch.ops import weight_cache
 
 Poly = np.polynomial.Polynomial
 
@@ -223,6 +233,24 @@ class _Filters(nn.Module):
                                  persistent=False)
 
 
+def _modes_first(w_real: torch.Tensor, w_imag: torch.Tensor) -> torch.Tensor:
+    """``(d, d, alpha)`` real and imaginary weights as one ``(alpha, d,
+    2d)``, mode first: the real, then the imaginary outputs."""
+    d, _, alpha = w_real.shape
+    w = torch.stack((w_real.permute(2, 0, 1), w_imag.permute(2, 0, 1)), dim=2)
+    return w.reshape(alpha, d, 2 * d)
+
+
+def _product_table(n: int, m: int, dtype, device) -> torch.Tensor:
+    """``(4m, n)``: the inverse DFT (``irdft``'s table) of a complex
+    product given as its four real ones, rows (input part, weight part,
+    mode): ``rr - ii`` is the real part, ``ri + ir`` the imaginary one."""
+    def build():
+        inv = _tables(n, m, dtype, device)[1]  # (2m, n): real rows, then imaginary
+        return torch.cat((inv[:m], inv[m:], inv[m:], -inv[:m]))
+    return kept(("dft_products", n, m, dtype, device), build)
+
+
 class SparseKernelFT1d(nn.Module):
     """Frequency-domain linear operator on the lowest ``alpha`` modes."""
 
@@ -235,15 +263,20 @@ class SparseKernelFT1d(nn.Module):
         self.w_real = nn.Parameter(scale * torch.rand(d, d, alpha))
         self.w_imag = nn.Parameter(scale * torch.rand(d, d, alpha))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: list) -> list:
+        """The operator on each level ``(B, N, c, k)`` of ``xs``."""
+        w = weight_cache.derived("sparse_kernel_ft", _modes_first, self.w_real, self.w_imag)
+        return [self._level(x, w) for x in xs]
+
+    def _level(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         b, n, c, k = x.shape
-        x_fft = torch.fft.rfft(x.reshape(b, n, c * k).transpose(1, 2), dim=-1)
-        m = min(self.modes, n // 2 + 1)
-        w = torch.complex(self.w_real[:, :, :m], self.w_imag[:, :, :m])
-        low = torch.einsum("bix,iox->box", x_fft[:, :, :m], w)
-        out_ft = torch.cat([low, low.new_zeros(b, c * k, n // 2 + 1 - m)], dim=-1)
-        out = torch.fft.irfft(out_ft, n=n, dim=-1)
-        return out.transpose(1, 2).reshape(b, n, c, k)
+        d, m = c * k, min(self.modes, n // 2 + 1)
+        fwd = _tables(n, m, x.dtype, x.device)[0]  # (n, 2m)
+        spec = fwd.t() @ x.reshape(b, n, d)  # (B, 2m, d): the parts, then the modes
+        spec = spec.unflatten(1, (2, m)).permute(2, 1, 0, 3).reshape(m, 2 * b, d)
+        prod = torch.bmm(spec, w[:m]).view(m, 2, b, 2, d)  # the four real products
+        prod = prod.permute(2, 1, 3, 0, 4).reshape(b, 4 * m, d)
+        return (_product_table(n, m, x.dtype, x.device).t() @ prod).reshape(b, n, c, k)
 
 
 class MWT_CZ1d(_Filters):
@@ -263,11 +296,13 @@ class MWT_CZ1d(_Filters):
         n = x.shape[1]
         ns = math.floor(math.log2(n))
         x = _extend(x, n)
-        ud, us = [], []
+        ds, ss = [], []
         for _ in range(ns - self.L):
             d, x = _wavelet_transform(x, self.ec_d, self.ec_s)
-            ud.append(self.A(d) + self.B(x))
-            us.append(self.C(d))
+            ds.append(d)
+            ss.append(x)
+        ud = [a + b for a, b in zip(self.A(ds), self.B(ss))]
+        us = self.C(ds)
         x = self.T0(x)
         for i in range(ns - 1 - self.L, -1, -1):
             x = torch.cat([x + us[i], ud[i]], dim=-1)
@@ -319,12 +354,11 @@ class FourierCrossAttentionW(nn.Module):
         xk = k.permute(0, 3, 2, 1)
         mq = min(l // 2, self.modes)
         mk = min(xk.shape[-1] // 2, self.modes)
-        xq_ft = torch.fft.rfft(xq, dim=-1)[..., :mq]
-        xk_ft = torch.fft.rfft(xk, dim=-1)[..., :mk]
-        xqk = activate(torch.einsum("bhex,bhey->bhxy", xq_ft, xk_ft), self.activation)
-        xqkv = torch.einsum("bhxy,bhey->bhex", xqk, xk_ft)
-        out_ft = torch.cat([xqkv, xqkv.new_zeros(b, h, e, l // 2 + 1 - mq)], dim=-1)
-        out = torch.fft.irfft(out_ft / self.in_channels / self.out_channels, n=l, dim=-1)
+        xq_ft = rdft(xq, mq)
+        xk_blocks = blocks(rdft(xk, mk))
+        xqk = activate(complex_einsum("bhex,bhey->bhxy", xq_ft, xk_blocks), self.activation)
+        xqkv = complex_einsum("bhxy,bhey->bhex", xqk, xk_blocks)
+        out = irdft(xqkv / self.in_channels / self.out_channels, mq, l)
         return out.permute(0, 3, 2, 1), None
 
 

@@ -147,6 +147,8 @@ class WindowAttention(nn.Module):
 class SwinBlock(nn.Module):
     """SwinV2 block: res-post-norm window attention + MLP."""
 
+    mesh_split_pairs = (("fc1", "fc2"),)  # fc1 -> gelu -> fc2 (the unfused block)
+
     def __init__(self, dim: int, n_heads: int, window: int, shift: int,
                  input_hw: Tuple[int, int], compute_dtype=None,
                  gelu_approximate: bool = False):
@@ -240,6 +242,11 @@ class SwinBlockPair(nn.Module):
                                  compute_dtype, gelu_approximate)
         self.block_b = SwinBlock(dim, n_heads, window, shift, input_hw,
                                  compute_dtype, gelu_approximate)
+
+    def mesh_whole_weights(self) -> bool:
+        """K1 (the tanh blocks) takes the pair's whole weights; the unfused
+        blocks' Linear layers split on a mesh (qkv gathered before K2)."""
+        return self.block_a.gelu_approximate
 
     def forward(self, x):
         return self.block_b(self.block_a(x))

@@ -77,6 +77,7 @@ class ViTBlock(nn.Module):
     """Pre-norm block: ``x + proj(attn(norm1 x))``, ``x + fc2(gelu(fc1(norm2 x)))``."""
 
     mesh_gather_unit = True  # a mesh gathers the block's weights together
+    mesh_split_pairs = (("fc1", "fc2"),)  # fc1 -> gelu -> fc2
 
     def __init__(self, width: int, heads: int, compute_dtype: Optional[torch.dtype] = None,
                  gelu_approximate: bool = False):

@@ -2,16 +2,22 @@
 
 ``derived`` is shared by the kernels' wrappers: K1's bf16 weights and
 position bias (``swin_block_fusion``) and the Perceive encoder's stacked
-and kernel weights (``models/cross_modal.py``, K3a/K3b).
+and kernel weights (``models/cross_modal.py``, K3a/K3b), by the mesh's
+split layers (their blocks' bf16 casts, ``parallel/mesh.py``), and by
+FEDformer's spectral layers (their weights' block forms and mode-first
+layout, ``models/layers/fourier.py`` and ``multiwavelet.py``).
 
-On a ``(data, model)`` mesh the sources of a sharded weight are the whole
+On a ``(data, model)`` mesh the sources of a gathered weight are the whole
 tensors ``parallel.mesh.MeshParams.gathered`` makes: new tensors at every
 gather, one gather unit at a time, which die when the unit returns (the
-backward gathers again). So the cache misses on every unit call under a
-mesh, and a value cached from one gather is never served to the next: its
-weak references die with the gathered tensors, and the entry with them. A
-value the backward needs (K3b's derived weights) is saved by autograd
-itself, so K3b's backward reads the weights its forward read.
+backward gathers again). So the cache misses on every call of a gathered
+unit (K1's and K3's under a mesh), and a value cached from one gather is
+never served to the next: its weak references die with the gathered
+tensors, and the entry with them. A split layer computes on this rank's
+block, the parameter itself, so its cast hits from one call to the next
+(outside autograd; under FSDP the block is gathered over ``data`` and
+misses too). A value the backward needs (K3b's derived weights) is saved
+by autograd itself, so K3b's backward reads the weights its forward read.
 """
 
 import weakref

@@ -17,21 +17,37 @@ caller asks for the CPU, and the ranks form a
   at least ``min_shard_dim`` and divisible by ``n_model``; with FSDP the
   largest remaining eligible dim also splits over ``data``; the rest is
   replicated. A rank stores its block of each parameter (``MeshParams``).
-  Where GSPMD keeps 1/n of each sharded weight and inserts the gathers, a
-  rank here gathers the sharded weights of one *unit* at a time: the
+  The ``model`` axis is tensor parallelism, as GSPMD partitions the JAX
+  package's sharded matmuls: an ``nn.Linear`` or ``nn.Conv1d`` whose weight
+  splits over ``model`` along a channel dim (``split_layers``) computes on
+  this rank's block and is never gathered whole. A *column* split (the
+  output channels) computes this rank's output columns, all-gathered
+  along the feature dim unless the layer's output reaches a row-split
+  layer through elementwise ops only (``mesh_split_pairs``: an FFN's
+  ``ff1 -> activation -> dropout -> ff2``); a *row* split (the input
+  channels) computes a partial product on this rank's input channels,
+  summed over ``model``, its bias added once after the sum. The conjugate
+  autograd functions (identity one way, a sum over ``model`` the other)
+  keep every rank's gradients those of one process.
+  Every other sharded weight is gathered whole one *unit* at a time: the
   module a kernel or a layer consumes whole (a SwinV2 block pair, a ViT
   block, a whole Perceive stack, an encoder or decoder layer: classes
   with ``mesh_gather_unit``; otherwise the module that owns the
   parameter), just before the unit runs, released when it returns, and
   gathered again when the backward needs them (``MeshParams.gathered``).
+  A unit that hands its whole weights to a kernel (``mesh_whole_weights``:
+  K1's tanh SwinV2 pairs, K3a/K3b's fused Perceive stacks; also the
+  Autoformer and FEDformer layers, not split yet) gathers its split
+  layers' weights too, as GSPMD cannot partition a ``pallas_call``.
   A module with children that owns a sharded parameter itself (a ViT's
   positional embedding, the Routeformer's stream embeddings) is read
   outside its own call too, so its weights stay gathered for the whole
   step; a read of a block outside its unit raises.
-  Each sharded gradient is cut to the rank's ``model`` block first, then
-  reduced over ``data`` (a reduce-scatter along the dim FSDP split, else
-  an all-reduce of the block). Splitting the sharded matmuls' compute over
-  ``model`` (column- and row-parallel linears) is a later item.
+  A gathered weight's gradient is cut to the rank's ``model`` block, a
+  split weight's is that block from the start; both are then reduced over
+  ``data`` (a reduce-scatter along the dim FSDP split, else an all-reduce
+  of the block). Under FSDP a split weight is gathered over ``data`` only,
+  up to this rank's ``model`` block, just before its layer runs.
 
 FSDP2's ``fully_shard`` places one sharded dim per parameter over one mesh
 (HSDP: replicate over one dim, shard over the other), while the rule under
@@ -55,8 +71,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils import _pytree
 
+from routeformer_torch.ops.weight_cache import derived
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 DATA_AXIS = "data"
@@ -94,7 +112,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               device: DeviceLike = None):
     """The ``(data, model)`` ``DeviceMesh`` over every rank of the process
     group (``n_data * n_model`` must be the world size; ``n_data`` defaults
-    to ``world // n_model``), on ``device``'s type (CUDA by default)."""
+    to ``world // n_model``), on ``device``'s type (CUDA by default). Its
+    groups take the process group's backend: a gloo group carries CUDA
+    tensors too (gloo stages them through the host), which is how several
+    ranks share one card, as NCCL refuses two ranks on one device."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if not dist.is_initialized():
@@ -105,8 +126,10 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     if n_data * n_model != world:
         raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} ranks, "
                          f"the process group has {world}")
-    return init_device_mesh(resolve_device(device).type, (n_data, n_model),
-                            mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    # The mesh's groups carry plain collectives only (no DTensor), so a gloo
+    # group is laid out as a CPU mesh whatever device its tensors are on.
+    kind = "cpu" if dist.get_backend() == "gloo" else resolve_device(device).type
+    return init_device_mesh(kind, (n_data, n_model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
 
 
 def check_mesh(mesh) -> None:
@@ -278,6 +301,108 @@ def global_moments(x: torch.Tensor, dims: tuple, group):
     return mean, torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0), sums[-1]
 
 
+# ----------------------------------------------------- tensor parallel -- #
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity; the backward sums the gradient over ``group``: the input
+    of a column split, which every ``model`` rank holds whole and each
+    differentiates through its own output columns only."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """The sum over ``group`` of a row split's partial products; the
+    backward is the identity (every ``model`` rank consumes the sum alike,
+    so each holds the whole gradient already)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SliceFeatures(torch.autograd.Function):
+    """This rank's block of ``dim`` of a tensor every ``model`` rank holds
+    whole (a row split's input channels, a column split's replicated
+    bias); the backward all-gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        size = x.shape[dim] // n
+        return x.narrow(dim, rank * size, size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather_cat(grad, ctx.dim, ctx.group, ctx.n), None, None, None, None
+
+
+class _GatherFeatures(torch.autograd.Function):
+    """The ``model`` ranks' blocks of ``dim`` concatenated (a column
+    split's output, gathered); the backward takes this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n, rank):
+        ctx.dim, ctx.rank, ctx.size = dim, rank, x.shape[dim]
+        return _all_gather_cat(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None, None, None
+
+
+def _all_gather_cat(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+_SPLIT_TYPES = (nn.Linear, nn.Conv1d)
+
+
+def whole_weights(module: nn.Module) -> bool:
+    """Whether ``module`` hands its whole weights to a kernel now (its
+    class's ``mesh_whole_weights``, a flag or a method): a unit that does
+    gathers its split layers' weights too and runs them unsplit."""
+    flag = getattr(module, "mesh_whole_weights", False)
+    return bool(flag() if callable(flag) else flag)
+
+
+def split_layers(module: nn.Module, specs: Dict[str, tuple]) -> Dict[str, str]:
+    """``{layer name: "column" | "row"}``: every ``nn.Linear`` and
+    ``nn.Conv1d`` of a module tree whose weight ``specs`` (``{parameter
+    name: spec}``) shards over ``model`` along a channel dim (torch dim 0,
+    the outputs: a column split; dim 1, the inputs: a row split). Whether a
+    layer computes split at a call also depends on its unit
+    (``whole_weights``)."""
+    out = {}
+    for name, m in module.named_modules():
+        if isinstance(m, _SPLIT_TYPES):
+            spec = specs.get(f"{name}.weight" if name else "weight", ())
+            if spec and spec[0] == MODEL_AXIS:
+                out[name] = "column"
+            elif spec and spec[1] == MODEL_AXIS:
+                out[name] = "row"
+    return out
+
+
 # --------------------------------------------------------- parameters -- #
 
 
@@ -380,6 +505,30 @@ def param_shardings(module: nn.Module, mesh, min_shard_dim: int = 512,
     return module_specs(module, n_model, min_shard_dim, n_data if fsdp else 1)
 
 
+def split_block_bytes(module: nn.Module, specs: Dict[str, tuple], units: Dict[str, list],
+                      n_model: int) -> Dict[nn.Parameter, int]:
+    """``{parameter: bytes gathered at its layer's call}`` for the split
+    layers' weights and the column splits' biases the rule shards alike, in
+    units that run split now (``whole_weights``): the ``model`` block where
+    the spec also names ``data`` (FSDP gathers it over ``data``), else 0.
+    Read before ``MeshParams`` replaces the data by the blocks."""
+    modules = dict(module.named_modules())
+    names = {p: n for n, p in module.named_parameters()}
+    unit_of = {p: u for u, owners in units.items() for _, _, p in owners}
+    out = {}
+    for name, kind in split_layers(module, specs).items():
+        layer = modules[name]
+        params = [layer.weight]
+        if kind == "column" and layer.bias is not None and \
+                specs.get(names.get(layer.bias)) == (MODEL_AXIS,):
+            params.append(layer.bias)
+        for p in params:
+            if not whole_weights(modules[unit_of[p]]):
+                nbytes = p.numel() * p.element_size() // n_model
+                out[p] = nbytes if DATA_AXIS in specs[names[p]] else 0
+    return out
+
+
 def spec_block(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of a tensor laid out by ``spec``."""
     out = full
@@ -391,12 +540,14 @@ def spec_block(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return out
 
 
-def spec_gather(block: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+def spec_gather(block: torch.Tensor, spec: tuple, mesh, axes=(DATA_AXIS, MODEL_AXIS)
+                ) -> torch.Tensor:
     """The whole tensor from every rank's ``spec`` block (a collective over
-    the axes ``spec`` names)."""
+    the axes ``spec`` names); with ``axes``, gathered over those axes only
+    (``(DATA_AXIS,)``: this rank's ``model`` block)."""
     out = block
     for dim, axis in enumerate(spec):
-        if axis is not None:
+        if axis in axes:
             n = mesh.size(0 if axis == DATA_AXIS else 1)
             out = out.contiguous()
             parts = [torch.empty_like(out) for _ in range(n)]
@@ -445,11 +596,16 @@ def resident_units(module: nn.Module, units: Dict[str, list]) -> set:
             and next(modules[u].children(), None) is not None}
 
 
-def unit_gather_bytes(units: Dict[str, list], resident) -> Dict[str, int]:
+def unit_gather_bytes(units: Dict[str, list], resident,
+                      split: Optional[Dict[nn.Parameter, int]] = None) -> Dict[str, int]:
     """The bytes gathered at once while each unit runs: its own distinct
     parameters' whole bytes plus those of the ``resident`` units, which
-    stay gathered throughout."""
-    own = {u: sum(p.numel() * p.element_size()
+    stay gathered throughout. A parameter in ``split`` (a split layer's
+    weight or bias in a unit that runs split) counts the bytes given there
+    instead: its ``model`` block where FSDP gathers it over ``data``, else
+    0 (never gathered)."""
+    split = split or {}
+    own = {u: sum(split.get(p, p.numel() * p.element_size())
                   for p in {id(p): p for _, _, p in owners}.values())
            for u, owners in units.items()}
     always = sum(own[u] for u in resident)
@@ -478,24 +634,24 @@ class _Block(torch.Tensor):
 
 class _Slot:
     """One gather of one parameter under autograd: its gradient's arrival
-    and the backward's re-gather, cached from the first unpack of the
-    weight to the arrival of its gradient (every consumer of the weight
-    has run its backward by then)."""
+    and the backward's re-gather (over ``axes``), cached from the first
+    unpack of the weight to the arrival of its gradient (every consumer of
+    the weight has run its backward by then)."""
 
-    __slots__ = ("layout", "param", "regathered")
+    __slots__ = ("layout", "param", "axes", "regathered")
 
-    def __init__(self, layout, param):
-        self.layout, self.param, self.regathered = layout, param, None
+    def __init__(self, layout, param, axes=(DATA_AXIS, MODEL_AXIS)):
+        self.layout, self.param, self.axes, self.regathered = layout, param, axes, None
 
     def regather(self) -> torch.Tensor:
         if self.regathered is None:
-            self.regathered = self.layout._gather(self.param)
+            self.regathered = self.layout._gather(self.param, axes=self.axes)
         return self.regathered
 
 
 class _GatherGrad(torch.autograd.Function):
-    """The gathered weight as a function of the parameter: its gradient,
-    the whole weight's, goes to ``MeshParams._grad_arrived``; the
+    """The gathered weight (or a split layer's block) as a function of the
+    parameter: its gradient goes to ``MeshParams._grad_arrived``; the
     parameter's ``.grad`` is written by ``reduce_grads``."""
 
     @staticmethod
@@ -515,11 +671,106 @@ class _Packed:
     """A saved gathered weight (or a view of it), kept as its parameter and
     its view's geometry instead of its bytes."""
 
-    __slots__ = ("slot", "param", "size", "stride", "offset")
+    __slots__ = ("slot", "param", "axes", "size", "stride", "offset")
 
-    def __init__(self, slot, param, t):
-        self.slot, self.param = slot, param
+    def __init__(self, slot, param, axes, t):
+        self.slot, self.param, self.axes = slot, param, axes
         self.size, self.stride, self.offset = t.size(), t.stride(), t.storage_offset()
+
+
+class _Split:
+    """A split layer under ``MeshParams.gathered``: its ``forward`` stands
+    in for the layer's own while the body runs. A column split computes
+    this rank's output channels (all-gathered unless ``keep``: then a
+    row-split layer takes them through elementwise ops only); a row split
+    this rank's input channels' partial product, summed over ``model``,
+    the bias added after the sum. In a unit gathered whole for a kernel
+    (``whole_weights``) the layer runs its own forward on the whole
+    weights."""
+
+    def __init__(self, layout, layer: nn.Module, kind: str, unit: str):
+        self.layout, self.layer, self.kind, self.unit = layout, layer, kind, unit
+        self.weight = layer.weight
+        self.dim = -1 if isinstance(layer, nn.Linear) else 1  # the channels of x and y
+        bias = layer.bias
+        # a column split's bias that the rule shards alike (a scan's stacked
+        # bias): this rank's block, never gathered
+        self.bias_block = (bias if kind == "column" and bias is not None
+                           and layout.sharded.get(bias) == (MODEL_AXIS,) else None)
+        self.keep = False
+        self.group = layout.mesh.get_group(MODEL_AXIS)
+        self.n, self.rank = layout.n_model, layout.mesh.get_local_rank(MODEL_AXIS)
+
+    def params(self) -> list:
+        return [self.weight] + ([self.bias_block] if self.bias_block is not None else [])
+
+    def split_now(self) -> bool:
+        return self.unit not in self.layout._whole
+
+    def kept(self) -> bool:
+        """Whether the layer's output is this rank's columns only now."""
+        return self.keep and self.split_now()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        layer, layout = self.layer, self.layout
+        if not self.split_now():
+            return type(layer).forward(layer, x)
+        dt = getattr(layer, "compute_dtype", None)
+        w = layout._block(self.weight, dt)
+        if self.kind == "column":
+            x = _CopyToModel.apply(x, self.group)
+            if self.bias_block is not None:
+                b = layout._block(self.bias_block)
+            elif layer.bias is not None:
+                b = _SliceFeatures.apply(layer.bias, 0, self.group, self.n, self.rank)
+            else:
+                b = None
+            y = self._apply(x, w, b, dt)
+            if self.keep:
+                return y
+            return _GatherFeatures.apply(y, self.dim, self.group, self.n, self.rank)
+        full = w.shape[1] * self.n
+        if x.shape[self.dim] == full:
+            x = _SliceFeatures.apply(x, self.dim, self.group, self.n, self.rank)
+        elif x.shape[self.dim] != w.shape[1]:
+            raise ValueError(f"row-split {type(layer).__name__} takes {full} input channels "
+                             f"or this rank's {w.shape[1]}, got {tuple(x.shape)}")
+        # the partial products are summed in their compute dtype, as GSPMD
+        # reduces a bf16 product: a bf16 row split rounds one sum more
+        y = _SumOverModel.apply(self._apply(x, w, None, dt), self.group)
+        if layer.bias is not None:
+            b = layer.bias
+            y = y + (b if self.dim == -1 else b[:, None]).to(y.dtype)
+        return y
+
+    def _apply(self, x, w, b, dt):
+        if isinstance(self.layer, nn.Conv1d):
+            return self.layer._conv_forward(x, w, b)
+        if dt is not None:
+            x = x.to(dt)
+            b = None if b is None else b.to(dt)
+        return F.linear(x, w, b)
+
+    def dropout(self, module: nn.Dropout, x: torch.Tensor) -> torch.Tensor:
+        """``module(x)`` on this layer's output (through elementwise ops).
+        Where that output is this rank's columns only, the mask is drawn on
+        the whole activation from the generator every ``model`` rank of a
+        data shard shares, and cut to this rank's columns: the ranks agree
+        on it, and it has the single process's distribution. On the CPU it
+        is the very mask a single process draws (the tests hold that); on
+        CUDA it is not in general, since the fused dropout kernel's draw
+        order depends on the tensor it is given (its dtype and vector
+        width)."""
+        if not (self.kept() and module.training and module.p > 0.0):
+            return module(x)
+        shape = list(x.shape)
+        shape[self.dim] *= self.n
+        # on CUDA an f32 draw: its scale times x rounds as the fused kernel's
+        # own product does
+        dtype = x.dtype if x.device.type == "cpu" else torch.float32
+        noise = F.dropout(torch.ones(shape, dtype=dtype, device=x.device), module.p, True)
+        size = x.shape[self.dim]
+        return (x * noise.narrow(self.dim, self.rank * size, size)).to(x.dtype)
 
 
 class MeshParams:
@@ -532,14 +783,18 @@ class MeshParams:
     over them steps the blocks, and the AdamW moments take the blocks'
     shapes. Each sharded parameter carries ``mesh_spec``.
 
-    The sharded parameters fall into gather units (``gather_units``);
-    ``unit_bytes`` is each unit's gathered bytes, and ``live_bytes`` /
-    ``high_water`` count the gathered weights alive at once on this rank
-    (``reset_high_water`` starts a new count)."""
+    The split layers (``split_layers``) compute on their blocks
+    (``splits``, their weights and block biases ``split_params``); the
+    other sharded parameters fall into gather units (``gather_units``).
+    ``unit_bytes`` is each unit's gathered bytes (split layers' weights
+    counted only where FSDP gathers their blocks over ``data``), and
+    ``live_bytes`` / ``high_water`` count the gathered weights alive at
+    once on this rank (``reset_high_water`` starts a new count)."""
 
     def __init__(self, module: nn.Module, mesh, min_shard_dim: int = 512,
                  fsdp: bool = False):
         self.mesh = mesh
+        self.min_shard_dim = min_shard_dim
         self.key = (id(mesh), min_shard_dim, bool(fsdp))
         self.n_data, self.n_model = mesh.shape
         self.specs = param_shardings(module, mesh, min_shard_dim, fsdp)
@@ -547,11 +802,25 @@ class MeshParams:
             for t in list(module.parameters()) + list(module.buffers()):
                 dist.broadcast(t.data, src=0)
         sharded = {p: self.specs[n] for n, p in module.named_parameters() if self.specs[n]}
+        self.sharded = sharded
         self.units = gather_units(module, sharded)
         modules = dict(module.named_modules())
         self._unit_modules = {u: modules[u] for u in self.units}
         self.resident = resident_units(module, self.units)
-        self.unit_bytes = unit_gather_bytes(self.units, self.resident)
+        unit_of = {p: u for u, owners in self.units.items() for _, _, p in owners}
+        self.splits = {}
+        for name, kind in split_layers(module, self.specs).items():
+            layer = modules[name]
+            self.splits[layer] = _Split(self, layer, kind, unit_of[layer.weight])
+        for m in modules.values():
+            for a, b in getattr(type(m), "mesh_split_pairs", ()):
+                first, second = self.splits.get(getattr(m, a)), self.splits.get(getattr(m, b))
+                if first and second and first.kind == "column" and second.kind == "row":
+                    first.keep = True
+        self.split_params = {p for sp in self.splits.values() for p in sp.params()}
+        self._whole: set = set()  # units gathered whole for a kernel while they run
+        self.unit_bytes = unit_gather_bytes(self.units, self.resident, split_block_bytes(
+            module, self.specs, self.units, self.n_model))
         names = {p: n for n, p in module.named_parameters()}
         self._names = {p: names[p] for p in sharded}
         self.full_shapes = {}
@@ -559,9 +828,8 @@ class MeshParams:
             self.full_shapes[p] = tuple(p.shape)
             p.data = spec_block(p.data, spec, mesh).clone()
             p.mesh_spec = spec
-        self.sharded = sharded
         self.live_bytes = self.high_water = 0
-        self._storages = {}  # storage address -> (weak ref to the gathered weight, slot, param)
+        self._storages = {}  # storage address -> (weak ref to the gathered weight, slot, param, axes)
         self._pending: Dict[nn.Parameter, torch.Tensor] = {}
         self._idle: Dict[nn.Parameter, torch.Tensor] = {}  # what a module holds between calls
 
@@ -571,18 +839,18 @@ class MeshParams:
     # -- gathers ----------------------------------------------------------- #
 
     def _gather(self, p: nn.Parameter, slot: Optional[_Slot] = None,
-                packed: bool = True) -> torch.Tensor:
-        """The whole weight of ``p`` (a collective over its spec's axes),
-        counted while it lives and, when ``packed``, recognised when
-        autograd saves it."""
+                packed: bool = True, axes=(DATA_AXIS, MODEL_AXIS)) -> torch.Tensor:
+        """The whole weight of ``p`` (a collective over its spec's axes;
+        with ``axes``, over those only), counted while it lives and, when
+        ``packed``, recognised when autograd saves it."""
         with torch.no_grad():
-            full = spec_gather(p.detach(), self.sharded[p], self.mesh)
+            full = spec_gather(p.detach(), self.sharded[p], self.mesh, axes)
         nbytes = full.numel() * full.element_size()
         self.live_bytes += nbytes
         self.high_water = max(self.high_water, self.live_bytes)
         if packed and torch.is_grad_enabled() and not torch.is_inference_mode_enabled():
             ptr = full.untyped_storage().data_ptr()
-            self._storages[ptr] = (weakref.ref(full), slot, p)
+            self._storages[ptr] = (weakref.ref(full), slot, p, axes)
         else:
             ptr = None
         weakref.finalize(full, self._freed, ptr, nbytes)
@@ -594,13 +862,37 @@ class MeshParams:
         if entry is not None and entry[0]() is None:
             del self._storages[ptr]
 
+    def _block(self, p: nn.Parameter, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A split layer's parameter as its layer computes with it: this
+        rank's ``model`` block (under FSDP gathered over ``data`` just now),
+        cast to ``dtype``. Under autograd its gradient, this block's, goes
+        to ``_grad_arrived``; otherwise the block is the parameter itself,
+        so its cast is cached across calls (``weight_cache.derived``)."""
+        recording = torch.is_grad_enabled() and p.requires_grad
+        if DATA_AXIS in self.sharded[p]:
+            slot = _Slot(self, p, (DATA_AXIS,)) if recording else None
+            w = self._gather(p, slot, axes=(DATA_AXIS,))
+            if recording:
+                w = _GatherGrad.apply(p, w, slot)
+        elif recording:
+            w = _GatherGrad.apply(p, p.detach(), _Slot(self, p))
+        else:
+            w = p if dtype is None else derived("mesh_split", lambda t: t.to(dtype), p)
+        return w if dtype is None else w.to(dtype)
+
     def _enter(self, unit: str) -> None:
-        """The unit's whole weights in place of its blocks. A resident
+        """The unit's whole weights in place of its blocks (its split
+        layers' too where it hands them to a kernel now). A resident
         unit's stay for the whole body, so autograd keeps them as they are
         instead of gathering them again."""
         packed = unit not in self.resident
+        whole = whole_weights(self._unit_modules[unit])
+        if whole:
+            self._whole.add(unit)
         fulls = {}
         for m, k, p in self.units[unit]:
+            if p in self.split_params and not whole:
+                continue
             if p not in fulls:
                 if torch.is_grad_enabled() and p.requires_grad:
                     slot = _Slot(self, p)
@@ -610,6 +902,7 @@ class MeshParams:
             m._parameters[k] = fulls[p]
 
     def _exit(self, unit: str) -> None:
+        self._whole.discard(unit)
         for m, k, p in self.units[unit]:
             m._parameters[k] = self._idle.get(p, p)
 
@@ -630,34 +923,39 @@ class MeshParams:
         full = entry[0]()
         if full is None or full.device != t.device or full.dtype != t.dtype:
             return t
-        return _Packed(entry[1], entry[2], t)
+        return _Packed(entry[1], entry[2], entry[3], t)
 
     def _unpack(self, x):
         if not isinstance(x, _Packed):
             return x
-        full = x.slot.regather() if x.slot is not None else self._gather(x.param)
+        full = x.slot.regather() if x.slot is not None else self._gather(x.param, axes=x.axes)
         return full.as_strided(x.size, x.stride, x.offset)
 
     @contextlib.contextmanager
     def gathered(self):
-        """Per-unit gathers while the body runs (a collective: every rank
-        runs the same modules). Each unit's sharded weights are gathered
-        just before it runs and put in place of the blocks, and dropped
-        when it returns; a gathered weight that autograd saves is kept as
-        its parameter and gathered again when the backward unpacks it (the
-        same order on every rank). Under remat the recomputed forward
-        gathers as the first one did. The resident units
+        """Per-unit gathers and split layers while the body runs (a
+        collective: every rank runs the same modules). Each split layer
+        computes on its block (``_Split.forward`` stands in for its own,
+        ``mesh_split`` names its record). Each unit's other sharded weights
+        are gathered just before it runs and put in place of the blocks,
+        and dropped when it returns; a gathered weight that autograd saves
+        is kept as its parameter and gathered again when the backward
+        unpacks it (the same order on every rank). Under remat the
+        recomputed forward gathers as the first one did. The resident units
         (``resident_units``) are gathered once for the whole body. Between
         its unit's calls a module holds a ``_Block`` in place of the
-        weight, so a read outside the unit raises. A gradient is cut to
-        this rank's ``model`` block as it arrives; ``reduce_grads``, after
-        the backward, reduces the blocks over the data shards."""
+        weight, so a read outside the unit raises. A gathered weight's
+        gradient is cut to this rank's ``model`` block as it arrives;
+        ``reduce_grads``, after the backward, reduces the blocks over the
+        data shards."""
         if not self.sharded:
             yield
             return
         self._pending = {}
         handles = []
         try:
+            for layer, split in self.splits.items():
+                layer.forward, layer.mesh_split = split.forward, split
             for unit, module in self._unit_modules.items():
                 if unit in self.resident:
                     self._enter(unit)
@@ -676,15 +974,20 @@ class MeshParams:
             self._idle = {}
             for unit in self.units:
                 self._exit(unit)
+            for layer in self.splits:
+                layer.__dict__.pop("forward", None)
+                layer.__dict__.pop("mesh_split", None)
 
     def _grad_arrived(self, p: nn.Parameter, grad: torch.Tensor) -> None:
-        """The whole weight's gradient from one gather, cut to this rank's
-        ``model`` block and summed with the earlier ones of the step."""
+        """The gradient of one gather or one split block: a whole weight's
+        is cut to this rank's ``model`` block (a split layer's is that block
+        already), then summed with the earlier ones of the step."""
         spec = self.sharded[p]
         if MODEL_AXIS in spec:
             d = spec.index(MODEL_AXIS)
-            size = grad.shape[d] // self.n_model
-            grad = grad.narrow(d, self.mesh.get_local_rank(MODEL_AXIS) * size, size).clone()
+            size = self.full_shapes[p][d] // self.n_model
+            if grad.shape[d] != size:
+                grad = grad.narrow(d, self.mesh.get_local_rank(MODEL_AXIS) * size, size).clone()
         have = self._pending.get(p)
         self._pending[p] = grad if have is None else have + grad
 

@@ -35,16 +35,32 @@ def _as_tensor(value, device) -> torch.Tensor:
 class _Forward(torch.nn.Module):
     """``(leaves, batch) -> prediction`` of an eval-mode model whose state
     is given as leaves in ``names`` order. The model is held outside the
-    module tree, so the exported program carries no weights of its own."""
+    module tree, so the exported program carries no weights of its own.
+    Each module's own parameter and buffer slots take their leaves for the
+    call and get their tensors back after it, one module object at a time:
+    a tied module (FEDformer's shared encoder block, reached by several
+    paths) is set and restored once (swapped per path, as
+    ``torch.func.functional_call`` does, its second path's restore put
+    export's fake stand-in back)."""
 
     def __init__(self, model: torch.nn.Module, names: List[str]):
         super().__init__()
-        self.names = names
         self.model = [model]
+        leaf = {id(t): i for i, t in enumerate(
+            dict([*model.named_parameters(), *model.named_buffers()])[n] for n in names)}
+        self.slots = [(m, table, k, leaf[id(t)]) for m in model.modules()
+                      for table in ("_parameters", "_buffers")
+                      for k, t in getattr(m, table).items() if t is not None]
 
     def forward(self, leaves: List[torch.Tensor], batch: Dict[str, torch.Tensor]):
-        out = torch.func.functional_call(self.model[0], dict(zip(self.names, leaves)),
-                                         (batch,), strict=True)
+        saved = [getattr(m, table)[k] for m, table, k, _ in self.slots]
+        try:
+            for m, table, k, i in self.slots:
+                getattr(m, table)[k] = leaves[i]
+            out = self.model[0](batch)
+        finally:
+            for (m, table, k, _), t in zip(self.slots, saved):
+                getattr(m, table)[k] = t
         return out[0] if isinstance(out, tuple) else out
 
 
@@ -65,18 +81,10 @@ def export_model(model: torch.nn.Module, example_batch: dict, platforms=None) ->
 
     The program is traced on the device the model lies on (its kernels are
     the registered ops of that device); ``platforms``, the JAX signature's
-    list of targets, may only name that device's type. Autoformer and
-    InverseForm models export; a FEDformer one is refused (the reason is
-    in the error).
+    list of targets, may only name that device's type. Every model of the
+    zoo exports, FEDformer's spectral blocks included (their arithmetic is
+    real: ``models/layers/fourier.py``).
     """
-    from routeformer_torch.models.gps_backbone import FEDformer
-
-    if isinstance(getattr(model, "gps_backbone", None), FEDformer):
-        raise NotImplementedError(
-            "export_model: FEDformer's spectral blocks multiply complex tensors (its "
-            "real/imag weights joined by torch.complex), and the program torch.export "
-            "makes of them returns fake tensors in this torch; serve FEDformer through "
-            "save_serving_bundle/load_serving_bundle")
     forward, leaves = _eval_forward(model)
     device = leaves[0].device
     if platforms is not None and set(platforms) != {device.type}:

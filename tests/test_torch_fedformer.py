@@ -155,3 +155,66 @@ def test_routeformer_over_fedformer_matches_jax_and_its_bundle_keeps_the_modes(r
     assert type(served.model.gps_backbone) is FEDformer
     assert _modes(served.model.gps_backbone) == modes
     assert torch.equal(served(batch), got)
+
+
+def _first_difference(model, exported, batch) -> str:
+    """The first module of the live model whose output no value of the
+    exported graph reproduces bit for bit, with the closest graph node."""
+    from torch.fx import Interpreter
+
+    outs, nodes = [], []
+
+    def hook(name):
+        def record(_module, _inp, out):
+            out = out[0] if isinstance(out, tuple) else out
+            if isinstance(out, torch.Tensor) and out.is_floating_point():
+                outs.append((name, out.detach().clone()))
+        return record
+
+    class Record(Interpreter):
+        def run_node(self, n):
+            out = super().run_node(n)
+            if isinstance(out, torch.Tensor) and out.is_floating_point():
+                nodes.append((n.name, str(n.target), out.clone()))
+            return out
+
+    hooks = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+    with torch.inference_mode():
+        model(tensors)
+        Record(exported._program).run(exported._leaves, tensors)
+    for h in hooks:
+        h.remove()
+    for name, out in outs:
+        shaped = [(n, t, v) for n, t, v in nodes if v.shape == out.shape]
+        if shaped and not any(torch.equal(v, out) for _, _, v in shaped):
+            n, t, v = min(shaped, key=lambda x: float((x[2] - out).abs().max()))
+            return f"module {name}: closest graph node {n} = {t}, max|diff| " \
+                   f"{float((v - out).abs().max()):.3e}"
+    return "no module output differs"
+
+
+@pytest.mark.parametrize("version", ["Fourier", "Wavelets"])
+def test_fedformer_exports(version):
+    """``export_model`` of a GPS-only Routeformer over FEDformer at small
+    widths (the wavelet blocks at their fixed c 128, k 8), reloaded from its
+    bytes (``ExportedModel``), serves the live ``ServingModel``'s batch-1
+    prediction: the same bits, else within 1e-5 of its max, the first
+    differing op named."""
+    from routeformer_torch.models import Routeformer, RouteformerConfig
+    from routeformer_torch.serve import ExportedModel, ServingModel, _eval_forward, export_model
+
+    gps = gps_kwargs(version=version, modes=4, d_model=16, d_ff=32, _enc_in=None, _c_out=None)
+    torch.manual_seed(5)
+    model = Routeformer(RouteformerConfig(gps_backbone_config=FEDFormerBackboneConfig(**gps),
+                                          discount_factor={0: 0.97}, epsilon=1.0),
+                        gps_backbone=FEDformer)
+    batch = {"gps": np.cumsum(np.random.RandomState(6).randn(1, SEQ_LEN, 2), axis=1)
+             .astype(np.float32)}
+    want = ServingModel(model, torch.device("cpu"))(batch)  # GPS-only: the prediction
+    exported = ExportedModel(export_model(model, batch), _eval_forward(model)[1])
+    got = exported(batch)
+    assert got.shape == want.shape == (1, PRED_LEN, 2) and torch.isfinite(got).all()
+    if not torch.equal(got, want):
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= 1e-5, (err, _first_difference(model, exported, batch))

@@ -479,8 +479,10 @@ def test_routeformer_over_inverseform_matches_jax(rng, jax_routeformer):
 def test_export_takes_inverseform_and_autoformer_and_refuses_fedformer():
     """``export_model`` of a Routeformer over InverseForm (the front view
     only: tracing a trunk call costs ~15 s here) and Autoformer (CPU, the
-    plain versions) serves the live forward's bits; a FEDformer model is
-    refused with the reason named."""
+    plain versions) serves the live forward's bits; a FEDformer model is no
+    longer refused: it exports and serves its live forward's prediction
+    within 1e-5 of the max (``test_torch_fedformer.py`` holds both
+    versions)."""
     from routeformer_torch.flagship import init_weights
     from routeformer_torch.models.gps_backbone import FEDformer, FEDFormerBackboneConfig
     from routeformer_torch.serve import ExportedModel, _eval_forward, export_model
@@ -504,5 +506,9 @@ def test_export_takes_inverseform_and_autoformer_and_refuses_fedformer():
     fed = Routeformer(RouteformerConfig(
         gps_backbone_config=FEDFormerBackboneConfig(**dict(gps, version="Fourier", modes=2)),
         discount_factor={0: 0.97}, epsilon=1.0), gps_backbone=FEDformer)
-    with pytest.raises(NotImplementedError, match="FEDformer"):
-        export_model(fed, {"gps": batch["gps"]})
+    fed.eval()
+    with torch.no_grad():
+        want = fed({"gps": torch.from_numpy(batch["gps"])})[0]
+    got = ExportedModel(export_model(fed, {"gps": batch["gps"]}), _eval_forward(fed)[1])(
+        {"gps": batch["gps"]})
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()

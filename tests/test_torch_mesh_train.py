@@ -15,14 +15,21 @@ Autoformer's training-mode delays and InverseForm's train-mode BatchNorm
 (each rank's rows against the one process's global batch); at (2, 2) with
 FSDP and at (1, 4), the per-unit gathers: the gradients against a gather
 of the whole model (the Routeformer, and a small SwinV2 trained under
-remat), and the gathered bytes a rank holds at once. While the
+remat), and the gathered bytes a rank holds at once; and the split layers
+(the ``model`` axis computing tensor-parallel): each rank's FLOPs in them
+against its one-process twin's on the same rows, the weights they never
+gather whole, a small exact-gelu SwinV2 and an Informer with its distil
+convolution against one process (features and gradients), and at (1, 4)
+the Informer with dropout 0.1 from the same generator state. While the
 ranks run, the parent computes the references: the port's trainer in one
 process on the global batch, and the JAX trainer on the conftest's virtual
 mesh at (2, 2) with FSDP (one JAX mesh: its compile takes a minute; JAX's
 own tests hold its meshes to its one device).
 
 Tolerances: losses, grad norms and eval metrics 1e-5 relative (f32; the
-ranks' sums only reorder the one process's); parameters by
+ranks' sums only reorder the one process's); split layers' features and
+gradients 1e-5 relative to the largest (a row split sums partial
+products in another order); parameters by
 ``test_torch_trainer``'s rule (1e-3 lr where the gradient is firm, else
 2 lr: AdamW moves a gradient that is 0 up to rounding by lr times its
 sign)."""
@@ -215,6 +222,110 @@ def _same(got, want):
     return sorted(got) == sorted(want) and all(torch.equal(got[k], want[k]) for k in want)
 
 
+def _rel(got, want) -> float:
+    """Max absolute difference over the max of ``want``."""
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def _errs(got, want):
+    """Each gradient's max absolute difference over the largest gradient
+    (a gradient that is 0 up to rounding, a key bias's, has no scale of its
+    own), or None where the keys differ."""
+    if sorted(got) != sorted(want):
+        return None
+    scale = max(float(w.abs().max()) for w in want.values())
+    return {k: float((got[k] - want[k]).abs().max()) / scale for k in want}
+
+
+def _probe_loss(out):
+    """``out`` against a fixed random probe. (Not ``out.square().sum()``:
+    through SwinV2's final LayerNorm at weight 1 and bias 0 its gradient
+    cancels to rounding noise, which no reordered sum holds.)"""
+    return (out * torch.randn(out.shape, generator=torch.Generator().manual_seed(5))).sum()
+
+
+def _layer_flops(model, names, fn) -> dict:
+    """The matmul and convolution FLOPs that ``fn`` spends in the forward
+    calls of each layer of ``model`` named in ``names``
+    (``layout.counting_flops``)."""
+    from routeformer_torch.parallel.layout import counting_flops
+
+    with counting_flops(model, names) as counts:
+        fn()
+    return counts
+
+
+def _split_vs_one(make, x, mesh, min_shard, fsdp):
+    """A module laid out on ``mesh`` (its split layers computing on their
+    blocks) against its one-process twin, both from ``make()`` and run on
+    the same input from the same generator state: the output's ``_rel``
+    and each parameter's gradient's error over the twin's largest gradient
+    (a sharded gradient against the twin's cut to this rank's block), and
+    the split layers by kind."""
+    from routeformer_torch.parallel.mesh import MeshParams, spec_block
+
+    one, split = make(), make()
+    layout = MeshParams(split, mesh, min_shard, fsdp)
+    rng = torch.get_rng_state()
+
+    def run(m):
+        torch.set_rng_state(rng)
+        out = m(x)
+        _probe_loss(out).backward()
+        return out.detach()
+
+    want = run(one)
+    with layout.gathered():
+        got = run(split)
+        layout.reduce_grads()
+    errs = {"out": _rel(got, want)}
+    scale = max(float(q.grad.abs().max()) for q in one.parameters() if q.grad is not None)
+    for (n, p), q in zip(split.named_parameters(), one.parameters()):
+        if q.grad is not None:
+            g = spec_block(q.grad, layout.sharded[p], mesh) if p in layout.sharded else q.grad
+            errs[n] = float((p.grad - g).abs().max()) / scale
+    kinds = sorted({(type(layer).__name__, sp.kind, sp.keep) for layer, sp in layout.splits.items()})
+    return {"errs": errs, "kinds": kinds}
+
+
+def _split_informer(dropout):
+    from routeformer_torch.models.gps_backbone import GPSBackboneConfig, Informer
+
+    def make():
+        torch.manual_seed(8)
+        return Informer(GPSBackboneConfig(
+            seq_len=8, label_len=8, pred_len=6, d_model=32, n_heads=4, e_layers=2, d_layers=1,
+            d_ff=64, factor=1000, dropout=dropout, activation="gelu", distil=True, _enc_in=7,
+            _c_out=3)).train()
+
+    return make
+
+
+def _split_swin():
+    from routeformer_torch.models.video_backbone import SwinV2Backbone, TimmBackboneConfig
+
+    torch.manual_seed(9)
+    swin = SwinV2Backbone(TimmBackboneConfig(model_type="swinv2_tiny_test",
+                                             compute_dtype="float32", gelu="exact",
+                                             train_backbone=True)).eval()
+    return swin
+
+
+def _split_checks(mesh, fsdp):
+    """A small exact-gelu SwinV2 (the unfused block: qkv gathered before
+    K2's plain version) at ``min_shard_dim`` 16 and the Informer with its
+    distil convolution at 32 against one process; at (1, 4) the Informer
+    again with dropout 0.1."""
+    frames = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(2))
+    series = torch.randn(3, 8, 7, generator=torch.Generator().manual_seed(3))
+    out = {"swin": _split_vs_one(_split_swin, frames, mesh, 16, fsdp),
+           "informer": _split_vs_one(_split_informer(0.0), series, mesh, MIN_SHARD, fsdp)}
+    if mesh.shape == (1, 4):
+        out["informer_dropout"] = _split_vs_one(_split_informer(0.1), series, mesh, MIN_SHARD,
+                                                fsdp)
+    return out
+
+
 def _unit_checks(arg, shape, fsdp):
     """On one mesh: the Routeformer's first-step gradients and a small
     SwinV2's (``train_backbone`` under remat) from the per-unit gathers
@@ -224,7 +335,7 @@ def _unit_checks(arg, shape, fsdp):
     from routeformer_torch.models.video_backbone import SwinV2Backbone, TimmBackboneConfig
     from routeformer_torch.parallel import make_mesh
     from routeformer_torch.parallel.layout import largest_unit_bytes
-    from routeformer_torch.parallel.mesh import MeshParams
+    from routeformer_torch.parallel.mesh import MeshParams, whole_weights
 
     mesh = make_mesh(*shape, device="cpu")
     trainer = _trainer(_models(arg), arg, mesh, fsdp)
@@ -241,27 +352,62 @@ def _unit_checks(arg, shape, fsdp):
         loss, _ = trainer._loss_fn("routeformer", model, inp, tgt, EPOCHS[0])
         loss.backward()
 
-    rec = {"routeformer_same": _same(_unit_grads(layout, model, step),
+    gathered_over_model = set()
+    gather = layout._gather
+
+    def watched(p, *a, axes=("data", "model"), **k):
+        if "model" in axes and "model" in layout.sharded[p]:
+            gathered_over_model.add(layout._names[p])
+        return gather(p, *a, axes=axes, **k)
+
+    layout._gather = watched
+    rec = {"routeformer_errs": _errs(_unit_grads(layout, model, step),
                                      _whole_gather_grads(layout, model, step))}
-    torch.manual_seed(3)
-    swin = SwinV2Backbone(TimmBackboneConfig(model_type="swinv2_tiny_test",
-                                             compute_dtype="float32", gelu="tanh",
-                                             train_backbone=True, remat=True)).train()
-    swin_layout = MeshParams(swin, mesh, 16, fsdp)
-    frames = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
-    rng_swin = torch.get_rng_state()
+    del layout._gather
+    rec["split_params"] = sorted(layout._names[p] for p in layout.split_params)
+    rec["gathered_over_model"] = sorted(gathered_over_model)
+    names = {n for n, m in model.named_modules() if m in layout.splits}
+    twin = _models(arg)["routeformer"]
 
-    def swin_step():
-        torch.set_rng_state(rng_swin)
-        swin(frames).square().sum().backward()
+    def forward(m):
+        def run():
+            torch.set_rng_state(rng)
+            if shared is not None:
+                shared.manual_seed(7)
+            trainer._loss_fn("routeformer", m, inp, tgt, EPOCHS[0])
+        return run
 
-    rec["swin_same"] = _same(_unit_grads(swin_layout, swin, swin_step),
-                             _whole_gather_grads(swin_layout, swin, swin_step))
+    rec["flops"] = _layer_flops(twin, names, forward(twin))
+    with layout.gathered():
+        rec["split_flops"] = _layer_flops(model, names, forward(model))
+    rec["split"] = _split_checks(mesh, fsdp)
+    # 16: K1's pairs gathered whole beside the split patch merging, all
+    # recomputed under remat; 96: only the pairs' weights shard
+    for min_shard, key in ((16, "swin"), (96, "swin_pairs")):
+        torch.manual_seed(3)
+        swin = SwinV2Backbone(TimmBackboneConfig(model_type="swinv2_tiny_test",
+                                                 compute_dtype="float32", gelu="tanh",
+                                                 train_backbone=True, remat=True)).train()
+        swin_layout = MeshParams(swin, mesh, min_shard, fsdp)
+        frames = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+        rng_swin = torch.get_rng_state()
+
+        def swin_step():
+            torch.set_rng_state(rng_swin)
+            _probe_loss(swin(frames)).backward()
+
+        got = _unit_grads(swin_layout, swin, swin_step)
+        want = _whole_gather_grads(swin_layout, swin, swin_step)
+        rec[f"{key}_errs"], rec[f"{key}_same"] = _errs(got, want), _same(got, want)
+        rec[f"{key}_sharded"] = len(swin_layout.sharded)
+        rec[f"{key}_split"] = sum(  # split layers that compute on their blocks
+            not whole_weights(swin_layout._unit_modules[sp.unit])
+            for sp in swin_layout.splits.values())
+        if key == "swin":
+            rec["swin_high_water"] = swin_layout.high_water
+            rec["swin_largest_unit"] = max(swin_layout.unit_bytes.values())
     rec["vit"] = _vit_unit_checks(arg, mesh, fsdp)
     rec["block_read"] = _block_read_check(mesh, fsdp)
-    rec["swin_sharded"] = len(swin_layout.sharded)
-    rec["swin_high_water"] = swin_layout.high_water
-    rec["swin_largest_unit"] = max(swin_layout.unit_bytes.values())
     layout.reset_high_water()
     trainer.epoch = EPOCHS[0]
     trainer.training_step(batch)
@@ -269,6 +415,8 @@ def _unit_checks(arg, shape, fsdp):
     rec["high_water"] = layout.high_water
     rec["largest_unit"] = largest_unit_bytes(_models(arg)["routeformer"], *shape, fsdp,
                                              MIN_SHARD)
+    rec["largest_unit_unsplit"] = largest_unit_bytes(_models(arg)["routeformer"], *shape, fsdp,
+                                                     MIN_SHARD, split=False)
     rec["whole"] = sum(int(np.prod(s)) * 4 for s in layout.full_shapes.values())
     rec["live_after"] = layout.live_bytes
     return rec
@@ -312,7 +460,7 @@ def _vit_unit_checks(arg, mesh, fsdp):
         loss, _ = trainer._loss_fn("routeformer", model, inp, tgt, EPOCHS[1])
         loss.backward()
 
-    rec = {"same": _same(_unit_grads(layout, model, step),
+    rec = {"errs": _errs(_unit_grads(layout, model, step),
                          _whole_gather_grads(layout, model, step)),
            "sharded": sorted(k for k, p in model.named_parameters() if hasattr(p, "mesh_spec")),
            "resident": sorted(layout.resident)}
@@ -739,30 +887,93 @@ def test_unit_gathers_hold_at_most_the_largest_unit(runs, key):
 @pytest.mark.parametrize("key", list(UNIT_MESHES))
 def test_unit_gathers_give_the_whole_gather_gradients(runs, key):
     """Cut to the rank's ``model`` block before the ``data`` reduction, the
-    per-unit gradients are the bits of the whole-model gather's (each
-    element's sum over at most 2 data shards is one addition either way),
-    for the Routeformer and for a SwinV2 trained under remat (its forward
-    gathers again inside the backward's recomputation)."""
+    per-unit gradients are the whole-model gather's within 1e-5 of the
+    largest gradient, for the Routeformer and for a SwinV2 trained under
+    remat at ``min_shard_dim`` 16 (K1's pairs gathered whole beside its
+    split patch merging; its forward gathers again inside the backward's
+    recomputation): their split layers compute on their blocks, a row
+    split's partial products summed in another order."""
     for r in runs["ranks"]:
         rec = r["units"][key]
-        assert rec["routeformer_same"] and rec["swin_same"], (r["rank"], rec)
-        assert rec["swin_sharded"] >= 8, rec
+        for name in ("routeformer_errs", "swin_errs"):
+            assert rec[name] is not None, (r["rank"], name, rec)
+            assert max(rec[name].values()) <= 1e-5, (r["rank"], name, rec[name])
+        assert rec["swin_sharded"] >= 8 and rec["swin_split"] >= 1, rec
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_unit_gathers_give_whole_pairs_the_whole_gather_bits(runs, key):
+    """Where only K1's pairs shard (the remat SwinV2 at ``min_shard_dim``
+    96: no split layer), the per-unit gradients are the bits of the
+    whole-model gather's (each element's sum over at most 2 data shards is
+    one addition either way)."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]
+        assert rec["swin_pairs_same"], (r["rank"], rec["swin_pairs_errs"])
+        assert rec["swin_pairs_sharded"] >= 8 and rec["swin_pairs_split"] == 0, rec
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_split_layers_compute_their_share_of_the_flops(runs, key):
+    """Each rank's matmul and convolution FLOPs in every split layer of the
+    Routeformer's training forward are exactly 1/n_model of its one-process
+    twin's on the same rows (the layer's backward products take the same
+    blocks)."""
+    n_model = UNIT_MESHES[key][0][1]
+    for r in runs["ranks"]:
+        rec = r["units"][key]
+        want, got = rec["flops"], rec["split_flops"]
+        assert len(want) >= 20 and sum(want.values()) > 0, rec["flops"]
+        assert {n: got[n] * n_model for n in want} == want, (r["rank"], got, want)
+
+
+@pytest.mark.parametrize("key", list(UNIT_MESHES))
+def test_split_weights_are_never_gathered_whole(runs, key):
+    """No split layer's weight is gathered over ``model`` through a step,
+    and the gathered bytes a rank holds at once stay within the largest
+    unit's without the split weights, below that unit's whole bytes."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]
+        assert len(rec["split_params"]) >= 20, rec["split_params"]
+        assert not set(rec["gathered_over_model"]) & set(rec["split_params"]), rec
+        assert rec["high_water"] <= rec["largest_unit"] < rec["largest_unit_unsplit"], rec
+
+
+@pytest.mark.parametrize("key,part", [(k, p) for k in UNIT_MESHES for p in ("swin", "informer")]
+                         + [("tp", "informer_dropout")])
+def test_split_layers_match_one_process(runs, key, part):
+    """A small exact-gelu SwinV2 (qkv column-split and gathered before K2,
+    proj, fc1 -> fc2 kept split, patch merging and the position-bias MLP)
+    and the Informer (its square projections, ff1 -> ff2 kept split, the
+    distil convolution row-split, the token convolutions column-split), on
+    each rank: the output within 1e-5 of the one process's max, every
+    gradient within 1e-5 of its largest gradient; at (1, 4) the Informer again with dropout 0.1 (each kept-split
+    mask the one a single process draws, from the same generator state)."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]["split"][part]
+        kinds = {(k, s) for k, s, _ in rec["kinds"]}
+        assert ("Linear", "column") in kinds and ("Linear", "row") in kinds, rec["kinds"]
+        assert any(keep for _, _, keep in rec["kinds"]), rec["kinds"]
+        if part != "swin":
+            assert ("Conv1d", "row") in kinds and ("Conv1d", "column") in kinds, rec["kinds"]
+        assert max(rec["errs"].values()) <= 1e-5, (r["rank"], part, rec["errs"])
 
 
 @pytest.mark.parametrize("key", list(UNIT_MESHES))
 def test_unit_gathers_reach_weights_read_outside_a_unit_call(runs, key):
     """A ViT Routeformer whose positional embedding and stream embeddings
     are sharded (read in ``encode_frames`` and in the loss's direct
-    ``preprocess_batch``): the per-unit gradients are the bits of the
-    whole-model gather's, and the gathered bytes stay within its largest
-    unit's, the resident embeddings included."""
+    ``preprocess_batch``): the per-unit gradients are the whole-model
+    gather's within 1e-5 of its largest gradient (its blocks' Linear layers
+    split around K4's plain version), and the gathered bytes stay within
+    its largest unit's, the resident embeddings included."""
     for r in runs["ranks"]:
         rec = r["units"][key]["vit"]
         for name in ("video_backbone.pos_embed", "video_backbone.patch_embed.weight",
                      "left_video_embedding", "gaze_video_embedding"):
             assert name in rec["sharded"], (name, rec["sharded"])
         assert rec["resident"] == ["", "video_backbone"], rec
-        assert rec["same"], (r["rank"], rec)
+        assert rec["errs"] is not None and max(rec["errs"].values()) <= 1e-5, (r["rank"], rec)
         assert 0 < rec["high_water"] <= rec["largest_unit"], (r["rank"], rec)
         assert rec["live_after"] == 0, (r["rank"], rec)
 
