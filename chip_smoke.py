@@ -110,7 +110,13 @@ Phases (any failure exits non-zero):
    1e-2 (dropout off, exhaustive); the steady step, the memo's encode and
    gather timed. Each timing line stands beside the card's name and power
    limit.
-7f. The mesh (``parallel/mesh.py``) over NCCL at world size 1 (the card's
+7f. First, in one process, a kept column split's dropout
+   (``mesh.split_dropout``) against one process's ``F.dropout`` from one
+   generator state: ``full_comparison``'s Informer encoder ff1 output at batch 16
+   ((16, 40, 3328), bf16 and f32, p = 0.1) cut into two column blocks and
+   put back together: the same kept positions and the same bits (the f32
+   draw it replaced read beside it). Then the mesh (``parallel/mesh.py``)
+   over NCCL at world size 1 (the card's
    machine has one H100: several cards are held on the CPU over gloo,
    ``tests/test_torch_mesh_train.py``): the driver's flagship at phase 7b's
    settings and batches (``build_models``/``build_data``/``build_trainer``
@@ -142,7 +148,19 @@ Phases (any failure exits non-zero):
    (``counting_flops``), the gathered
    high-water within the largest unit's without the split weights; step
    ms and peak, labelled as two ranks sharing one card over gloo, not a
-   multi-card time.
+   multi-card time. In the same two ranks (``zoo_two_rank``): the
+   Autoformer, FEDformer Fourier and FEDformer Wavelets GPS backbones at
+   the flagship's GPS widths, f32, quiet, one step each of a batch of 16
+   synthetic series on the (1, 2) mesh (their layers split, the data
+   reductions under the backward) against the no-mesh step the parent
+   takes on the card: loss and every gradient within 1e-5 (or twice the
+   no-mesh step's own movement under a one-ulp change of its input, where
+   larger), each split layer's forward FLOPs exactly half, no split weight
+   gathered over ``model``; then FEDformer Fourier on a (2, 1) data mesh
+   over the same processes (8 rows a rank, its replicated gradients
+   all-reduced in buckets under the backward): the same limits and a
+   reduction launched before the backward returned; step ms, peak and the
+   gathered high-water per rank.
 7c. The driver's whole model zoo (``MODEL_SET=full``, the JAX driver's 13
    models, ``ROUTEFORMER_FUSION_KERNEL=1``, batch 16, GEM geometry, full
    width) through ``build_models``/``build_data``/``build_trainer``/
@@ -251,7 +269,10 @@ Phases (any failure exits non-zero):
    peak memory; for the FEDformer variants (``ZOO_CPU_VARIANTS``) the
    batch-1 card forward against the CPU plain forward (``CardVsCpu``,
    PRED_TOL; SwinV2's stage 2 cut to its first pair on both sides), whose
-   CPU references run in a thread beside phase 7h's untimed first part.
+   CPU references run in a thread beside phase 7h's untimed first part;
+   for Autoformer (``ZOO_GPS_CPU_VARIANTS``) its GPS backbone alone, the
+   card's batch-1 forward's backbone input through a CPU copy of the
+   backbone against the card's output (PRED_TOL).
    The FEDformer Fourier variant (``ZOO_EXPORTS``) is
    exported (``export_model``) and reloaded from its bytes: its batch-1
    prediction the live ``ServingModel``'s bits, else within ``EXPORT_TOL``
@@ -2589,6 +2610,69 @@ def same_state(a, b) -> dict:
     return {"same_bits": first is None, "first_param_diff": first}
 
 
+# A kept column split's dropout (``parallel/mesh.py split_dropout``) against
+# one process's on the card: ``full_comparison``'s Informer encoder ff1 output at
+# batch 16 (the kept pair ``encdec.py`` routes through ``feature_dropout``),
+# in bf16 as the flagship runs it and in f32 as the Autoformer layers do,
+# cut into n_model = 2 column blocks.
+DROPOUT_SHAPE = (16, 40, 3328)
+DROPOUT_P = 0.1
+
+
+def f32_split_draw(x, p: float, dim: int, n: int, rank: int):
+    """The kept split's dropout as it was drawn before ``split_dropout``:
+    the whole mask from f32 ones on CUDA, ``x`` times its block, rounded
+    to ``x``'s dtype (a reading only, held to nothing)."""
+    import torch
+    import torch.nn.functional as F
+
+    shape = list(x.shape)
+    shape[dim] *= n
+    noise = F.dropout(torch.ones(shape, dtype=torch.float32, device=x.device), p, True)
+    size = x.shape[dim]
+    return (x * noise.narrow(dim, rank * size, size)).to(x.dtype)
+
+
+def split_dropout_check(smi: str, dev=None) -> dict:
+    """Phase 7f, one process: from one generator state, ``F.dropout`` of
+    the whole activation against the split's draw on each of two column
+    blocks put back together (``split_dropout``; and the f32 draw it
+    replaced, ``f32_split_draw``): the kept positions that differ (where
+    ``x`` is not 0) and whether the outputs are the same bits. The split's
+    draw must give one process's bits."""
+    import torch
+    import torch.nn.functional as F
+
+    from routeformer_torch.parallel.mesh import split_dropout
+
+    dev = torch.device("cuda") if dev is None else dev
+    out = {"shape": list(DROPOUT_SHAPE), "p": DROPOUT_P, "n_model": 2, "smi": smi}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(DROPOUT_SHAPE, generator=torch.Generator().manual_seed(17))
+        x = x.to(dev, dtype)
+        blocks = [b.contiguous() for b in x.chunk(2, dim=-1)]  # a column split's outputs
+        torch.manual_seed(23)
+        state = torch.cuda.get_rng_state() if dev.type == "cuda" else torch.get_rng_state()
+        restore = torch.cuda.set_rng_state if dev.type == "cuda" else torch.set_rng_state
+        one = F.dropout(x, DROPOUT_P, True)
+        rec = {}
+        for label, draw in (("split_dropout", split_dropout), ("f32_draw", f32_split_draw)):
+            parts = []
+            for rank, block in enumerate(blocks):
+                restore(state)
+                parts.append(draw(block, DROPOUT_P, -1, 2, rank))
+            got = torch.cat(parts, dim=-1)
+            differ = ((got != 0) != (one != 0)) & (x != 0)
+            rec[label] = {"kept_share_differs": differ.float().mean().item(),
+                          "same_bits": bool(torch.equal(got, one))}
+        rec["kept_share"] = ((one != 0) | (x == 0)).float().mean().item()
+        out[str(dtype).removeprefix("torch.")] = rec
+        assert rec["split_dropout"]["same_bits"], (dtype, rec)
+        assert rec["split_dropout"]["kept_share_differs"] == 0.0, (dtype, rec)
+    log(f"{smi}: mesh phase split dropout vs one process: {json.dumps(out)}")
+    return out
+
+
 def mesh_phase(results: dict, smi: str, dev=None, env=None) -> dict:
     """Phase 7f. Returns K1-K4's launches per mesh step (both variants).
     (``dev`` the CPU and ``env`` DEBUG widths rehearse it over gloo.)"""
@@ -2602,6 +2686,7 @@ def mesh_phase(results: dict, smi: str, dev=None, env=None) -> dict:
 
     dev = torch.device("cuda") if dev is None else dev
     t0 = time.perf_counter()
+    results["split_dropout"] = split_dropout_check(smi, dev)
     set_fusion("1")
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -2741,6 +2826,220 @@ def mesh_pair_bits(s, dev, mesh, fsdp: bool, train) -> bool:
 # smoke's time, ~33 s).
 TWO_RANK_MESH = (1, 2)
 TWO_RANK_TIMEOUT_S = 400
+# After the flagship, in the same two ranks: the zoo's GPS backbones at the
+# flagship's GPS widths (d832, 8 heads, e6/d1, d_ff 3328; FEDformer's 32
+# modes, the Wavelets blocks' c 128, k 8), f32, quiet, one step each of a
+# batch of 16 synthetic GPS-and-feature series (a mean squared error
+# against a synthetic target) on the (1, 2) mesh against the no-mesh step
+# the parent takes on the card; then FEDformer Fourier on the same two
+# processes as a (2, 1) data mesh (8 rows a rank, every parameter
+# replicated: its gradients reduced in buckets during the backward). No
+# FSDP on the card: gloo stages the CUDA collectives through the host, and
+# the CPU tests hold FSDP.
+TWO_RANK_MIN_SHARD = 512  # full_comparison's min_shard_dim
+TWO_RANK_ZOO = ("Autoformer", "FEDformer-Fourier", "FEDformer-Wavelets")
+TWO_RANK_DATA_MESH = (2, 1)
+TWO_RANK_DATA_ZOO = "FEDformer-Fourier"
+TWO_RANK_ZOO_BATCH = 16
+ZOO_MESH_TOL = 1e-5  # f32: loss relative, each gradient over the largest gradient
+# The no-mesh step's own movement under a relative one-ulp (2^-23) change of
+# its input (a witness, as phase 7's bf16 limit): a backbone whose step
+# moves more than ZOO_MESH_TOL / 2 under it is held to twice its movement.
+ZOO_WITNESS_NOISE = 2.0 ** -23
+ZOO_MESH_DIR = ROOT / "build" / "smoke_two_rank_zoo"
+
+
+def zoo_backbone(name: str, dev, over=None):
+    """``(backbone, config)``: a GPS backbone of ``TWO_RANK_ZOO`` at the
+    flagship's GPS widths (``over``: fields replaced, for a rehearsal at
+    small widths), seeded weights, train mode with every dropout rate 0,
+    f32 on ``dev``."""
+    import torch
+
+    from routeformer_torch.flagship import GPS_VARIANTS, init_weights, variant_config
+
+    cfg = variant_config(gps=name).gps_backbone_config
+    for k, v in (over or {}).items():
+        setattr(cfg, k, v)
+    model = GPS_VARIANTS[name][0](cfg)
+    init_weights(model, seed=3)
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    return model.to(dev).train(), cfg
+
+
+def zoo_inputs(cfg) -> tuple:
+    """A batch of synthetic series and targets (numpy, f32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(9)
+    b = TWO_RANK_ZOO_BATCH
+    return (rng.standard_normal((b, cfg.seq_len, cfg.enc_in), dtype=np.float32),
+            rng.standard_normal((b, cfg.pred_len, cfg.c_out), dtype=np.float32))
+
+
+def zoo_reference(dev, over=None) -> dict:
+    """The parent's no-mesh step of each ``TWO_RANK_ZOO`` backbone: its
+    loss, every splittable layer's forward FLOPs, the largest gradient and
+    the gradients saved under ``ZOO_MESH_DIR`` (each rank reads its blocks
+    through a memory map); the step again on its input moved by a relative
+    ``ZOO_WITNESS_NOISE`` (the witness: loss and gradient movement) and the
+    limits that gives; the inputs and settings the ranks take."""
+    import torch
+
+    from routeformer_torch.parallel.layout import counting_flops
+
+    shutil.rmtree(ZOO_MESH_DIR, ignore_errors=True)
+    ZOO_MESH_DIR.mkdir(parents=True)
+    arg = {"over": over, "inputs": {}, "grads": {}, "scale": {}, "loss": {}, "flops": {},
+           "ms": {}, "witness": {}, "limit": {}}
+    for name in TWO_RANK_ZOO:
+        model, cfg = zoo_backbone(name, dev, over)
+        x, tgt = zoo_inputs(cfg)
+        arg["inputs"][name] = (x, tgt)
+        x, tgt = torch.from_numpy(x).to(dev), torch.from_numpy(tgt).to(dev)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        with counting_flops(model) as flops:
+            loss = ((model(x) - tgt) ** 2).mean()
+        loss.backward()
+        synchronize(dev)
+        arg["ms"][name] = 1e3 * (time.perf_counter() - t0)
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                 if p.grad is not None}
+        arg["scale"][name] = scale = max(g.abs().max().item() for g in grads.values())
+        arg["loss"][name] = loss.item()
+        arg["flops"][name] = dict(flops)
+        arg["grads"][name] = str(ZOO_MESH_DIR / f"{name}.pt")
+        torch.save(grads, arg["grads"][name])
+        model.zero_grad(set_to_none=True)
+        noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(0)).to(dev)
+        moved = ((model(x * (1 + ZOO_WITNESS_NOISE * noise)) - tgt) ** 2).mean()
+        moved.backward()
+        w = {"loss_rel": abs(moved.item() - loss.item()) / abs(loss.item()),
+             "grad_rel": max((p.grad.detach().cpu() - grads[n]).abs().max().item()
+                             for n, p in model.named_parameters() if n in grads) / scale}
+        arg["witness"][name] = w
+        arg["limit"][name] = {k: max(ZOO_MESH_TOL, 2 * v) for k, v in w.items()}
+        del model, grads, loss, moved
+        if dev.type == "cuda":
+            free_device()
+    return arg
+
+
+def zoo_mesh_step(name: str, dev, mesh, arg: dict, min_shard_dim: int) -> dict:
+    """One rank's step of a zoo backbone on ``mesh`` (this rank's rows of
+    the batch; the gradients reduced over ``data`` during the backward):
+    the loss (the data shards' mean), each gradient's error over the
+    reference's largest (this rank's blocks against the saved whole
+    gradients), each split layer's forward FLOPs, the sharded weights
+    gathered over ``model``, the data reductions launched before the
+    backward returned, step ms, peak and the gathered high-water."""
+    import torch
+
+    from routeformer_torch.parallel.layout import counting_flops
+    from routeformer_torch.parallel.mesh import (
+        DATA_AXIS,
+        MODEL_AXIS,
+        MeshParams,
+        mean_over_data,
+        row_block,
+        spec_block,
+    )
+
+    model, _ = zoo_backbone(name, dev, arg["over"])
+    layout = MeshParams(model, mesh, min_shard_dim, False)
+    rows = row_block(TWO_RANK_ZOO_BATCH, mesh)
+    x, tgt = (torch.from_numpy(a[rows]).to(dev) for a in arg["inputs"][name])
+    names = {m: n for n, m in model.named_modules()}
+    split = sorted(names[layer] for layer in layout.splits)
+    over_model = set()
+    gather = layout._gather
+
+    def watched(p, *a, axes=(DATA_AXIS, MODEL_AXIS), **k):
+        if MODEL_AXIS in axes and MODEL_AXIS in layout.sharded[p]:
+            over_model.add(layout._names[p])
+        return gather(p, *a, axes=axes, **k)
+
+    layout._gather = watched
+    if dev.type == "cuda":
+        reset_peak()
+    synchronize(dev)
+    t0 = time.perf_counter()
+    with layout.gathered():
+        with counting_flops(model, set(split)) as flops:
+            loss = ((model(x) - tgt) ** 2).mean()
+        loss.backward()
+        launched = layout.launched_in_backward
+        layout.reduce_grads()
+    synchronize(dev)
+    ms = 1e3 * (time.perf_counter() - t0)
+    del layout._gather
+    loss = mean_over_data({"loss": loss.detach()}, mesh)["loss"].item()
+    ref = torch.load(arg["grads"][name], mmap=True)
+    errs = {}
+    for n, p in model.named_parameters():
+        want = ref.get(n)
+        if want is None:
+            assert p.grad is None, n
+            continue
+        if p in layout.sharded:
+            want = spec_block(want, layout.sharded[p], mesh)
+        errs[n] = (p.grad.detach().cpu() - want).abs().max().item() / arg["scale"][name]
+    worst = max(errs, key=errs.get)
+    return {"mesh": list(mesh.shape), "loss": loss, "loss_rel": abs(loss - arg["loss"][name])
+            / abs(arg["loss"][name]), "grad_rel": errs[worst], "worst_grad": worst,
+            "split_layers": len(split), "flops": {k: flops[k] for k in split},
+            "kinds": sorted({f"{type(layer).__name__} {sp.kind}"
+                             for layer, sp in layout.splits.items()}),
+            "split_params": len(layout.split_params), "gathered_over_model": sorted(over_model),
+            "launched_in_backward": launched, "step_ms": ms,
+            "peak_gib": peak_gib() if dev.type == "cuda" else None,
+            "high_water_bytes": layout.high_water}
+
+
+def zoo_two_rank(dev, mesh, arg: dict, min_shard_dim: int) -> dict:
+    """The zoo's part of a rank's two-rank run: each ``TWO_RANK_ZOO``
+    backbone on ``mesh`` ((1, 2)), then ``TWO_RANK_DATA_ZOO`` on a
+    ``TWO_RANK_DATA_MESH`` over the same processes."""
+    from routeformer_torch.parallel import make_mesh
+
+    out = {}
+    for name in TWO_RANK_ZOO:
+        t0 = time.perf_counter()
+        out[name] = zoo_mesh_step(name, dev, mesh, arg, min_shard_dim)
+        out[name]["seconds"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            free_device()
+    t0 = time.perf_counter()
+    data_mesh = make_mesh(*TWO_RANK_DATA_MESH, device=dev)
+    out["data_mesh"] = zoo_mesh_step(TWO_RANK_DATA_ZOO, dev, data_mesh, arg, min_shard_dim)
+    out["data_mesh"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_zoo_two_rank(ranks: list, arg: dict) -> None:
+    """Each rank's zoo steps against the parent's no-mesh steps: loss and
+    gradients within ``ZOO_MESH_TOL``, or twice the no-mesh step's own
+    movement under a one-ulp change of its input where that is larger
+    (``zoo_reference``); on the (1, 2) mesh every split
+    layer's forward FLOPs exactly half the no-mesh step's and no split
+    weight gathered over ``model``; on the (2, 1) mesh a data reduction
+    launched before the backward returned."""
+    for r in ranks:
+        for name, rec in r["zoo"].items():
+            key = TWO_RANK_DATA_ZOO if name == "data_mesh" else name
+            limit = arg["limit"][key]
+            assert rec["loss_rel"] <= limit["loss_rel"] and rec["grad_rel"] <= limit["grad_rel"], \
+                (r["rank"], name, limit, rec)
+            if name == "data_mesh":
+                assert rec["launched_in_backward"] > 0 and rec["split_layers"] == 0, rec
+                continue
+            want = arg["flops"][key]
+            assert rec["split_layers"] >= 20 and not rec["gathered_over_model"], (name, rec)
+            assert {k: 2 * v for k, v in rec["flops"].items()} == \
+                {k: want[k] for k in rec["flops"]}, (r["rank"], name, rec["flops"])
 
 
 def two_rank(rank: int, n: int, arg=None) -> dict:
@@ -2786,6 +3085,11 @@ def two_rank(rank: int, n: int, arg=None) -> dict:
            "peak_gib": peak_gib(), "built_s": built_s, "seconds": time.perf_counter() - t0}
     if rank == 0:
         out["rows"], out["step"] = first.rows, first.step
+    del trainer, model, layout, first
+    free_device()
+    t1 = time.perf_counter()
+    out["zoo"] = zoo_two_rank(dev, mesh, arg, TWO_RANK_MIN_SHARD)
+    out["zoo_seconds"] = time.perf_counter() - t1
     return out
 
 
@@ -2813,8 +3117,10 @@ def two_rank_phase(results: dict, smi: str) -> None:
            "loss": [x.item() for x in want["loss"]], "step_ms": want["ms"]}
     del trainer, record, want
     free_device()
+    zoo = zoo_reference(torch.device("cuda"))
+    free_device()
     reference_s = time.perf_counter() - t0
-    ranks = launch("chip_smoke:two_rank", TWO_RANK_MESH[0] * TWO_RANK_MESH[1],
+    ranks = launch("chip_smoke:two_rank", TWO_RANK_MESH[0] * TWO_RANK_MESH[1], arg=zoo,
                    timeout_s=TWO_RANK_TIMEOUT_S, pg_timeout_s=300, pythonpath=[ROOT])
     first = ranks[0]
     gap = step_gap({"loss": first["loss"][0], **first.pop("step")},
@@ -2824,9 +3130,13 @@ def two_rank_phase(results: dict, smi: str) -> None:
            "first_step_gap": gap, "first_difference": first_difference_of(
                first.pop("rows"), ref["rows"]),
            "loss": first["loss"], "want_loss": ref["loss"], "no_mesh_step_ms": ref["step_ms"],
-           "ranks": ranks, "reference_s": reference_s, "seconds": time.perf_counter() - t0}
+           "ranks": ranks, "reference_s": reference_s, "seconds": time.perf_counter() - t0,
+           "zoo_no_mesh": {k: {"loss": zoo["loss"][k], "step_ms": zoo["ms"][k],
+                               "witness": zoo["witness"][k], "limit": zoo["limit"][k]}
+                           for k in TWO_RANK_ZOO}}
     log(f"{smi}: mesh phase two ranks (1, 2) on one card over gloo: {json.dumps(out)}")
     results["mesh_two_rank"] = out
+    check_zoo_two_rank(ranks, zoo)
     assert gap["loss_rel"] <= STEP_LOSS_TOL and gap["grad_rel"] <= STEP_TOLS["bf16"] and \
         gap["firm_update_lr"] <= 0.1 and gap["update_share_differs"] <= STEP_UPDATE_SHARE, out
     for r in ranks:
@@ -4269,6 +4579,10 @@ ZOO_EXPORTS = ("FEDformer-Fourier",)
 # forward (phase 7g; SwinV2's stage 2 cut to its first pair on both sides):
 # FEDformer's, whose spectral products are written in real arithmetic.
 ZOO_CPU_VARIANTS = ("FEDformer-Fourier", "FEDformer-Wavelets")
+# The variants whose GPS backbone alone is held against the CPU on the
+# card's own backbone input (``gps_on_the_cards_input``, as PatchTST's
+# witness; no CPU SwinV2 forward).
+ZOO_GPS_CPU_VARIANTS = ("Autoformer",)
 # InverseForm reads its frames raw, at their own size (the SwinV2 variants
 # resize every frame to 256), so its variant runs on frames at the driver's
 # real GEM geometry, phase 7d's scaled sizes, in the loader's uint8
@@ -4344,6 +4658,8 @@ def zoo_remainder(results: dict, smi: str):
                "build_s": time.perf_counter() - t0}
         if gps in ZOO_CPU_VARIANTS:  # the CPU copy runs 8 of SwinV2's 24 blocks, as the card's
             card_cpu.card(name, model, depth=1, batch=request)
+        if gps in ZOO_GPS_CPU_VARIANTS:
+            rec["gps_card_vs_cpu"] = gps_on_the_cards_input(model, request)
         serving = rt.ServingModel(model, torch.device("cuda"))
         reset_counts()  # the variant's serving path: counts from 0 just before
         pred, dense = serving(request)
@@ -4394,6 +4710,40 @@ def zoo_remainder(results: dict, smi: str):
     card_cpu.start()
     results["zoo"] = out
     return card_cpu, launches
+
+
+def gps_on_the_cards_input(model, batch: dict) -> dict:
+    """The card's batch-1 eval forward of ``batch``'s first clip (moved to
+    its last fix, ``CardVsCpu._one``) with its GPS backbone's input and
+    output captured, and the backbone rebuilt on the CPU from the same
+    weights on that input: max|diff|/max|cpu| of the backbone's output,
+    within ``PRED_TOL``."""
+    import torch
+
+    seen = {}
+
+    def capture(_module, args, out):
+        seen["x"], seen["y"] = args[0].detach().float().cpu(), out.detach().float().cpu()
+
+    gps = model.gps_backbone
+    was_training = model.training
+    model.eval()
+    handle = gps.register_forward_hook(capture)
+    try:
+        with torch.inference_mode():
+            model(place_numpy(CardVsCpu._one(batch)))
+    finally:
+        handle.remove()
+        model.train(was_training)
+    cpu = type(gps)(model.configs.gps_backbone_config)
+    cpu.load_state_dict({k: v.cpu() for k, v in gps.state_dict().items()})
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu.eval()(seen["x"])
+    rec = {"gps_backbone_vs_cpu": rel_err(seen["y"], want), "cpu_s": time.perf_counter() - t0,
+           "input_shape": list(seen["x"].shape)}
+    assert rec["gps_backbone_vs_cpu"] <= PRED_TOL, rec
+    return rec
 
 
 def zoo_export(model, serving, batch: dict) -> dict:

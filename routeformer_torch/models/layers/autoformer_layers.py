@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from routeformer_torch.models.layers.encdec import LN_EPS
+from routeformer_torch.models.layers.encdec import LN_EPS, feature_dropout
 from routeformer_torch.ops.attention import autocorrelation_attention
 
 
@@ -129,7 +129,9 @@ class AutoformerEncoderLayer(nn.Module):
     """Progressive-decomposition encoder layer."""
 
     mesh_gather_unit = True  # a mesh gathers the layer's weights together
-    mesh_whole_weights = True  # and computes it unsplit (no split of its layers yet)
+    # ff1's output reaches ff2 through elementwise ops only: on a mesh it
+    # stays split over ``model`` between the two
+    mesh_split_pairs = (("ff1", "ff2"),)
 
     def __init__(self, attention: nn.Module, d_model: int, d_ff: Optional[int] = None,
                  moving_avg: Union[int, List[int]] = 25, dropout: float = 0.1,
@@ -147,7 +149,7 @@ class AutoformerEncoderLayer(nn.Module):
     def forward(self, x, attn_mask=None):
         new_x, attn = self.attention(x, x, x, attn_mask=attn_mask)
         x, _ = self.decomp1(x + self.dropout(new_x))
-        y = self.dropout(self.activation(self.ff1(x)))
+        y = feature_dropout(self.dropout, self.activation(self.ff1(x)), self.ff1)
         y = self.dropout(self.ff2(y))
         res, _ = self.decomp2(x + y)
         return res, attn
@@ -173,7 +175,7 @@ class AutoformerDecoderLayer(nn.Module):
     """Decoder layer accumulating a trend stream."""
 
     mesh_gather_unit = True  # a mesh gathers the layer's weights together
-    mesh_whole_weights = True  # and computes it unsplit (no split of its layers yet)
+    mesh_split_pairs = (("ff1", "ff2"),)  # as AutoformerEncoderLayer's
 
     def __init__(self, self_attention: nn.Module, cross_attention: nn.Module, d_model: int,
                  c_out: int, d_ff: Optional[int] = None,
@@ -190,6 +192,8 @@ class AutoformerDecoderLayer(nn.Module):
         self.decomp3 = make_decomp(moving_avg)
         self.dropout = nn.Dropout(dropout)
         # circular kernel-3 conv projecting the trend to the output channels
+        # (on a mesh a row split over d_model: it slices the padded (B, C, L)
+        # input's channels)
         self.projection = nn.Conv1d(d_model, c_out, 3, bias=False)
         self.activation = _activation(activation)
 
@@ -198,7 +202,7 @@ class AutoformerDecoderLayer(nn.Module):
         x, trend1 = self.decomp1(x)
         x = x + self.dropout(self.cross_attention(x, cross, cross, attn_mask=cross_mask)[0])
         x, trend2 = self.decomp2(x)
-        y = self.dropout(self.activation(self.ff1(x)))
+        y = feature_dropout(self.dropout, self.activation(self.ff1(x)), self.ff1)
         y = self.dropout(self.ff2(y))
         x, trend3 = self.decomp3(x + y)
         trend = F.pad((trend1 + trend2 + trend3).transpose(1, 2), (1, 1), mode="circular")

@@ -234,11 +234,12 @@ class _Filters(nn.Module):
 
 
 def _modes_first(w_real: torch.Tensor, w_imag: torch.Tensor) -> torch.Tensor:
-    """``(d, d, alpha)`` real and imaginary weights as one ``(alpha, d,
-    2d)``, mode first: the real, then the imaginary outputs."""
-    d, _, alpha = w_real.shape
+    """``(d_in, d_out, alpha)`` real and imaginary weights as one
+    ``(alpha, d_in, 2 d_out)``, mode first: the real, then the imaginary
+    outputs."""
+    d_in, d_out, alpha = w_real.shape
     w = torch.stack((w_real.permute(2, 0, 1), w_imag.permute(2, 0, 1)), dim=2)
-    return w.reshape(alpha, d, 2 * d)
+    return w.reshape(alpha, d_in, 2 * d_out)
 
 
 def _product_table(n: int, m: int, dtype, device) -> torch.Tensor:
@@ -252,7 +253,15 @@ def _product_table(n: int, m: int, dtype, device) -> torch.Tensor:
 
 
 class SparseKernelFT1d(nn.Module):
-    """Frequency-domain linear operator on the lowest ``alpha`` modes."""
+    """Frequency-domain linear operator on the lowest ``alpha`` modes.
+
+    On a mesh the structural rule splits the square ``(d, d, alpha)``
+    weights over ``model`` along their first dim (its tie-break), the input
+    channels: a row split (``parallel/mesh.py``), computed by
+    ``mesh_split_forward``."""
+
+    mesh_split_weights = ("w_real", "w_imag")
+    mesh_channel_dims = (0, None)  # (input, output) channels: a row split only
 
     def __init__(self, k: int, alpha: int, c: int = 1):
         super().__init__()
@@ -266,17 +275,32 @@ class SparseKernelFT1d(nn.Module):
     def forward(self, xs: list) -> list:
         """The operator on each level ``(B, N, c, k)`` of ``xs``."""
         w = weight_cache.derived("sparse_kernel_ft", _modes_first, self.w_real, self.w_imag)
-        return [self._level(x, w) for x in xs]
+        return [self._level(x.flatten(2), w).view(x.shape) for x in xs]
 
-    def _level(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-        b, n, c, k = x.shape
-        d, m = c * k, min(self.modes, n // 2 + 1)
+    def mesh_split_forward(self, split, xs: list) -> list:
+        """``forward`` on this rank's block of the input channels: their
+        DFT and their product with the weights' block, the partial products
+        summed over ``model`` in f32 and cut to this rank's output channels
+        (``split.scatter_sum``), their inverse DFT, the outputs gathered. So
+        a rank does 1/n_model of each of the three products."""
+        w = _modes_first(*split.blocks())
+        return [split.gather(self._level(split.take_input(x.flatten(2), -1), w,
+                                         split.scatter_sum), -1).view(x.shape) for x in xs]
+
+    def _level(self, x: torch.Tensor, w: torch.Tensor, reduce=None) -> torch.Tensor:
+        """One level ``(B, N, d_in)`` through ``w`` (``_modes_first``) to
+        ``(B, N, d_out)``; ``reduce(products, dim)`` takes the products
+        before the inverse DFT (their output channels on ``dim``)."""
+        b, n, d = x.shape
+        m = min(self.modes, n // 2 + 1)
         fwd = _tables(n, m, x.dtype, x.device)[0]  # (n, 2m)
-        spec = fwd.t() @ x.reshape(b, n, d)  # (B, 2m, d): the parts, then the modes
+        spec = fwd.t() @ x  # (B, 2m, d): the parts, then the modes
         spec = spec.unflatten(1, (2, m)).permute(2, 1, 0, 3).reshape(m, 2 * b, d)
-        prod = torch.bmm(spec, w[:m]).view(m, 2, b, 2, d)  # the four real products
-        prod = prod.permute(2, 1, 3, 0, 4).reshape(b, 4 * m, d)
-        return (_product_table(n, m, x.dtype, x.device).t() @ prod).reshape(b, n, c, k)
+        prod = torch.bmm(spec, w[:m]).view(m, 2, b, 2, -1)  # the four real products
+        if reduce is not None:
+            prod = reduce(prod, -1)
+        prod = prod.permute(2, 1, 3, 0, 4).reshape(b, 4 * m, prod.shape[-1])
+        return _product_table(n, m, x.dtype, x.device).t() @ prod
 
 
 class MWT_CZ1d(_Filters):

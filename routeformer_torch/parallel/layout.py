@@ -1,6 +1,8 @@
 """Parameter and AdamW bytes per rank under the structural rule, and what
 the ``model`` axis's split leaves gathered and computed per rank, for the
-driver's flagship at full width (built on the meta device, no weights).
+driver's flagship at full width and for the Autoformer, FEDformer Fourier
+and FEDformer Wavelets GPS backbones at the flagship's GPS widths (built on
+the meta device, no weights).
 
     python -m routeformer_torch.parallel.layout [n_data n_model]
 
@@ -16,10 +18,11 @@ one unit at a time and never a split weight whole) and with them
 against all the sharded weights whole (``sharded_whole_bytes``, what a
 whole-model gather would hold); the split weights' whole bytes, never
 gathered (``split_whole_bytes``); and each rank's share of the model's
-Linear and convolution FLOPs in an eval forward at batch 16 on the
-driver's synthetic GEM batch (``rank_flop_share``: a split layer's FLOPs
-over ``n_model`` ranks, every layer's rows over ``n_data``; counted by
-``counting_flops`` on the meta device).
+Linear, convolution and spectral-operator FLOPs in an eval forward at
+batch 16 (the flagship on ``full_comparison``'s synthetic GEM batch, a GPS backbone
+on series of its config's length; ``rank_flop_share``: a split layer's
+FLOPs over ``n_model`` ranks, every layer's rows over ``n_data``; counted
+by ``counting_flops`` on the meta device).
 """
 
 import contextlib
@@ -95,11 +98,15 @@ def split_whole_bytes(module, n_data: int, n_model: int, fsdp: bool,
 def counting_flops(model, names=None):
     """Yields ``{layer name: FLOPs}``, filled while the body runs: the
     matmul and convolution FLOPs (``torch.utils.flop_counter``'s formulas)
-    spent in the forward calls of each ``nn.Linear`` and ``nn.Conv1d/2d``
-    of ``model`` (those in ``names``, else every one). A backward runs
+    spent in the forward calls of each ``nn.Conv2d`` and each layer the
+    ``model`` axis can split (``mesh.split_weights``: ``nn.Linear``,
+    ``nn.Conv1d``, ``SparseKernelFT1d``) of ``model`` (those in ``names``,
+    else every one). A backward runs
     outside the layers' calls and is not counted."""
     import torch.nn as nn
     from torch.utils._python_dispatch import TorchDispatchMode
+
+    from routeformer_torch.parallel.mesh import split_weights
     from torch.utils.flop_counter import flop_registry
 
     counts, current, handles = {}, [], []
@@ -122,7 +129,7 @@ def counting_flops(model, names=None):
         current.pop()
 
     for name, m in model.named_modules():
-        if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
+        if isinstance(m, nn.Conv2d) or split_weights(m) is not None:
             mine = name if names is None or name in names else None
             if mine is not None:
                 counts[mine] = 0
@@ -162,14 +169,23 @@ def rank_flop_share(module, flops: dict, n_data: int, n_model: int, fsdp: bool,
     """One rank's share of ``flops`` (``layer_flops``): each layer's rows
     over the ``n_data`` data shards, a split layer's products over the
     ``n_model`` model ranks too."""
-    from routeformer_torch.parallel.mesh import gather_units, module_specs, split_block_bytes
+    from routeformer_torch.parallel.mesh import (
+        gather_units,
+        module_specs,
+        split_block_bytes,
+        split_weights,
+    )
 
     specs = module_specs(module, n_model, min_shard_dim, n_data if fsdp else 1)
     units = gather_units(module, {p for name, p in module.named_parameters() if specs[name]})
     split = {id(p) for p in split_block_bytes(module, specs, units, n_model)}
     modules = dict(module.named_modules())
-    mine = sum(f / n_data / (n_model if id(modules[n].weight) in split else 1)
-               for n, f in flops.items())
+
+    def is_split(m):
+        found = split_weights(m)
+        return found is not None and id(getattr(m, found[0][0])) in split
+
+    mine = sum(f / n_data / (n_model if is_split(modules[n]) else 1) for n, f in flops.items())
     return mine / sum(flops.values())
 
 
@@ -185,14 +201,47 @@ def flagships() -> dict:
         return {fc.FLAGSHIP: Routeformer(config)}
 
 
+# The GPS backbones whose layers split since the Autoformer layers left the
+# whole-weight units (``flagship.GPS_VARIANTS``).
+ZOO_GPS = ("Autoformer", "FEDformer-Fourier", "FEDformer-Wavelets")
+
+
+def gps_backbones() -> dict:
+    """``{name: (backbone, its config)}``: ``ZOO_GPS`` at the flagship's
+    GPS widths (d832, 8 heads, e6/d1, d_ff 3328; FEDformer's 32 modes,
+    the Wavelets blocks' c 128, k 8) on the meta device."""
+    from routeformer_torch.flagship import GPS_VARIANTS, variant_config
+
+    out = {}
+    for name in ZOO_GPS:
+        cfg = variant_config(gps=name).gps_backbone_config
+        with torch.device("meta"):
+            out[name] = (GPS_VARIANTS[name][0](cfg), cfg)
+    return out
+
+
+def gps_layer_flops(model, cfg, batch_size: int = 16) -> dict:
+    """``{layer name: FLOPs}`` of a GPS backbone's Linear, convolution and
+    spectral layers (``counting_flops``) in one eval forward of a batch of
+    ``batch_size`` series of the config's length and channels (on the meta
+    device)."""
+    x = torch.empty(batch_size, cfg.seq_len, cfg.enc_in, device="meta")
+    model = model.to("meta").eval()  # the buffers built from numpy too
+    with torch.no_grad(), counting_flops(model) as counts:
+        model(x)
+    return counts
+
+
 MESHES = ((2, 2), (1, 4))
 
 
 def table(meshes=MESHES) -> dict:
+    models = {name: (model, layer_flops(model)) for name, model in flagships().items()}
+    models.update({name: (model, gps_layer_flops(model, cfg))
+                   for name, (model, cfg) in gps_backbones().items()})
     out = {}
-    for name, model in flagships().items():
+    for name, (model, flops) in models.items():
         whole = sum(p.numel() * 4 for p in model.parameters())
-        flops = layer_flops(model)
         row = {"params_bytes": whole, "linear_conv_flops_batch16": sum(flops.values())}
         for n_data, n_model in meshes:
             for fsdp in (False, True):

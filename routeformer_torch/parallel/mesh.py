@@ -20,15 +20,18 @@ caller asks for the CPU, and the ranks form a
   The ``model`` axis is tensor parallelism, as GSPMD partitions the JAX
   package's sharded matmuls: an ``nn.Linear`` or ``nn.Conv1d`` whose weight
   splits over ``model`` along a channel dim (``split_layers``) computes on
-  this rank's block and is never gathered whole. A *column* split (the
-  output channels) computes this rank's output columns, all-gathered
-  along the feature dim unless the layer's output reaches a row-split
-  layer through elementwise ops only (``mesh_split_pairs``: an FFN's
-  ``ff1 -> activation -> dropout -> ff2``); a *row* split (the input
-  channels) computes a partial product on this rank's input channels,
-  summed over ``model``, its bias added once after the sum. The conjugate
-  autograd functions (identity one way, a sum over ``model`` the other)
-  keep every rank's gradients those of one process.
+  this rank's block and is never gathered whole; so does FEDformer's
+  ``SparseKernelFT1d``, whose spectral weights split over their input
+  channels (``split_weights``: a class's ``mesh_split_forward``). A
+  *column* split (the output channels) computes this rank's output
+  columns, all-gathered along the feature dim unless the layer's output
+  reaches a row-split layer through elementwise ops only
+  (``mesh_split_pairs``: an FFN's ``ff1 -> activation -> dropout ->
+  ff2``, the Informer's, PatchTST's and the Autoformer layers'); a *row*
+  split (the input channels) computes a partial product on this rank's
+  input channels, summed over ``model``, its bias added once after the
+  sum. The conjugate autograd functions (identity one way, a sum over
+  ``model`` the other) keep every rank's gradients those of one process.
   Every other sharded weight is gathered whole one *unit* at a time: the
   module a kernel or a layer consumes whole (a SwinV2 block pair, a ViT
   block, a whole Perceive stack, an encoder or decoder layer: classes
@@ -36,9 +39,8 @@ caller asks for the CPU, and the ranks form a
   parameter), just before the unit runs, released when it returns, and
   gathered again when the backward needs them (``MeshParams.gathered``).
   A unit that hands its whole weights to a kernel (``mesh_whole_weights``:
-  K1's tanh SwinV2 pairs, K3a/K3b's fused Perceive stacks; also the
-  Autoformer and FEDformer layers, not split yet) gathers its split
-  layers' weights too, as GSPMD cannot partition a ``pallas_call``.
+  K1's tanh SwinV2 pairs, K3a/K3b's fused Perceive stacks) gathers its
+  split layers' weights too, as GSPMD cannot partition a ``pallas_call``.
   A module with children that owns a sharded parameter itself (a ViT's
   positional embedding, the Routeformer's stream embeddings) is read
   outside its own call too, so its weights stay gathered for the whole
@@ -46,8 +48,12 @@ caller asks for the CPU, and the ranks form a
   A gathered weight's gradient is cut to the rank's ``model`` block, a
   split weight's is that block from the start; both are then reduced over
   ``data`` (a reduce-scatter along the dim FSDP split, else an all-reduce
-  of the block). Under FSDP a split weight is gathered over ``data`` only,
-  up to this rank's ``model`` block, just before its layer runs.
+  of the block), and the replicated gradients in buckets, each reduction
+  launched during the backward once its gradient is complete, in one
+  order on every rank, as GSPMD places each reduction in the backward
+  (``MeshParams.gathered``). Under FSDP a split weight is gathered over
+  ``data`` only, up to this rank's ``model`` block, just before its layer
+  runs.
 
 FSDP2's ``fully_shard`` places one sharded dim per parameter over one mesh
 (HSDP: replicate over one dim, shard over the other), while the rule under
@@ -62,6 +68,7 @@ passes unchanged.
 
 import contextlib
 import datetime
+import math
 import os
 import re
 import weakref
@@ -80,6 +87,7 @@ from routeformer_torch.utils.device import DeviceLike, resolve_device
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DEFAULT_TIMEOUT_S = 1800.0
+BUCKET_BYTES = 25 * 2 ** 20  # a bucket of replicated gradients, as DDP's default
 
 
 def init_distributed(device: DeviceLike = None,
@@ -377,6 +385,19 @@ def _all_gather_cat(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
 _SPLIT_TYPES = (nn.Linear, nn.Conv1d)
 
 
+def split_weights(m: nn.Module) -> Optional[tuple]:
+    """``(weight names, input-channel dim, output-channel dim)`` of a layer
+    the ``model`` axis can split, else None: an ``nn.Linear`` or
+    ``nn.Conv1d`` (``weight``; outputs torch dim 0, inputs dim 1), or a
+    class that declares ``mesh_split_weights`` and ``mesh_channel_dims``
+    and computes on its blocks in ``mesh_split_forward(split, *args)``
+    (``SparseKernelFT1d``; an output dim of None: no column split)."""
+    if isinstance(m, _SPLIT_TYPES):
+        return ("weight",), 1, 0
+    names = getattr(type(m), "mesh_split_weights", None)
+    return None if names is None else (names, *type(m).mesh_channel_dims)
+
+
 def whole_weights(module: nn.Module) -> bool:
     """Whether ``module`` hands its whole weights to a kernel now (its
     class's ``mesh_whole_weights``, a flag or a method): a unit that does
@@ -386,20 +407,33 @@ def whole_weights(module: nn.Module) -> bool:
 
 
 def split_layers(module: nn.Module, specs: Dict[str, tuple]) -> Dict[str, str]:
-    """``{layer name: "column" | "row"}``: every ``nn.Linear`` and
-    ``nn.Conv1d`` of a module tree whose weight ``specs`` (``{parameter
-    name: spec}``) shards over ``model`` along a channel dim (torch dim 0,
-    the outputs: a column split; dim 1, the inputs: a row split). Whether a
-    layer computes split at a call also depends on its unit
-    (``whole_weights``)."""
+    """``{layer name: "column" | "row"}``: every layer of a module tree
+    (``split_weights``) whose weight ``specs`` (``{parameter name: spec}``)
+    shards over ``model`` along a channel dim (the outputs: a column split;
+    the inputs: a row split). Whether a layer computes split at a call also
+    depends on its unit (``whole_weights``)."""
     out = {}
     for name, m in module.named_modules():
-        if isinstance(m, _SPLIT_TYPES):
-            spec = specs.get(f"{name}.weight" if name else "weight", ())
-            if spec and spec[0] == MODEL_AXIS:
-                out[name] = "column"
-            elif spec and spec[1] == MODEL_AXIS:
-                out[name] = "row"
+        found = split_weights(m)
+        if found is None:
+            continue
+        names, d_in, d_out = found
+        spec = specs.get(f"{name}.{names[0]}" if name else names[0], ())
+        if spec and d_out is not None and spec[d_out] == MODEL_AXIS:
+            out[name] = "column"
+        elif spec and spec[d_in] == MODEL_AXIS:
+            out[name] = "row"
+    return out
+
+
+def split_params(layer: nn.Module, kind: str, specs_of) -> list:
+    """The parameters a split layer computes on as blocks: its split
+    weights, and a column split's bias where the rule shards it alike (a
+    scan's stacked bias). ``specs_of(parameter)`` gives a parameter's spec."""
+    out = [getattr(layer, n) for n in split_weights(layer)[0]]
+    bias = layer.bias if isinstance(layer, _SPLIT_TYPES) else None
+    if kind == "column" and bias is not None and specs_of(bias) == (MODEL_AXIS,):
+        out.append(bias)
     return out
 
 
@@ -517,12 +551,7 @@ def split_block_bytes(module: nn.Module, specs: Dict[str, tuple], units: Dict[st
     unit_of = {p: u for u, owners in units.items() for _, _, p in owners}
     out = {}
     for name, kind in split_layers(module, specs).items():
-        layer = modules[name]
-        params = [layer.weight]
-        if kind == "column" and layer.bias is not None and \
-                specs.get(names.get(layer.bias)) == (MODEL_AXIS,):
-            params.append(layer.bias)
-        for p in params:
+        for p in split_params(modules[name], kind, lambda q: specs.get(names.get(q))):
             if not whole_weights(modules[unit_of[p]]):
                 nbytes = p.numel() * p.element_size() // n_model
                 out[p] = nbytes if DATA_AXIS in specs[names[p]] else 0
@@ -632,16 +661,27 @@ class _Block(torch.Tensor):
             "inside a module call of its unit (parallel/mesh.py, gather_units).")
 
 
-class _Slot:
-    """One gather of one parameter under autograd: its gradient's arrival
-    and the backward's re-gather (over ``axes``), cached from the first
-    unpack of the weight to the arrival of its gradient (every consumer of
-    the weight has run its backward by then)."""
+def _in_backward() -> bool:
+    """Whether this thread runs a backward now (a remat's recomputation)."""
+    return torch._C._current_graph_task_id() != -1
 
-    __slots__ = ("layout", "param", "axes", "regathered")
+
+class _Slot:
+    """One use of one sharded parameter under autograd (a gather, or a
+    split layer's block): its gradient's arrival and the backward's
+    re-gather (over ``axes``), cached from the first unpack of the weight
+    to the arrival of its gradient (every consumer of the weight has run
+    its backward by then). ``counted``: a use of the forward, whose arrival
+    ``MeshParams`` waits for (a remat's recomputation inside the backward
+    makes uses whose gradients never arrive)."""
+
+    __slots__ = ("layout", "param", "axes", "regathered", "counted")
 
     def __init__(self, layout, param, axes=(DATA_AXIS, MODEL_AXIS)):
         self.layout, self.param, self.axes, self.regathered = layout, param, axes, None
+        self.counted = not _in_backward()
+        if self.counted:
+            layout._used(param)
 
     def regather(self) -> torch.Tensor:
         if self.regathered is None:
@@ -663,7 +703,7 @@ class _GatherGrad(torch.autograd.Function):
     def backward(ctx, grad):
         slot = ctx.slot
         slot.regathered = None
-        slot.layout._grad_arrived(slot.param, grad)
+        slot.layout._grad_arrived(slot.param, grad, slot.counted)
         return None, None, None
 
 
@@ -678,31 +718,56 @@ class _Packed:
         self.size, self.stride, self.offset = t.size(), t.stride(), t.storage_offset()
 
 
+def split_dropout(x: torch.Tensor, p: float, dim: int, n: int, rank: int) -> torch.Tensor:
+    """``F.dropout(whole, p)`` cut to block ``rank`` of ``n`` along ``dim``,
+    where ``x`` is that block of ``whole``: the mask is drawn on the whole
+    shape in ``x``'s dtype, so it is the draw one process makes (the fused
+    CUDA kernel's draw order depends on the dtype it is given, through its
+    vector width), and applied as that process's dropout does: on the CPU
+    ``x`` times the noise, in ``x``'s dtype; on CUDA ``x`` times the kept
+    mask times the f32 scale ``1 / (1 - p)``, rounded once, as the fused
+    kernel computes it."""
+    shape = list(x.shape)
+    shape[dim] *= n
+    noise = F.dropout(torch.ones(shape, dtype=x.dtype, device=x.device), p, True)
+    size = x.shape[dim]
+    noise = noise.narrow(dim, rank * size, size)
+    if x.device.type == "cpu":
+        return x * noise
+    # the kernel's scale: 1 / (the keep probability as f32), in f64, to f32
+    scale = 1.0 / float(np.float32(1.0 - p))
+    return (x.float() * (noise != 0) * scale).to(x.dtype)
+
+
 class _Split:
     """A split layer under ``MeshParams.gathered``: its ``forward`` stands
     in for the layer's own while the body runs. A column split computes
     this rank's output channels (all-gathered unless ``keep``: then a
     row-split layer takes them through elementwise ops only); a row split
     this rank's input channels' partial product, summed over ``model``,
-    the bias added after the sum. In a unit gathered whole for a kernel
+    the bias added after the sum. A class with ``mesh_split_forward``
+    computes on its blocks itself, through ``blocks``, ``take_input``,
+    ``scatter_sum`` and ``gather``. In a unit gathered whole for a kernel
     (``whole_weights``) the layer runs its own forward on the whole
     weights."""
 
     def __init__(self, layout, layer: nn.Module, kind: str, unit: str):
         self.layout, self.layer, self.kind, self.unit = layout, layer, kind, unit
-        self.weight = layer.weight
+        names, d_in, _ = split_weights(layer)
+        self._params = split_params(layer, kind, layout.sharded.get)
+        self.weights = self._params[:len(names)]
+        self.weight = self.weights[0]
+        self.in_channels = self.weight.shape[d_in]  # whole: read before the blocks are cut
         self.dim = -1 if isinstance(layer, nn.Linear) else 1  # the channels of x and y
-        bias = layer.bias
         # a column split's bias that the rule shards alike (a scan's stacked
         # bias): this rank's block, never gathered
-        self.bias_block = (bias if kind == "column" and bias is not None
-                           and layout.sharded.get(bias) == (MODEL_AXIS,) else None)
+        self.bias_block = self._params[len(names)] if len(self._params) > len(names) else None
         self.keep = False
         self.group = layout.mesh.get_group(MODEL_AXIS)
         self.n, self.rank = layout.n_model, layout.mesh.get_local_rank(MODEL_AXIS)
 
     def params(self) -> list:
-        return [self.weight] + ([self.bias_block] if self.bias_block is not None else [])
+        return list(self._params)
 
     def split_now(self) -> bool:
         return self.unit not in self.layout._whole
@@ -711,10 +776,14 @@ class _Split:
         """Whether the layer's output is this rank's columns only now."""
         return self.keep and self.split_now()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, *args):
         layer, layout = self.layer, self.layout
         if not self.split_now():
-            return type(layer).forward(layer, x)
+            return type(layer).forward(layer, *args)
+        custom = getattr(type(layer), "mesh_split_forward", None)
+        if custom is not None:
+            return custom(layer, self, *args)
+        (x,) = args
         dt = getattr(layer, "compute_dtype", None)
         w = layout._block(self.weight, dt)
         if self.kind == "column":
@@ -728,13 +797,8 @@ class _Split:
             y = self._apply(x, w, b, dt)
             if self.keep:
                 return y
-            return _GatherFeatures.apply(y, self.dim, self.group, self.n, self.rank)
-        full = w.shape[1] * self.n
-        if x.shape[self.dim] == full:
-            x = _SliceFeatures.apply(x, self.dim, self.group, self.n, self.rank)
-        elif x.shape[self.dim] != w.shape[1]:
-            raise ValueError(f"row-split {type(layer).__name__} takes {full} input channels "
-                             f"or this rank's {w.shape[1]}, got {tuple(x.shape)}")
+            return self.gather(y, self.dim)
+        x = self.take_input(x, self.dim)
         # the partial products are summed in their compute dtype, as GSPMD
         # reduces a bf16 product: a bf16 row split rounds one sum more
         y = _SumOverModel.apply(self._apply(x, w, None, dt), self.group)
@@ -751,26 +815,44 @@ class _Split:
             b = None if b is None else b.to(dt)
         return F.linear(x, w, b)
 
+    def blocks(self) -> list:
+        """This rank's blocks of the split weights, as the layer computes
+        with them (``MeshParams._block``)."""
+        return [self.layout._block(w) for w in self.weights]
+
+    def take_input(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """A row split's input channels (``dim``): this rank's block of a
+        whole input, or this rank's channels already."""
+        size = self.in_channels // self.n
+        if x.shape[dim] == self.in_channels:
+            return _SliceFeatures.apply(x, dim, self.group, self.n, self.rank)
+        if x.shape[dim] != size:
+            raise ValueError(f"row-split {type(self.layer).__name__} takes {self.in_channels} "
+                             f"input channels or this rank's {size}, got {tuple(x.shape)}")
+        return x
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block of ``dim`` of the sum over ``model`` of the
+        ranks' partial products, summed in their dtype (a reduce-scatter,
+        written as an all-reduce and a cut; the backward all-gathers the
+        blocks' gradients)."""
+        return _SliceFeatures.apply(_SumOverModel.apply(x, self.group), dim, self.group,
+                                    self.n, self.rank)
+
+    def gather(self, y: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ``model`` ranks' blocks of ``dim`` of ``y`` concatenated."""
+        return _GatherFeatures.apply(y, dim, self.group, self.n, self.rank)
+
     def dropout(self, module: nn.Dropout, x: torch.Tensor) -> torch.Tensor:
         """``module(x)`` on this layer's output (through elementwise ops).
         Where that output is this rank's columns only, the mask is drawn on
         the whole activation from the generator every ``model`` rank of a
-        data shard shares, and cut to this rank's columns: the ranks agree
-        on it, and it has the single process's distribution. On the CPU it
-        is the very mask a single process draws (the tests hold that); on
-        CUDA it is not in general, since the fused dropout kernel's draw
-        order depends on the tensor it is given (its dtype and vector
-        width)."""
+        data shard shares, and cut to this rank's columns
+        (``split_dropout``): the ranks agree on it, and it is the mask and
+        the product one process's dropout makes."""
         if not (self.kept() and module.training and module.p > 0.0):
             return module(x)
-        shape = list(x.shape)
-        shape[self.dim] *= self.n
-        # on CUDA an f32 draw: its scale times x rounds as the fused kernel's
-        # own product does
-        dtype = x.dtype if x.device.type == "cpu" else torch.float32
-        noise = F.dropout(torch.ones(shape, dtype=dtype, device=x.device), module.p, True)
-        size = x.shape[self.dim]
-        return (x * noise.narrow(self.dim, self.rank * size, size)).to(x.dtype)
+        return split_dropout(x, module.p, self.dim, self.n, self.rank)
 
 
 class MeshParams:
@@ -789,7 +871,16 @@ class MeshParams:
     ``unit_bytes`` is each unit's gathered bytes (split layers' weights
     counted only where FSDP gathers their blocks over ``data``), and
     ``live_bytes`` / ``high_water`` count the gathered weights alive at
-    once on this rank (``reset_high_water`` starts a new count)."""
+    once on this rank (``reset_high_water`` starts a new count).
+
+    Gradients are reduced over ``data`` during the backward, as GSPMD
+    places each reduction in the backward that computes its gradient
+    (``gathered``; ``reduce_grads`` waits for them and flushes the rest).
+    ``unit_grad_bytes`` is each unit's data-whole gradient bytes (its
+    FSDP-sharded parameters' ``model`` blocks, whole over ``data`` until
+    their reduce-scatter), and ``grad_live_bytes`` / ``grad_high_water``
+    count those alive at once; a new one that would take the count past the
+    largest unit's waits for the reductions in flight first."""
 
     def __init__(self, module: nn.Module, mesh, min_shard_dim: int = 512,
                  fsdp: bool = False):
@@ -811,7 +902,8 @@ class MeshParams:
         self.splits = {}
         for name, kind in split_layers(module, self.specs).items():
             layer = modules[name]
-            self.splits[layer] = _Split(self, layer, kind, unit_of[layer.weight])
+            first = getattr(layer, split_weights(layer)[0][0])
+            self.splits[layer] = _Split(self, layer, kind, unit_of[first])
         for m in modules.values():
             for a, b in getattr(type(m), "mesh_split_pairs", ()):
                 first, second = self.splits.get(getattr(m, a)), self.splits.get(getattr(m, b))
@@ -828,13 +920,28 @@ class MeshParams:
             self.full_shapes[p] = tuple(p.shape)
             p.data = spec_block(p.data, spec, mesh).clone()
             p.mesh_spec = spec
+        self.unit_grad_bytes = {u: sum(
+            math.prod(self.full_shapes[p]) * p.element_size()
+            // (self.n_model if MODEL_AXIS in sharded[p] else 1)
+            for p in {id(p): p for _, _, p in owners}.values() if DATA_AXIS in sharded[p])
+            for u, owners in self.units.items()}
+        self._grad_cap = max(self.unit_grad_bytes.values(), default=0)
+        # the replicated parameters, and each module's own, in module order
+        self._replicated = [p for p in module.parameters() if p not in sharded]
+        self._owned = {m: [p for p in m._parameters.values()
+                           if p is not None and p not in sharded]
+                       for m in modules.values()}
+        self._owned = {m: ps for m, ps in self._owned.items() if ps}
         self.live_bytes = self.high_water = 0
+        self.grad_live_bytes = self.grad_high_water = 0
+        self.launched_in_backward = 0  # the last step's reductions launched under its backward
+        self._new_step()
         self._storages = {}  # storage address -> (weak ref to the gathered weight, slot, param, axes)
-        self._pending: Dict[nn.Parameter, torch.Tensor] = {}
         self._idle: Dict[nn.Parameter, torch.Tensor] = {}  # what a module holds between calls
 
     def reset_high_water(self) -> None:
         self.high_water = self.live_bytes
+        self.grad_high_water = self.grad_live_bytes
 
     # -- gathers ----------------------------------------------------------- #
 
@@ -873,12 +980,20 @@ class MeshParams:
             slot = _Slot(self, p, (DATA_AXIS,)) if recording else None
             w = self._gather(p, slot, axes=(DATA_AXIS,))
             if recording:
-                w = _GatherGrad.apply(p, w, slot)
+                w = self._gather_grad(p, w, slot)
         elif recording:
-            w = _GatherGrad.apply(p, p.detach(), _Slot(self, p))
+            w = self._gather_grad(p, p.detach(), _Slot(self, p))
         else:
             w = p if dtype is None else derived("mesh_split", lambda t: t.to(dtype), p)
         return w if dtype is None else w.to(dtype)
+
+    def _gather_grad(self, p: nn.Parameter, full: torch.Tensor, slot: _Slot) -> torch.Tensor:
+        """``full`` as a function of ``p`` (``_GatherGrad``); a use of the
+        forward keeps its node, so the backward can tell whether it runs."""
+        out = _GatherGrad.apply(p, full, slot)
+        if slot.counted:
+            self._nodes.append((p, out.grad_fn))
+        return out
 
     def _enter(self, unit: str) -> None:
         """The unit's whole weights in place of its blocks (its split
@@ -896,7 +1011,7 @@ class MeshParams:
             if p not in fulls:
                 if torch.is_grad_enabled() and p.requires_grad:
                     slot = _Slot(self, p)
-                    fulls[p] = _GatherGrad.apply(p, self._gather(p, slot, packed), slot)
+                    fulls[p] = self._gather_grad(p, self._gather(p, slot, packed), slot)
                 else:
                     fulls[p] = self._gather(p, packed=packed)
             m._parameters[k] = fulls[p]
@@ -945,15 +1060,34 @@ class MeshParams:
         (``resident_units``) are gathered once for the whole body. Between
         its unit's calls a module holds a ``_Block`` in place of the
         weight, so a read outside the unit raises. A gathered weight's
-        gradient is cut to this rank's ``model`` block as it arrives;
-        ``reduce_grads``, after the backward, reduces the blocks over the
-        data shards."""
-        if not self.sharded:
+        gradient is cut to this rank's ``model`` block as it arrives.
+
+        With several data shards, each gradient is reduced over them during
+        the backward (``_advance``): a sharded parameter's once every use
+        the forward made of it has sent its gradient, a replicated one's in
+        buckets of about ``BUCKET_BYTES`` once autograd has accumulated each
+        of theirs (``register_post_accumulate_grad_hook``). Every rank starts
+        these collectives in one order, the reverse of the forward's first
+        uses (a sharded parameter at its first use, a replicated one at its
+        module's first call; a bucket takes its place where it fills), and
+        launches one only when it and every one before it are ready, so
+        the order is the same on every rank whatever order the backward's
+        threads finish in. ``reduce_grads``, after the backward, launches
+        what is left in that order and waits for all."""
+        reducing = torch.is_grad_enabled() and self.n_data > 1
+        if not self.sharded and not reducing:
             yield
             return
-        self._pending = {}
+        self._new_step()
+        self.launched_in_backward = 0
         handles = []
         try:
+            if reducing:  # the replicated gradients' order and completion
+                for m, params in self._owned.items():
+                    handles.append(m.register_forward_pre_hook(
+                        lambda _m, _a, params=params: self._record(params)))
+                handles += [p.register_post_accumulate_grad_hook(self._accumulated)
+                            for p in self._replicated if p.requires_grad]
             for layer, split in self.splits.items():
                 layer.forward, layer.mesh_split = split.forward, split
             for unit, module in self._unit_modules.items():
@@ -978,10 +1112,99 @@ class MeshParams:
                 layer.__dict__.pop("forward", None)
                 layer.__dict__.pop("mesh_split", None)
 
-    def _grad_arrived(self, p: nn.Parameter, grad: torch.Tensor) -> None:
-        """The gradient of one gather or one split block: a whole weight's
-        is cut to this rank's ``model`` block (a split layer's is that block
-        already), then summed with the earlier ones of the step."""
+    # -- the data reduction ------------------------------------------------- #
+
+    def _new_step(self) -> None:
+        self._pending: Dict[nn.Parameter, torch.Tensor] = {}
+        self._uses: Dict[nn.Parameter, int] = {}
+        self._arrived: Dict[nn.Parameter, int] = {}
+        self._nodes: list = []  # (sharded parameter, its use's node) of the forward
+        self._order: dict = {}  # parameters in the order of their first use (keys)
+        self._accumulated_grads: set = set()  # replicated parameters autograd is done with
+        self._reductions: Optional[list] = None
+        self._next = 0
+        self._in_flight: list = []
+
+    def _used(self, p: nn.Parameter) -> None:
+        """A use of sharded ``p`` in the forward (a ``_Slot``)."""
+        self._uses[p] = self._uses.get(p, 0) + 1
+        self._order.setdefault(p)
+
+    def _record(self, params: list) -> None:
+        """A module's first call in the forward places its own replicated
+        parameters that take a gradient."""
+        if torch.is_grad_enabled() and not _in_backward():
+            for p in params:
+                if p.requires_grad:
+                    self._order.setdefault(p)
+
+    def _accumulated(self, p: nn.Parameter) -> None:
+        self._accumulated_grads.add(p)
+        self._advance()
+
+    def _plan(self) -> list:
+        """The step's reductions in launch order: each sharded parameter
+        alone, the replicated ones in buckets by dtype, placed where each
+        fills (or at the end), over the reverse of the first uses. Made at
+        the backward's first event, where the engine knows which nodes it
+        will run: a use whose output does not reach the loss (FEDformer's
+        Fourier blocks read the queries only, not the keys' and values'
+        projections) sends no gradient and is not waited for, nor is a
+        replicated parameter that gets none."""
+        if _in_backward():
+            will_run = torch._C._will_engine_execute_node
+            for p, node in self._nodes:
+                if not will_run(node):
+                    self._uses[p] -= 1
+            for p in self._order:
+                if p not in self.sharded and \
+                        not will_run(torch.autograd.graph.get_gradient_edge(p).node):
+                    self._accumulated_grads.add(p)
+        out, open_buckets = [], {}
+        for p in reversed(self._order):
+            if p in self.sharded:
+                out.append(("sharded", [p]))
+            elif self.n_data > 1:
+                bucket = open_buckets.setdefault(p.dtype, ("bucket", []))
+                bucket[1].append(p)
+                if sum(q.numel() * q.element_size() for q in bucket[1]) >= BUCKET_BYTES:
+                    out.append(open_buckets.pop(p.dtype))
+        return out + list(open_buckets.values())
+
+    def _ready(self, reduction) -> bool:
+        kind, params = reduction
+        if kind == "bucket":
+            return all(p in self._accumulated_grads for p in params)
+        p = params[0]
+        return self._arrived.get(p, 0) == self._uses[p]
+
+    def _advance(self) -> None:
+        """Launch the reductions that are ready, in order, up to the first
+        that is not."""
+        if self._reductions is None:
+            self._reductions = self._plan()
+        while self._next < len(self._reductions) and self._ready(self._reductions[self._next]):
+            self._launch(self._reductions[self._next])
+            self._next += 1
+            self.launched_in_backward += 1
+
+    def _launch(self, reduction) -> None:
+        kind, params = reduction
+        if kind == "sharded":
+            g = self._pending.pop(params[0], None)
+            if g is not None:
+                self._reduce_sharded(params[0], g)
+            return
+        grads = [p.grad for p in params if p.grad is not None]
+        if grads:
+            self._reduce_replicated(grads)
+
+    def _grad_arrived(self, p: nn.Parameter, grad: torch.Tensor, counted: bool) -> None:
+        """The gradient of one use of a sharded parameter (a gather or a
+        split block): a whole weight's is cut to this rank's ``model`` block
+        (a split layer's is that block already), then summed with the
+        earlier ones of the step; its reduction is launched when it is
+        complete (``_advance``)."""
         spec = self.sharded[p]
         if MODEL_AXIS in spec:
             d = spec.index(MODEL_AXIS)
@@ -989,33 +1212,100 @@ class MeshParams:
             if grad.shape[d] != size:
                 grad = grad.narrow(d, self.mesh.get_local_rank(MODEL_AXIS) * size, size).clone()
         have = self._pending.get(p)
-        self._pending[p] = grad if have is None else have + grad
+        if have is None:
+            if DATA_AXIS in spec:
+                self._hold(grad.numel() * grad.element_size())
+            self._pending[p] = grad
+        else:
+            self._pending[p] = have + grad
+        if counted:
+            self._arrived[p] = self._arrived.get(p, 0) + 1
+        self._advance()
+
+    def _hold(self, nbytes: int) -> None:
+        """Count a new data-whole gradient; first wait for the reductions in
+        flight where it would take the count past the largest unit's."""
+        if self._in_flight and self.grad_live_bytes + nbytes > self._grad_cap:
+            self._wait()
+        self.grad_live_bytes += nbytes
+        self.grad_high_water = max(self.grad_high_water, self.grad_live_bytes)
+
+    def _reduce_sharded(self, p: nn.Parameter, g: torch.Tensor) -> None:
+        """The mean over the data shards of ``p``'s ``model`` block: a
+        reduce-scatter along the dim FSDP split over ``data``, else an
+        all-reduce of the block (asynchronous), accumulated into ``.grad``
+        when it is waited for."""
+        spec = self.sharded[p]
+        nbytes = g.numel() * g.element_size() if DATA_AXIS in spec else 0
+        if self.n_data == 1:
+            self._write(p, g)
+            return
+        group = self.mesh.get_group(DATA_AXIS)
+        if DATA_AXIS in spec:
+            d = spec.index(DATA_AXIS)
+            whole = g.movedim(d, 0).contiguous()
+            out = whole.new_empty((whole.shape[0] // self.n_data,) + whole.shape[1:])
+            work = dist.reduce_scatter_tensor(out, whole, group=group, async_op=True)
+            self._in_flight.append((work, lambda: self._write(p, out.movedim(0, d) / self.n_data),
+                                    nbytes, whole))
+        else:
+            g = g.contiguous()
+            work = dist.all_reduce(g, group=group, async_op=True)
+            self._in_flight.append((work, lambda: self._write(p, g / self.n_data), nbytes, g))
+
+    @staticmethod
+    def _write(p: nn.Parameter, g: torch.Tensor) -> None:
+        g = g.contiguous()
+        p.grad = g if p.grad is None else p.grad + g
+
+    def _reduce_replicated(self, grads: list) -> None:
+        """The data-shard mean of replicated gradients, in one flat
+        all-reduce (asynchronous), copied back when it is waited for."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        work = dist.all_reduce(flat, group=self.mesh.get_group(DATA_AXIS), async_op=True)
+
+        def finish():
+            flat.div_(self.n_data)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+        self._in_flight.append((work, finish, 0, flat))
+
+    def _wait(self) -> None:
+        for work, finish, nbytes, _ in self._in_flight:
+            work.wait()
+            finish()
+            self.grad_live_bytes -= nbytes
+        self._in_flight = []
 
     def reduce_grads(self) -> None:
-        """After the backward: each sharded parameter's gradient is the mean
-        over the data shards of its ``model`` block (a reduce-scatter along
-        the dim FSDP split over ``data``, else an all-reduce of the block),
-        accumulated into ``.grad``. A weight no gradient reached (the same
-        on every rank) keeps ``.grad``."""
-        pending, self._pending = self._pending, {}
-        group = self.mesh.get_group(DATA_AXIS)
-        for p, spec in self.sharded.items():  # the same order on every rank
-            g = pending.get(p)
-            if g is None:
-                continue
-            if self.n_data > 1:
-                if DATA_AXIS in spec:
-                    d = spec.index(DATA_AXIS)
-                    whole = g.movedim(d, 0).contiguous()
-                    out = whole.new_empty((whole.shape[0] // self.n_data,) + whole.shape[1:])
-                    dist.reduce_scatter_tensor(out, whole, group=group)
-                    g = out.movedim(0, d)
-                else:
-                    g = g.contiguous()
-                    dist.all_reduce(g, group=group)
-                g = g / self.n_data
-            g = g.contiguous()
-            p.grad = g if p.grad is None else p.grad + g
+        """After the backward: launch the reductions the backward did not
+        (in the step's order; then any sharded gradient left, in parameter
+        order, and the replicated ones outside a bucket, one flat all-reduce
+        per dtype), and wait for all. Each sharded parameter's ``.grad``
+        accumulates the mean over the data shards of its ``model`` block,
+        each replicated one's ``.grad`` becomes the mean. A gradient no
+        rank's backward reached (the same on every rank) is left out."""
+        if self._reductions is None:
+            self._reductions = self._plan()
+        for reduction in self._reductions[self._next:]:
+            self._launch(reduction)
+        for p in self.sharded:  # the same order on every rank
+            g = self._pending.pop(p, None)
+            if g is not None:
+                self._reduce_sharded(p, g)
+        if self.n_data > 1:
+            bucketed = {p for kind, ps in self._reductions if kind == "bucket" for p in ps}
+            by_dtype: Dict[torch.dtype, list] = {}
+            for p in self._replicated:
+                if p.grad is not None and p not in bucketed:
+                    by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            for grads in by_dtype.values():
+                self._reduce_replicated(grads)
+        self._wait()
+        self._new_step()
 
     def full_state_dict(self, module: nn.Module) -> Dict[str, torch.Tensor]:
         """``module.state_dict()`` with every sharded parameter gathered
@@ -1038,28 +1328,6 @@ def shard_params(module: nn.Module, mesh, min_shard_dim: int = 512,
     """Lay ``module``'s parameters out on ``mesh`` by the structural rule
     (the JAX package's ``shard_params``): its ``MeshParams``."""
     return MeshParams(module, mesh, min_shard_dim, fsdp)
-
-
-def replicated_grads_mean(params, mesh) -> None:
-    """The data-shard mean of the gradients of the parameters ``MeshParams``
-    replicates, in one flat all-reduce per dtype (a parameter without a
-    gradient, the same on every rank, is left out)."""
-    n_data = mesh.size(0)
-    if n_data == 1:
-        return
-    grads = [p.grad for p in params if p.grad is not None and not hasattr(p, "mesh_spec")]
-    by_dtype: Dict[torch.dtype, list] = {}
-    for g in grads:
-        by_dtype.setdefault(g.dtype, []).append(g)
-    group = mesh.get_group(DATA_AXIS)
-    for gs in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in gs])
-        dist.all_reduce(flat, group=group)
-        flat /= n_data
-        offset = 0
-        for g in gs:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
 
 
 def global_norm(params, norms, mesh) -> torch.Tensor:

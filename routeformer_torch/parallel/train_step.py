@@ -54,11 +54,10 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable, m
             device = next(model.parameters()).device
             input_batch = meshlib.shard_batch(input_batch, mesh, device)
             target_batch = meshlib.shard_batch(target_batch, mesh, device)
-            with layout.gathered():
+            with layout.gathered():  # the data reductions run under the backward
                 loss, metrics = loss_fn(model, input_batch, target_batch, epoch)
                 loss.backward()
                 layout.reduce_grads()
-            meshlib.replicated_grads_mean(optimizer.params, mesh)
         metrics = dict(metrics)
         metrics["total_loss"] = loss.detach()
         if layout is not None:

@@ -34,8 +34,8 @@ its row block of every batch (numpy leaves are global, tensors are its rows
 already: a mesh loader's or the mesh memo's), every model's parameters are
 laid out by the structural rule (``parallel.mesh.MeshParams``; ``fsdp``
 also over ``data``) and gathered one unit at a time through its forward
-and backward, the gradients and reported losses are the data shards'
-means, and one clipped
+and backward, the gradients (reduced during each model's backward) and
+reported losses are the data shards' means, and one clipped
 AdamW step over the blocks follows (the clip's norm is the whole
 gradient's). With several data shards the per-batch decisions and the
 training key samples come from a generator shared by every rank, the
@@ -225,8 +225,6 @@ class ParallelTrainer:
                 metrics[f"train_{k}_{name}"] = v.detach()
         metrics["train_total_loss"] = total
         if self.mesh is not None:
-            if self.optimizer is not None:
-                meshlib.replicated_grads_mean(self.optimizer.params, self.mesh)
             metrics = meshlib.mean_over_data(metrics, self.mesh)
         if self.optimizer is not None:
             self.grad_norm = self.optimizer.step().detach()

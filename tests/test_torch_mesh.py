@@ -137,6 +137,91 @@ def test_flagship_layout_matches_jax(model, fsdp):
                 assert size >= MIN_SHARD
 
 
+def _zoo_gps_pair(name):
+    """A GPS backbone of the zoo at the flagship's GPS widths: the JAX
+    package's flat parameter shapes (``nnx.eval_shape``) and the port's on
+    the meta device (``layout.gps_backbones``)."""
+    import dataclasses
+
+    from flax import nnx
+
+    from routeformer_torch.parallel.layout import gps_backbones
+    from routeformer_tpu.models.gps_backbone.autoformer import Autoformer as JaxAutoformer
+    from routeformer_tpu.models.gps_backbone.config import FEDFormerBackboneConfig as JaxFED
+    from routeformer_tpu.models.gps_backbone.config import GPSBackboneConfig as JaxGPS
+    from routeformer_tpu.models.gps_backbone.fedformer import FEDformer as JaxFEDformer
+
+    port, cfg = gps_backbones()[name]
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg) if f.init}
+    fields.update(_enc_in=cfg.enc_in, _c_out=cfg.c_out)
+    if name == "Autoformer":
+        build = lambda: JaxAutoformer(JaxGPS(**fields), rngs=nnx.Rngs(0, dropout=1))  # noqa: E731
+    else:
+        build = lambda: JaxFEDformer(JaxFED(**fields), rngs=nnx.Rngs(0, dropout=1))  # noqa: E731
+    return _jax_flat(build), port
+
+
+# The split of the zoo's layers at the flagship's GPS widths (d832, d_ff
+# 3328; the Wavelets blocks' c k = 1024): layer -> kind.
+ZOO_KINDS = {
+    "encoder.attn_layers.0.attention.query_projection": "row",  # square: the tie-break
+    "encoder.attn_layers.0.attention.out_projection": "row",
+    "encoder.attn_layers.0.ff1": "column",
+    "encoder.attn_layers.0.ff2": "row",
+    "decoder.layers.0.cross_attention.value_projection": "row",
+    "decoder.layers.0.projection": "row",  # the circular trend convolution, over d_model
+}
+WAVELET_KINDS = {
+    "encoder.attn_layers.0.attention.inner.Lk0": "column",
+    "encoder.attn_layers.0.attention.inner.Lk1": "row",
+    "encoder.attn_layers.0.attention.inner.mwt_cz.0.A": "row",  # SparseKernelFT1d
+    # the cross block's c k = 512 < 832: the model dim is the larger
+    "decoder.layers.0.cross_attention.inner.Lq": "row",
+    "decoder.layers.0.cross_attention.inner.out": "column",
+}
+
+
+@pytest.mark.parametrize("fsdp", [False, True], ids=["tp", "tp+fsdp"])
+@pytest.mark.parametrize("model", ["Autoformer", "FEDformer-Wavelets"])
+def test_zoo_gps_layout_matches_jax(model, fsdp):
+    """Autoformer and FEDformer Wavelets at the flagship's GPS widths: every
+    parameter's spec equals JAX's (``n_model=2``, FSDP ``n_data=4``), and
+    the layers split as GSPMD partitions them (``split_layers``): the square
+    projections and ff2 by rows, ff1 by columns, the trend convolution by
+    its input channels; the Wavelets transform's Lk0 (832 -> c k = 1024)
+    by columns, its Lk1 and spectral weights by rows, the cross block's Lq
+    (832 -> 512) by rows and its out by columns."""
+    flat, port = _zoo_gps_pair(model)
+    n_data_fsdp = N_DATA if fsdp else 1
+    want = _jax_specs_in_torch_layout(flat, n_data_fsdp)
+    got = meshlib.module_specs(port, N_MODEL, MIN_SHARD, n_data_fsdp)
+    assert set(got) == set(want)
+    diff = {k: (got[k], want[k]) for k in want if got[k] != want[k]}
+    assert not diff, list(diff.items())[:5]
+    kinds = meshlib.split_layers(port, got)
+    want_kinds = dict(ZOO_KINDS, **(WAVELET_KINDS if model == "FEDformer-Wavelets" else {}))
+    assert {k: kinds.get(k) for k in want_kinds} == want_kinds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_dropout_is_one_process_dropout(dtype, n):
+    """A kept column split's dropout (``split_dropout``) from one generator
+    state on each of ``n`` column blocks, put back together, is the very
+    output of one process's ``F.dropout`` on the whole activation: the
+    same kept positions and the same bits (the CPU's draw and product)."""
+    x = torch.randn(3, 5, 8 * n, generator=torch.Generator().manual_seed(1)).to(dtype)
+    state = torch.get_rng_state()
+    want = torch.nn.functional.dropout(x, 0.1, True)
+    blocks = []
+    for rank in range(n):
+        torch.set_rng_state(state)
+        blocks.append(meshlib.split_dropout(x.chunk(n, dim=-1)[rank], 0.1, -1, n, rank))
+    got = torch.cat(blocks, dim=-1)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert 0 < int((want == 0).sum()) < want.numel()
+
+
 def test_param_spec_is_jax_rule():
     """The rule itself, on random shapes (ties, small dims, 1-D, FSDP with
     and without a second eligible dim), at two ``min_shard_dim``."""

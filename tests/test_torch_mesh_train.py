@@ -20,11 +20,19 @@ remat), and the gathered bytes a rank holds at once; and the split layers
 against its one-process twin's on the same rows, the weights they never
 gather whole, a small exact-gelu SwinV2 and an Informer with its distil
 convolution against one process (features and gradients), and at (1, 4)
-the Informer with dropout 0.1 from the same generator state. While the
-ranks run, the parent computes the references: the port's trainer in one
-process on the global batch, and the JAX trainer on the conftest's virtual
-mesh at (2, 2) with FSDP (one JAX mesh: its compile takes a minute; JAX's
-own tests hold its meshes to its one device).
+the Informer with dropout 0.1 from the same generator state; the
+Autoformer, FEDformer Fourier and FEDformer Wavelets GPS backbones at tiny
+widths, their layers split (dropout 0 and 0.1): against one process, each
+split layer's FLOPs, no split weight gathered over ``model``, the
+gradients still whole over ``data`` held at once under FSDP. On every
+mesh of ``MESHES``, the data reductions launched during the backward
+against the post-backward reduction; at (2, 2) with FSDP, the split
+FEDformer Fourier backbone against ``jax.grad`` of the JAX model. While
+the ranks run, the parent computes the references: the port's trainer in
+one process on the global batch, the JAX trainer on the conftest's
+virtual mesh at (2, 2) with FSDP (one JAX mesh: its compile takes a
+minute; JAX's own tests hold its meshes to its one device), and the JAX
+FEDformer's gradients.
 
 Tolerances: losses, grad norms and eval metrics 1e-5 relative (f32; the
 ranks' sums only reorder the one process's); split layers' features and
@@ -34,6 +42,8 @@ products in another order); parameters by
 2 lr: AdamW moves a gradient that is 0 up to rounding by lr times its
 sign)."""
 
+import contextlib
+import functools
 import threading
 from pathlib import Path
 
@@ -255,18 +265,28 @@ def _layer_flops(model, names, fn) -> dict:
     return counts
 
 
-def _split_vs_one(make, x, mesh, min_shard, fsdp):
+def _split_vs_one(make, x, mesh, min_shard, fsdp, flops=False):
     """A module laid out on ``mesh`` (its split layers computing on their
     blocks) against its one-process twin, both from ``make()`` and run on
     the same input from the same generator state: the output's ``_rel``
     and each parameter's gradient's error over the twin's largest gradient
-    (a sharded gradient against the twin's cut to this rank's block), and
-    the split layers by kind."""
-    from routeformer_torch.parallel.mesh import MeshParams, spec_block
+    (a sharded gradient against the twin's cut to this rank's block), the
+    split layers by kind, the split weights and the sharded ones gathered
+    over ``model`` through the step, the data-whole gradients' high-water
+    beside the largest unit's; with ``flops``, each split layer's forward
+    FLOPs on both sides (no grad)."""
+    from routeformer_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, MeshParams, spec_block
 
     one, split = make(), make()
     layout = MeshParams(split, mesh, min_shard, fsdp)
     rng = torch.get_rng_state()
+    gathered_over_model = set()
+    gather = layout._gather
+
+    def watched(p, *a, axes=(DATA_AXIS, MODEL_AXIS), **k):
+        if MODEL_AXIS in axes and MODEL_AXIS in layout.sharded[p]:
+            gathered_over_model.add(layout._names[p])
+        return gather(p, *a, axes=axes, **k)
 
     def run(m):
         torch.set_rng_state(rng)
@@ -275,9 +295,12 @@ def _split_vs_one(make, x, mesh, min_shard, fsdp):
         return out.detach()
 
     want = run(one)
+    layout._gather = watched
     with layout.gathered():
         got = run(split)
+        launched = layout.launched_in_backward
         layout.reduce_grads()
+    del layout._gather
     errs = {"out": _rel(got, want)}
     scale = max(float(q.grad.abs().max()) for q in one.parameters() if q.grad is not None)
     for (n, p), q in zip(split.named_parameters(), one.parameters()):
@@ -285,7 +308,25 @@ def _split_vs_one(make, x, mesh, min_shard, fsdp):
             g = spec_block(q.grad, layout.sharded[p], mesh) if p in layout.sharded else q.grad
             errs[n] = float((p.grad - g).abs().max()) / scale
     kinds = sorted({(type(layer).__name__, sp.kind, sp.keep) for layer, sp in layout.splits.items()})
-    return {"errs": errs, "kinds": kinds}
+    rec = {"errs": errs, "kinds": kinds, "launched_in_backward": launched,
+           "split_params": sorted(layout._names[p] for p in layout.split_params),
+           "gathered_over_model": sorted(gathered_over_model),
+           "grad_high_water": layout.grad_high_water,
+           "largest_unit_grad": max(layout.unit_grad_bytes.values(), default=0)}
+    if flops:
+        names = {n for n, m in split.named_modules() if m in layout.splits}
+
+        def forward(m):
+            def go():
+                torch.set_rng_state(rng)
+                m(x)
+            return go
+
+        with torch.no_grad():
+            rec["flops"] = _layer_flops(one, names, forward(one))
+            with layout.gathered():
+                rec["split_flops"] = _layer_flops(split, names, forward(split))
+    return rec
 
 
 def _split_informer(dropout):
@@ -299,6 +340,65 @@ def _split_informer(dropout):
             _c_out=3)).train()
 
     return make
+
+
+# The GPS backbones whose layers split since the Autoformer layers left the
+# whole-weight units: tiny widths (the square projections row-split, ff1
+# column-split and kept into ff2, the decoder's trend convolution row-split;
+# the FEDformer Wavelets blocks' Lk0/Lq/Lk/Lv column-split, Lk1/out and
+# SparseKernelFT1d's spectral weights row-split).
+ZOO_GPS = dict(seq_len=16, label_len=16, pred_len=8, d_model=MIN_SHARD, n_heads=4, e_layers=2,
+               d_layers=1, d_ff=2 * MIN_SHARD, factor=2, moving_avg=5, activation="gelu",
+               _enc_in=7, _c_out=3)
+ZOO_SPLIT = ("autoformer", "fedformer_fourier", "fedformer_wavelets")
+ZOO_DROPOUTS = (0.0, 0.1)
+
+
+@contextlib.contextmanager
+def _small_wavelets():
+    """FEDformer's multiwavelet blocks at test widths: the transform's c 16,
+    k 4, alpha 4 (c k = 64) and the cross block's c 8, k 8 (the model's own
+    are c 128 and c 64 at k 8 whatever d_model is: ~200M spectral
+    weights)."""
+    from routeformer_torch.models.gps_backbone import fedformer as fed
+
+    saved = fed.MultiWaveletTransform, fed.MultiWaveletCross
+    fed.MultiWaveletTransform = functools.partial(saved[0], k=4, c=16, alpha=4)
+    fed.MultiWaveletCross = functools.partial(saved[1], c=8, k=8)
+    try:
+        yield
+    finally:
+        fed.MultiWaveletTransform, fed.MultiWaveletCross = saved
+
+
+def _zoo_model(name, dropout):
+    from routeformer_torch.models.gps_backbone import (
+        Autoformer,
+        FEDformer,
+        FEDFormerBackboneConfig,
+        GPSBackboneConfig,
+    )
+
+    def make():
+        torch.manual_seed(12)
+        if name == "autoformer":
+            return Autoformer(GPSBackboneConfig(**ZOO_GPS, dropout=dropout)).train()
+        version = "Fourier" if name == "fedformer_fourier" else "Wavelets"
+        cfg = FEDFormerBackboneConfig(**ZOO_GPS, dropout=dropout, modes=4, version=version)
+        with _small_wavelets():
+            return FEDformer(cfg, mode_rng=np.random.RandomState(7)).train()
+
+    return make
+
+
+def _zoo_split_checks(mesh, fsdp):
+    """Each of ``ZOO_SPLIT`` against one process with dropout 0 (and its
+    FLOPs) and 0.1, on a batch of 3 series."""
+    series = torch.randn(3, ZOO_GPS["seq_len"], ZOO_GPS["_enc_in"],
+                         generator=torch.Generator().manual_seed(13))
+    return {(name, p): _split_vs_one(_zoo_model(name, p), series, mesh, MIN_SHARD, fsdp,
+                                     flops=p == 0.0)
+            for name in ZOO_SPLIT for p in ZOO_DROPOUTS}
 
 
 def _split_swin():
@@ -381,6 +481,7 @@ def _unit_checks(arg, shape, fsdp):
     with layout.gathered():
         rec["split_flops"] = _layer_flops(model, names, forward(model))
     rec["split"] = _split_checks(mesh, fsdp)
+    rec["zoo_split"] = _zoo_split_checks(mesh, fsdp)
     # 16: K1's pairs gathered whole beside the split patch merging, all
     # recomputed under remat; 96: only the pairs' weights shard
     for min_shard, key in ((16, "swin"), (96, "swin_pairs")):
@@ -505,6 +606,125 @@ def _block_read_check(mesh, fsdp):
     return rec
 
 
+def _post_backward_reduction(layout, model):
+    """The data reduction as it ran before it moved under the backward,
+    after the backward: each sharded gradient in parameter order (a
+    reduce-scatter along the FSDP dim, else an all-reduce of the block),
+    then the replicated gradients in one flat all-reduce per dtype."""
+    import torch.distributed as dist
+
+    from routeformer_torch.parallel.mesh import DATA_AXIS
+
+    n_data, group = layout.n_data, layout.mesh.get_group(DATA_AXIS)
+    pending, layout._pending = layout._pending, {}
+    for p, spec in layout.sharded.items():
+        g = pending.get(p)
+        if g is None:
+            continue
+        if n_data > 1:
+            if DATA_AXIS in spec:
+                d = spec.index(DATA_AXIS)
+                whole = g.movedim(d, 0).contiguous()
+                out = whole.new_empty((whole.shape[0] // n_data,) + whole.shape[1:])
+                dist.reduce_scatter_tensor(out, whole, group=group)
+                g = out.movedim(0, d)
+            else:
+                g = g.contiguous()
+                dist.all_reduce(g, group=group)
+            g = g / n_data
+        g = g.contiguous()
+        p.grad = g if p.grad is None else p.grad + g
+    if n_data == 1:
+        return
+    by_dtype = {}
+    for p in model.parameters():
+        if p.grad is not None and p not in layout.sharded:
+            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for gs in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        dist.all_reduce(flat, group=group)
+        flat /= n_data
+        offset = 0
+        for g in gs:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+
+def _reduction_check(arg, mesh, fsdp):
+    """The Routeformer's first-step gradients (every parameter) with the
+    data reduction under the backward against the post-backward one
+    (``_post_backward_reduction``) on the same draws; the reductions
+    launched before the backward returned; the data-whole gradients'
+    high-water beside the largest unit's and the whole model's."""
+    trainer = _trainer(_models(arg), arg, mesh, fsdp)
+    model, layout = trainer.models["routeformer"], trainer.layouts["routeformer"]
+    batch = arg["train"][0]
+    inp, tgt = trainer._place(batch["train"]), trainer._place(batch["target"])
+    rng = torch.get_rng_state()
+    shared = trainer.shared_generator
+    params = list(model.parameters())  # the parameters, not the blocks' stand-ins
+
+    def backward():
+        for p in params:
+            p.grad = None
+        torch.set_rng_state(rng)
+        if shared is not None:
+            shared.manual_seed(7)
+        loss, _ = trainer._loss_fn("routeformer", model, inp, tgt, EPOCHS[0])
+        loss.backward()
+
+    def grads():
+        return {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+
+    layout.reset_high_water()
+    with layout.gathered():
+        backward()
+        rec = {"launched_in_backward": layout.launched_in_backward,
+               "reductions": len(layout._reductions or ())}
+        layout.reduce_grads()
+    rec["grad_high_water"] = layout.grad_high_water
+    rec["largest_unit_grad"] = max(layout.unit_grad_bytes.values(), default=0)
+    rec["whole_grad"] = sum(layout.unit_grad_bytes.values())
+    rec["live_after"] = layout.grad_live_bytes
+    new = grads()
+    with layout.gathered():
+        layout._advance = lambda: None  # nothing launched under the backward
+        backward()
+        _post_backward_reduction(layout, model)
+    del layout._advance
+    ref = grads()
+    rec["same"] = _same(new, ref)
+    rec["errs"] = _errs(new, ref)
+    return rec
+
+
+def _fedformer_jax_check(arg, mesh, fsdp):
+    """The FEDformer Fourier backbone of ``arg["fed"]`` (the JAX model's
+    weights through ``load_flax_params``) split on ``mesh``: every
+    gradient of the squared output's sum, gathered whole."""
+    from routeformer_torch.convert import load_flax_params
+    from routeformer_torch.models.gps_backbone import FEDformer, FEDFormerBackboneConfig
+    from routeformer_torch.parallel.mesh import MeshParams, spec_gather
+
+    fed = arg["fed"]
+    model = FEDformer(FEDFormerBackboneConfig(**fed["cfg"]),
+                      mode_rng=np.random.RandomState(fed["seed"])).train()
+    load_flax_params(model, fed["flat"])
+    layout = MeshParams(model, mesh, MIN_SHARD, fsdp)
+    with layout.gathered():
+        (model(torch.from_numpy(fed["x"])) ** 2).sum().backward()
+        layout.reduce_grads()
+    def whole(p):  # a projection FourierBlock does not read takes none: JAX's zeros
+        if p.grad is None:
+            return np.zeros(layout.full_shapes.get(p, p.shape), np.float32)
+        g = spec_gather(p.grad, layout.sharded[p], mesh) if p in layout.sharded else p.grad
+        return g.numpy()
+
+    return {"grads": {n: whole(p) for n, p in model.named_parameters()},
+            "kinds": sorted({(type(layer).__name__, sp.kind) for layer, sp in
+                             layout.splits.items()})}
+
+
 def rank_checks(rank, n, arg):
     """Every rank-side check; rank 0 returns its records, every rank its
     loader and memo records."""
@@ -521,6 +741,7 @@ def rank_checks(rank, n, arg):
     out = {"rank": rank, "mesh": {}}
     for key, (shape, fsdp) in MESHES.items():
         mesh = make_mesh(*shape, device="cpu")
+        reduction = _reduction_check(arg, mesh, fsdp)
         trainer = _trainer(_models(arg), arg, mesh, fsdp)
         rec = {"sharded": {k: tuple(p.shape) for k, p in
                            trainer.models["routeformer"].named_parameters()
@@ -546,12 +767,14 @@ def rank_checks(rank, n, arg):
                 loss = float(fresh.training_step(arg["train"][1])["train_total_loss"])
                 restored[again] = {"pos": pos, "loss": loss, "params": _params(fresh)}
             rec["restored"] = restored
+        rec["reduction"] = reduction
         out["mesh"][key] = rec
 
     out["units"] = {key: _unit_checks(arg, shape, fsdp)
                     for key, (shape, fsdp) in UNIT_MESHES.items()}
 
     mesh22 = make_mesh(2, 2, device="cpu")
+    out["fed_jax"] = _fedformer_jax_check(arg, mesh22, True)
     from routeformer_torch.parallel import MeshParams, batch_spec, shard_params
 
     laid_out = _models(arg)["routeformer"]
@@ -654,16 +877,61 @@ def _jax_model(kwargs):
     return model
 
 
+FED_SEED = 7  # FEDformer's Fourier modes: numpy's global generator (JAX), a RandomState (port)
+
+
+def _fed_jax_model(cfg):
+    """The JAX package's FEDformer at ``cfg``, its modes drawn from numpy's
+    global generator seeded at ``FED_SEED``."""
+    from flax import nnx
+
+    from routeformer_tpu.models.gps_backbone.config import FEDFormerBackboneConfig
+    from routeformer_tpu.models.gps_backbone.fedformer import FEDformer
+
+    np.random.seed(FED_SEED)
+    return FEDformer(FEDFormerBackboneConfig(**cfg), rngs=nnx.Rngs(0, dropout=1))
+
+
+def _fed_jax_grads(arg):
+    """``jax.grad`` of the squared output's sum of ``arg["fed"]``'s JAX
+    FEDformer in train mode (dropout 0), in the port's names and layouts."""
+    import jax
+    import jax.numpy as jnp
+    from flax import nnx
+
+    from routeformer_torch.convert import flax_to_torch_names
+    from test_torch_models import import_params
+
+    fed = arg["fed"]
+    model = _fed_jax_model(fed["cfg"])
+    import_params(model, fed["flat"])
+    model.train()
+    graphdef, params, rest = nnx.split(model, nnx.Param, ...)
+    x = jnp.asarray(fed["x"])
+
+    def loss(p):
+        return (nnx.merge(graphdef, p, rest)(x) ** 2).sum()
+
+    grads = nnx.to_flat_state(jax.jit(jax.grad(loss))(params))
+    return flax_to_torch_names({".".join(map(str, k)): np.asarray(v[...]) for k, v in grads})
+
+
 def _arg(tmp_dir):
+    from test_torch_autoformer import gps_kwargs
     from test_torch_models import export_params
     from test_torch_routeformer import EXHAUSTIVE
     from test_torch_train import OPT
     from test_torch_trainer import _configs
 
     flat = export_params(_jax_model(_configs()), np.random.default_rng(0))
+    fed_cfg = gps_kwargs(version="Fourier", modes=4)
+    fed = {"cfg": fed_cfg, "seed": FED_SEED,
+           "flat": export_params(_fed_jax_model(fed_cfg), np.random.default_rng(2)),
+           "x": np.random.RandomState(4).randn(3, fed_cfg["seq_len"],
+                                                fed_cfg["_enc_in"]).astype(np.float32)}
     rng = np.random.default_rng(1)
     gps = np.cumsum(rng.normal(size=(4, 14, 2)) * 0.5, axis=1).astype(np.float32)
-    return {"kwargs": _configs(), "exhaustive": EXHAUSTIVE, "flat": flat, "opt": OPT,
+    return {"fed": fed, "kwargs": _configs(), "exhaustive": EXHAUSTIVE, "flat": flat, "opt": OPT,
             "train": [_batch4(7, [30.0] * 4), _batch4(11, [30.0] * 4)],
             "val": [_batch4(21, [23.0, 70.0, 45.0, 90.0])], "dir": str(tmp_dir),
             "patch_batch": {"train": {"gps": gps[:, :8]}, "target": {"gps": gps[:, 8:]}},
@@ -755,11 +1023,12 @@ def runs(tmp_path_factory):
     try:
         one = _one_process(arg)
         jax_run = _jax_fsdp_run(arg)
+        fed_grads = _fed_jax_grads(arg)
     finally:
         thread.join()
     if "error" in box:
         raise box["error"]
-    return {"ranks": box["ranks"], "one": one, "jax": jax_run, "arg": arg}
+    return {"ranks": box["ranks"], "one": one, "jax": jax_run, "fed_jax": fed_grads, "arg": arg}
 
 
 def _hold_params(got, want, grads, lr):
@@ -1037,3 +1306,105 @@ def test_mesh_memo_matches_one_device(runs):
         assert memo["err"] <= 1e-6 and memo["warm_same"] and memo["gps_passes"], memo
         assert memo["stats"]["encoded"] > 0 and memo["stats"]["seen"] == 2 * 4 * 2 * 4  # calls x ranks x rows x frames
         assert "pure data-parallel mesh (model axis is 2)" in memo["refused"]
+
+
+@pytest.mark.parametrize("key,model,dropout", [(k, m, p) for k in UNIT_MESHES for m in ZOO_SPLIT
+                                               for p in ZOO_DROPOUTS])
+def test_zoo_layers_split_match_one_process(runs, key, model, dropout):
+    """Autoformer, FEDformer Fourier and FEDformer Wavelets with their
+    layers split over ``model`` (no unit of theirs gathered whole), against
+    one process from the same weights and generator state, dropout 0 and
+    0.1 (ff1's kept split draws the one process's mask): the output within
+    1e-5 of its max, every gradient within 1e-5 of the largest gradient.
+    The projections are row splits (the square weights' tie-break), ff1
+    column-split and kept into ff2, the decoder's circular trend
+    convolution row-split, and the Wavelets' spectral weights row-split."""
+    for r in runs["ranks"]:
+        rec = r["units"][key]["zoo_split"][(model, dropout)]
+        kinds = set(rec["kinds"])
+        assert {("Linear", "row", False), ("Linear", "column", True), ("Conv1d", "row", False),
+                ("Conv1d", "column", False)} <= kinds, rec["kinds"]
+        if model == "fedformer_wavelets":
+            assert {("SparseKernelFT1d", "row", False), ("Linear", "column", False)} <= kinds
+        assert max(rec["errs"].values()) <= 1e-5, (r["rank"], model, rec["errs"])
+
+
+@pytest.mark.parametrize("key,model", [(k, m) for k in UNIT_MESHES for m in ZOO_SPLIT])
+def test_zoo_split_layers_compute_their_share_of_the_flops(runs, key, model):
+    """Each split layer of the zoo's GPS backbones, SparseKernelFT1d's
+    three products included (its input channels' DFT and weight product,
+    the scattered sum's inverse DFT), does exactly 1/n_model of its
+    one-process twin's forward FLOPs on the same rows."""
+    n_model = UNIT_MESHES[key][0][1]
+    for r in runs["ranks"]:
+        rec = r["units"][key]["zoo_split"][(model, 0.0)]
+        want, got = rec["flops"], rec["split_flops"]
+        assert len(want) >= 20 and all(want.values()), want
+        if model == "fedformer_wavelets":
+            assert any(n.endswith(".mwt_cz.0.A") for n in want), sorted(want)
+        assert {n: got[n] * n_model for n in want} == want, (r["rank"], got, want)
+
+
+@pytest.mark.parametrize("key,model", [(k, m) for k in UNIT_MESHES for m in ZOO_SPLIT])
+def test_zoo_split_weights_are_never_gathered_whole(runs, key, model):
+    """Through a step no split weight of the zoo's GPS backbones is gathered
+    over ``model`` (the Autoformer layers gather nothing over it now); the
+    data reductions start under the backward."""
+    for r in runs["ranks"]:
+        for dropout in ZOO_DROPOUTS:
+            rec = r["units"][key]["zoo_split"][(model, dropout)]
+            assert len(rec["split_params"]) >= 20, rec["split_params"]
+            assert not rec["gathered_over_model"], (r["rank"], rec["gathered_over_model"])
+            assert rec["launched_in_backward"] > 0, rec
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+def test_reduction_under_the_backward_matches_the_post_backward_one(runs, key):
+    """The Routeformer's gradients with each data reduction launched in the
+    backward that completes its gradient (a fixed order on every rank)
+    against the reduction after the backward, on the same draws: the same
+    bits where two data shards sum (one addition either way), else within
+    1e-6 of the largest gradient; at least one reduction launched before
+    the backward returned, none left in flight."""
+    n_data = MESHES[key][0][0]
+    for r in runs["ranks"]:
+        rec = r["mesh"][key]["reduction"]
+        assert rec["errs"] is not None, rec
+        if n_data == 2:
+            assert rec["same"], (r["rank"], rec["errs"])
+        else:
+            assert max(rec["errs"].values()) <= 1e-6, (r["rank"], rec["errs"])
+        assert 0 < rec["launched_in_backward"] <= rec["reductions"], rec
+        assert rec["live_after"] == 0, rec
+
+
+@pytest.mark.parametrize("model", ["routeformer"] + list(ZOO_SPLIT))
+def test_data_whole_gradients_stay_within_the_largest_unit(runs, model):
+    """Under FSDP ((2, 2)) the gradients still whole over ``data`` that a
+    rank holds at once, from a gradient's first arrival to its
+    reduce-scatter, stay within the largest unit's, below the whole
+    model's."""
+    for r in runs["ranks"]:
+        if model == "routeformer":
+            rec = r["mesh"]["fsdp"]["reduction"]
+            assert rec["largest_unit_grad"] < rec["whole_grad"], rec
+        else:
+            rec = r["units"]["fsdp"]["zoo_split"][(model, 0.0)]
+        assert 0 < rec["grad_high_water"] <= rec["largest_unit_grad"], (r["rank"], rec)
+
+
+def test_split_fedformer_fourier_matches_jax_grad(runs):
+    """The FEDformer Fourier backbone split on the (2, 2) FSDP mesh, the
+    JAX model's weights carried by ``load_flax_params``: every gradient,
+    gathered whole, within 1e-5 of the largest of ``jax.grad``'s (the key
+    and value projections, which the Fourier blocks do not read, 0 on both
+    sides)."""
+    want = runs["fed_jax"]
+    for r in runs["ranks"]:
+        rec = r["fed_jax"]
+        kinds = set(rec["kinds"])
+        assert {("Linear", "row"), ("Linear", "column"), ("Conv1d", "row")} <= kinds, kinds
+        assert set(rec["grads"]) == set(want)
+        scale = max(np.abs(g).max() for g in want.values())
+        for k, g in want.items():
+            assert np.abs(rec["grads"][k] - g).max() <= 1e-5 * scale, (r["rank"], k)
