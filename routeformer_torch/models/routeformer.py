@@ -46,6 +46,7 @@ from routeformer_torch.models.config import RouteformerConfig
 from routeformer_torch.models.cross_modal import PerceiveDecoder, PerceiveEncoder
 from routeformer_torch.models.gps_backbone import Informer
 from routeformer_torch.models.video_backbone.swin import SwinV2Backbone
+from routeformer_torch.utils import profiling
 from routeformer_torch.utils.filter import median_downsampler
 from routeformer_torch.utils.vector import estimate_angle_and_norm, rotate
 
@@ -171,10 +172,11 @@ class Routeformer(nn.Module):
             inputs[-1] = torch.zeros_like(inputs[-1])
         x = torch.cat(inputs, dim=-1)
         attention = None
-        if self.configs.output_attention:
-            output, attention = self.gps_backbone(x)
-        else:
-            output = self.gps_backbone(x)
+        with profiling.span("rf.gps_backbone"):
+            if self.configs.output_attention:
+                output, attention = self.gps_backbone(x)
+            else:
+                output = self.gps_backbone(x)
         if self.configs.decoder_mode == "recursive":
             width = None if self.configs.dense_prediction else 2
             output = output + x[:, -1:, :width]
@@ -240,13 +242,16 @@ class Routeformer(nn.Module):
             in_len = gaze_video.shape[1]
             gaze = median_downsampler(batch["gaze"].float(),
                                       cfg.gps_backbone_config.seq_len)
-            gaze = self.gaze_encoder(gaze)
-            gaze_features = self.gaze_video_decoder(gaze_video, gaze)[:, :in_len]
+            with profiling.span("rf.perceive.gaze"):
+                gaze = self.gaze_encoder(gaze)
+            with profiling.span("rf.perceive.gaze_video"):
+                gaze_features = self.gaze_video_decoder(gaze_video, gaze)[:, :in_len]
             if cfg.gaze_dropout > 0.0 and training and self._draw() < cfg.gaze_dropout:
                 gaze_features = torch.zeros_like(gaze_features)
             visual.append(gaze_features + self.gaze_video_embedding)
         visual.append(torch.zeros_like(visual[-1]) + self.video_output_embedding)
-        return motion_dynamics, self.video_encoder(torch.cat(visual, dim=1))
+        with profiling.span("rf.perceive.video"):
+            return motion_dynamics, self.video_encoder(torch.cat(visual, dim=1))
 
     def _view_drops(self, has_right: bool):
         """View dropout: with probability ``view_dropout`` one view is
@@ -292,7 +297,8 @@ class Routeformer(nn.Module):
         if pixel:
             trainable = bool(getattr(bb, "unfreeze", False)
                              or getattr(bb.configs, "train_backbone", False))
-            with torch.set_grad_enabled(torch.is_grad_enabled() and trainable):
+            with torch.set_grad_enabled(torch.is_grad_enabled() and trainable), \
+                    profiling.span("rf.video_backbone"):
                 if hasattr(bb, "encode_frames"):
                     feats = bb.encode_frames(torch.cat(
                         [bb.preprocess_frames(streams[i][0]) for i in pixel], dim=0))
@@ -303,7 +309,8 @@ class Routeformer(nn.Module):
                 maps[i] = part
         tokens = torch.cat([f.reshape(f.shape[0], -1, f.shape[-1]) for f in maps])
         tokens = torch.cat([tokens, -torch.ones_like(tokens[:, :1])], dim=1)
-        encoded = self.frame_encoder(tokens).reshape(-1, self.configs.image_embedding_size)
+        with profiling.span("rf.perceive.frame"):
+            encoded = self.frame_encoder(tokens).reshape(-1, self.configs.image_embedding_size)
         return torch.split(encoded, sizes, dim=0)
 
     @staticmethod

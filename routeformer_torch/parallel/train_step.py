@@ -15,6 +15,7 @@ import torch.nn as nn
 from routeformer_torch.optimizers.optimizer import Optimizer
 from routeformer_torch.parallel import mesh as meshlib
 from routeformer_torch.parallel.mesh import DATA_AXIS  # noqa: F401  (re-exported as in the JAX module)
+from routeformer_torch.utils import profiling
 
 
 def _layout(model: nn.Module, mesh, min_shard_dim: int, fsdp: bool):
@@ -45,25 +46,36 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_fn: Callable, m
         layout = _layout(model, mesh, min_shard_dim, fsdp)
         optimizer.mesh = mesh
 
-    def step(input_batch: dict, target_batch: dict, epoch) -> dict:
+    def train_step(input_batch: dict, target_batch: dict, epoch) -> dict:
         optimizer.zero_grad()
         if layout is None:
-            loss, metrics = loss_fn(model, input_batch, target_batch, epoch)
-            loss.backward()
+            with profiling.span("rf.loss"):
+                loss, metrics = loss_fn(model, input_batch, target_batch, epoch)
+            with profiling.span("rf.backward"):
+                loss.backward()
         else:
             device = next(model.parameters()).device
             input_batch = meshlib.shard_batch(input_batch, mesh, device)
             target_batch = meshlib.shard_batch(target_batch, mesh, device)
             with layout.gathered():  # the data reductions run under the backward
-                loss, metrics = loss_fn(model, input_batch, target_batch, epoch)
-                loss.backward()
-                layout.reduce_grads()
+                with profiling.span("rf.loss"):
+                    loss, metrics = loss_fn(model, input_batch, target_batch, epoch)
+                with profiling.span("rf.backward"):
+                    loss.backward()
+                    layout.reduce_grads()
         metrics = dict(metrics)
         metrics["total_loss"] = loss.detach()
         if layout is not None:
             metrics = meshlib.mean_over_data(metrics, mesh)
-        metrics["grad_norm"] = optimizer.step().detach()
+        with profiling.span("rf.optimizer"):
+            metrics["grad_norm"] = optimizer.step().detach()
         return metrics
+
+    def step(input_batch: dict, target_batch: dict, epoch) -> dict:
+        # The root span closes after ``train_step``'s locals are gone: freeing
+        # the step's autograd graph takes milliseconds of host time.
+        with profiling.span("rf.train_step"):
+            return train_step(input_batch, target_batch, epoch)
 
     return step
 

@@ -21,6 +21,7 @@ import torch
 from routeformer_torch.models import Routeformer, RouteformerConfig
 from routeformer_torch.models.gps_backbone import GPS_BACKBONES, GPS_CONFIGS
 from routeformer_torch.models.video_backbone import VIDEO_BACKBONES, VIDEO_CONFIGS
+from routeformer_torch.utils import profiling
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 
 BUNDLE_FILE = "model.pt"
@@ -30,6 +31,12 @@ def _as_tensor(value, device) -> torch.Tensor:
     if isinstance(value, np.ndarray):
         value = torch.from_numpy(np.ascontiguousarray(value))
     return value.to(device, non_blocking=True)
+
+
+def _place(batch: dict, device) -> dict:
+    """A request's tensors on ``device``."""
+    with profiling.span("rf.place"):
+        return {k: _as_tensor(v, device) for k, v in batch.items()}
 
 
 class _Forward(torch.nn.Module):
@@ -111,9 +118,8 @@ class ExportedModel:
         self.device = self._leaves[0].device
 
     def __call__(self, batch: dict) -> torch.Tensor:
-        with torch.inference_mode():
-            return self._program(self._leaves,
-                                 {k: _as_tensor(v, self.device) for k, v in batch.items()})
+        with profiling.span("rf.serve.request"), torch.inference_mode():
+            return self._program(self._leaves, _place(batch, self.device))
 
 
 def _from_dict(cls, d):
@@ -159,8 +165,8 @@ class ServingModel:
         self.device = device
 
     def __call__(self, batch: dict) -> Tuple[torch.Tensor, torch.Tensor]:
-        with torch.inference_mode():
-            return self.model({k: _as_tensor(v, self.device) for k, v in batch.items()})
+        with profiling.span("rf.serve.request"), torch.inference_mode():
+            return self.model(_place(batch, self.device))
 
 
 def load_serving_bundle(path, device: DeviceLike = None) -> ServingModel:

@@ -61,6 +61,7 @@ from routeformer_torch.parallel import mesh as meshlib
 from routeformer_torch.score.error import ade_per_sample, fde_per_sample
 from routeformer_torch.train.losses import TrainingLosses, routeformer_training_loss
 from routeformer_torch.train.metrics import GEM_QUARTILES, bucketed_eval_metrics
+from routeformer_torch.utils import profiling
 from routeformer_torch.utils.device import DeviceLike, resolve_device
 from routeformer_torch.utils.logging import get_logger
 
@@ -173,13 +174,14 @@ class ParallelTrainer:
         are used as they are, with no copy. On a mesh a numpy leaf is the
         global batch and this rank takes its row block."""
         out = {}
-        for k, v in part.items():
-            if self.mesh is not None:
-                v = meshlib.place_batch_leaf(v, self.mesh, self.device)
-            elif isinstance(v, np.ndarray):
-                v = torch.from_numpy(np.ascontiguousarray(canonical(v)))
-            out[k] = v.to(self.device)
-        return dequantize_videos(out)
+        with profiling.span("rf.place"):
+            for k, v in part.items():
+                if self.mesh is not None:
+                    v = meshlib.place_batch_leaf(v, self.mesh, self.device)
+                elif isinstance(v, np.ndarray):
+                    v = torch.from_numpy(np.ascontiguousarray(canonical(v)))
+                out[k] = v.to(self.device)
+            return dequantize_videos(out)
 
     def _default_loss_fn(self, name, model, inp, tgt, epoch):
         return routeformer_training_loss(model, inp, tgt, epoch, self.losses)
@@ -208,6 +210,12 @@ class ParallelTrainer:
         its backward in turn, then one clipped AdamW step over all of them.
         Returns detached ``train_{metric}_{model}`` and ``train_total_loss``
         (the sum of the losses)."""
+        # The root span closes after the step's locals, and so its autograd
+        # graphs, are gone.
+        with profiling.span("rf.train_step"):
+            return self._training_step(batch)
+
+    def _training_step(self, batch: dict) -> Dict[str, torch.Tensor]:
         self._apply_unfreeze()
         inp, tgt = self._place(batch["train"]), self._place(batch["target"])
         metrics = {}
@@ -216,10 +224,12 @@ class ParallelTrainer:
             self.optimizer.zero_grad()
         for name, model in self.trained.items():
             with self._gathered(name):
-                loss, model_metrics = self._loss_fn(name, model, inp, tgt, self.epoch)
-                loss.backward()
-                if name in self.layouts:
-                    self.layouts[name].reduce_grads()
+                with profiling.span("rf.loss"):
+                    loss, model_metrics = self._loss_fn(name, model, inp, tgt, self.epoch)
+                with profiling.span("rf.backward"):
+                    loss.backward()
+                    if name in self.layouts:
+                        self.layouts[name].reduce_grads()
             total = total + loss.detach()
             for k, v in model_metrics.items():
                 metrics[f"train_{k}_{name}"] = v.detach()
@@ -227,7 +237,8 @@ class ParallelTrainer:
         if self.mesh is not None:
             metrics = meshlib.mean_over_data(metrics, self.mesh)
         if self.optimizer is not None:
-            self.grad_norm = self.optimizer.step().detach()
+            with profiling.span("rf.optimizer"):
+                self.grad_norm = self.optimizer.step().detach()
         return metrics
 
     def eval_batch_raw(self, batch: dict, names: Optional[list] = None):
