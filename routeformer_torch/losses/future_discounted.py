@@ -37,7 +37,8 @@ def future_discounted_loss(y_pred: torch.Tensor, y_true: torch.Tensor, gamma: fl
     if loss_function not in _LOSSES:
         raise ValueError(f"Unknown loss function {loss_function}")
     t = torch.arange(y_pred.shape[1], dtype=torch.float32, device=y_pred.device)
-    factors = torch.pow(torch.tensor(gamma, dtype=torch.float32, device=y_pred.device), t)
+    # The base filled on the device: a copy from the host would wait for the stream.
+    factors = torch.pow(torch.full((), gamma, dtype=torch.float32, device=y_pred.device), t)
     factors = factors.reshape((1, -1) + (1,) * (y_pred.ndim - 2))
     error = y_pred - y_true
     if epsilon is not None:

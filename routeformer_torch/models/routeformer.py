@@ -58,6 +58,12 @@ def fps_subsample_indices(length: int, relative_fps: int) -> np.ndarray:
     return np.arange(length - 1, 0, -relative_fps)[::-1].copy()
 
 
+def fps_subsample_slice(length: int, relative_fps: int) -> slice:
+    """``fps_subsample_indices`` as a slice, which indexes a device tensor
+    with no index copied to the device (a copy would wait for the stream)."""
+    return slice((length - 1) % relative_fps or relative_fps, None, relative_fps)
+
+
 class Routeformer(nn.Module):
     def __init__(self, configs: RouteformerConfig, gps_backbone: type = Informer,
                  video_backbone: type = SwinV2Backbone):
@@ -212,16 +218,15 @@ class Routeformer(nn.Module):
             right = batch.get("right" + key, left)
             if training:
                 drop_left, drop_right = self._view_drops("right" + key in batch)
-            idx = fps_subsample_indices(left.shape[1], cfg.output_fps // cfg.video_fps)
-            meta["scene"] = (left.shape[0], left.shape[1], idx)
-            t = torch.from_numpy(idx)
+            t = fps_subsample_slice(left.shape[1], cfg.output_fps // cfg.video_fps)
+            meta["scene"] = (left.shape[0], left.shape[1], t)
             streams += [(left[:, t].flatten(0, 1), pre), (right[:, t].flatten(0, 1), pre)]
         if self.with_gaze:
             pre = "front_video_features" in batch
             front = batch["front_video_features" if pre else "front_video"]
-            idx = fps_subsample_indices(front.shape[1], cfg.output_fps // cfg.gaze_fps)
-            meta["front"] = (front.shape[0], front.shape[1], idx)
-            streams.append((front[:, torch.from_numpy(idx)].flatten(0, 1), pre))
+            t = fps_subsample_slice(front.shape[1], cfg.output_fps // cfg.gaze_fps)
+            meta["front"] = (front.shape[0], front.shape[1], t)
+            streams.append((front[:, t].flatten(0, 1), pre))
         encoded = self._encode_frame_streams(streams)
 
         visual = []
@@ -314,9 +319,9 @@ class Routeformer(nn.Module):
         return torch.split(encoded, sizes, dim=0)
 
     @staticmethod
-    def _scatter_timeline(feats, batch_size, length, indices):
+    def _scatter_timeline(feats, batch_size, length, frames: slice):
         """(B*T', emb) -> (B, T, emb), zeros where no frame was sampled."""
         feats = feats.reshape(batch_size, -1, feats.shape[-1])
         full = feats.new_zeros(batch_size, length, feats.shape[-1])
-        full[:, torch.as_tensor(indices, device=feats.device)] = feats
+        full[:, frames] = feats
         return full

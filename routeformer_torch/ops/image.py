@@ -75,9 +75,25 @@ def condition_frames(images: torch.Tensor, size: int, mean=IMAGENET_MEAN,
         images = F.pad(images, (0, 0, 0, side - w, 0, side - h))
     if images.shape[1] != size or images.shape[2] != size:
         images = resize_bilinear(images, size)
-    mean = torch.tensor(mean, dtype=images.dtype, device=images.device)
-    std = torch.tensor(std, dtype=images.dtype, device=images.device)
+    mean, std = _statistics(mean, std, images.dtype, images.device)
     return (images - mean) / std
+
+
+_statistics_cache = {}  # (mean, std, dtype, device) -> the statistics' tensors
+
+
+def _statistics(mean, std, dtype, device):
+    """The ``(mean, std)`` tensors, copied to ``device`` once per key: a copy
+    from the host waits for the stream, so none is left in the forward."""
+    key = (tuple(mean), tuple(std), dtype, device)
+    if key in _statistics_cache:
+        return _statistics_cache[key]
+    if torch.compiler.is_exporting():  # a graph value, never cached
+        return tuple(torch.tensor(s, dtype=dtype, device=device) for s in (mean, std))
+    with torch.inference_mode(False):  # kept for forwards under autograd too
+        stats = tuple(torch.tensor(s, dtype=dtype, device=device) for s in (mean, std))
+    _statistics_cache[key] = stats
+    return stats
 
 
 # --------------------------------------------------------------------- #

@@ -721,3 +721,94 @@ def test_exported_forward_matches_live_on_the_card(cuda_device, monkeypatch):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(counts(), before)) == live and min(live) > 0
     assert torch.equal(got, want) or _max_err(got, want) <= 1e-3
+
+
+# ------------------------------------------- no synchronisation --- #
+
+
+def _small_routeformer(video_backbone, model_type, **kw):
+    from routeformer_torch.flagship import init_weights
+    from routeformer_torch.models import Routeformer, RouteformerConfig
+    from routeformer_torch.models.gps_backbone import GPSBackboneConfig
+    from routeformer_torch.models.video_backbone import TimmBackboneConfig
+
+    cfg = RouteformerConfig(
+        gps_backbone_config=GPSBackboneConfig(seq_len=8, label_len=8, pred_len=6, d_model=32,
+                                              n_heads=4, e_layers=2, d_layers=1, d_ff=64,
+                                              factor=4, dropout=0.0),
+        video_backbone_config=TimmBackboneConfig(model_type=model_type,
+                                                 compute_dtype="bfloat16", gelu="tanh",
+                                                 cache_enabled=False),
+        decoder_mode="smart", with_video=True, with_gaze=True, dense_prediction=True,
+        image_embedding_size=16, encoder_hidden_size=16, encoder_heads=8, encoder_layers=2,
+        encoder_d_ff=256, cross_modal_decoder_heads=4, cross_modal_decoder_layers=2,
+        output_fps=5, video_fps=1, gaze_fps=1, **kw)
+    model = Routeformer(cfg, video_backbone=video_backbone)
+    init_weights(model, 0)
+    return model
+
+
+def _clips(gen, dev, steps, side, pin=False):
+    """A batch of two clips: uint8 frames, gps and gaze, as the benchmark's."""
+    t = lambda x: x.pin_memory() if pin else x.to(dev)  # noqa: E731
+    out = {k: t(torch.randint(0, 256, (2, steps, side, side, 3), generator=gen,
+                              dtype=torch.uint8))
+           for k in ("left_video", "right_video", "front_video")}
+    out["gps"] = t(torch.cumsum(torch.randn(2, steps, 2, generator=gen), dim=1))
+    out["gaze"] = t(torch.rand(2, 5 * steps, 2, generator=gen))
+    return out
+
+
+def _never_synchronising(fn):
+    """``fn()`` with every synchronising CUDA call raising."""
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+@pytest.mark.cuda
+def test_train_step_and_request_never_synchronise(cuda_device, monkeypatch):
+    """Between a unit's start and its answer's copy the host never waits for
+    the card: a train step of a small tanh-SwinV2 Routeformer (view and gaze
+    dropout, dense prediction, the fused stack) under ``make_train_step``,
+    and a request of a small DinoV2-class Routeformer (K4's route at 577
+    tokens) under ``ServingModel``, each after a warm unit, raise nothing in
+    the sync debug mode's ``error``."""
+    from routeformer_torch.models.video_backbone import DinoV2, SwinV2Backbone, swin, vit
+    from routeformer_torch.optimizers import build_optimizer
+    from routeformer_torch.parallel import make_train_step
+    from routeformer_torch.serve import ServingModel
+    from routeformer_torch.train import TrainingLosses, routeformer_training_loss
+
+    monkeypatch.setenv("ROUTEFORMER_FUSION_KERNEL", "1")
+    monkeypatch.setitem(swin.SWIN_PRESETS, "swinv2_card_test", swin.SwinPreset(
+        img_size=64, patch_size=4, embed_dim=32, depths=(2, 2), heads=(2, 4), window=4))
+    monkeypatch.setitem(vit.PRESETS, "vit_card_test", vit.ViTPreset(96, 4, 128, 2, 2))
+    gen = torch.Generator().manual_seed(0)
+
+    model = _small_routeformer(SwinV2Backbone, "swinv2_card_test", view_dropout=0.6,
+                               gaze_dropout=0.5, feature_dropout=0.05).to(cuda_device)
+    optimizer = build_optimizer(model)
+    optimizer.count = 12  # past the warm-up's rate 0
+    losses = TrainingLosses.from_config(model.configs)
+    step = make_train_step(model, optimizer, lambda m, i, t, e: routeformer_training_loss(
+        m, i, t, e, losses))
+    batches = [(_clips(gen, cuda_device, 8, 64), _clips(gen, cuda_device, 6, 64))
+               for _ in range(2)]
+    step(*batches[0], 12)  # builds the kernels, the optimizer's state and the caches
+    metrics = _never_synchronising(lambda: step(*batches[1], 12))
+    assert torch.isfinite(metrics["total_loss"]) and torch.isfinite(metrics["grad_norm"])
+
+    serving = ServingModel(_small_routeformer(DinoV2, "vit_card_test").to(cuda_device),
+                           cuda_device)
+    requests = [_clips(gen, cuda_device, 8, 96, pin=True) for _ in range(2)]
+    serving(requests[0])
+    before = flash_attention.dense_launches
+    gps, dense = _never_synchronising(lambda: serving(requests[1]))
+    gps, dense = gps.cpu(), dense.cpu()
+    assert flash_attention.dense_launches - before == 2  # K4 in both blocks
+    assert gps.shape == (2, 6, 2) and torch.isfinite(gps).all() and torch.isfinite(dense).all()
