@@ -94,9 +94,9 @@ Phases (any failure exits non-zero):
    implementation named, within phase 7's limits. (2) A cold epoch (the
    backbone in every step, the MC eval, ``maybe_save``, ``save_latest``
    after every step; launches counted from 0 just before and read just
-   after: the driver's exact-gelu SwinV2 runs the unfused block, so 0 K1
-   and 48 K2/K3a a step and 0 K1 and 24 K2/K3a per eval forward, 16-24
-   K3b a step);
+   after: the driver's exact-gelu SwinV2 is frozen, so its blocks run K1
+   with the erf epilogue: 48 K1/K2/K3a a step and 24 K1/K2/K3a per eval
+   forward, 16-24 K3b a step);
    the cold step and the MC eval timed. (3) Resume: a snapshot mid-epoch,
    the next step, and a fresh trainer restoring it and taking the same
    step: loss and parameters bit for bit, or the nondeterministic ops
@@ -125,7 +125,7 @@ Phases (any failure exits non-zero):
    parameters the same bits, else the first step's loss within phase 7's
    limit and the nondeterministic op named (both pairs of steps again the
    same bits with it held deterministic); launches per step counted from 0
-   just before and read just after (0 K1, 48 K2, 48 K3a, 16-24 K3b); the MC
+   just before and read just after (48 K1, 48 K2, 48 K3a, 16-24 K3b); the MC
    eval of a val batch, before the steps, the same bits. The plain mesh
    also: a snapshot, the next step, and a fresh trainer on the mesh
    restoring it and taking that step, cuDNN's convolution backward held
@@ -143,10 +143,11 @@ Phases (any failure exits non-zero):
    at ``min_shard_dim`` 512 (its split layers compute on their blocks),
    one step of phase 7b's batch-16 batches against the same step without
    a mesh: within phase 7's bf16 limits (``step_gap``), the first
-   differing op named; on each rank 0/48/48/16-24 K1/K2/K3a/K3b, each
-   split layer's forward FLOPs exactly half the no-mesh step's
-   (``counting_flops``), the gathered
-   high-water within the largest unit's without the split weights; step
+   differing op named; on each rank 0/48/48/16-24 K1/K2/K3a/K3b (the
+   split exact-gelu blocks run the unfused block, ``SPLIT_PER_STEP``), each
+   split layer's forward FLOPs exactly half the no-mesh step's (held to
+   the unfused block, ``swin.hold_unfused``; ``counting_flops``), the
+   gathered high-water within the largest unit's without the split weights; step
    ms and peak, labelled as two ranks sharing one card over gloo, not a
    multi-card time. In the same two ranks (``zoo_two_rank``): the
    Autoformer, FEDformer Fourier and FEDformer Wavelets GPS backbones at
@@ -167,8 +168,9 @@ Phases (any failure exits non-zero):
    ``run_epochs``: one epoch of 2 train batches and 1 val batch, the
    launches counted from 0 just before and read just after and attributed
    to each model per step and per eval forward (``FULL_SET_DESIGN``: K2 24
-   a backbone call, K3a 8 a Perceive stack, K3b 8 a trained stack, 0 K1
-   and 0 K4); finite metrics, every trained model's parameters move, the
+   a backbone call, K1 24 a backbone call (the frozen exact-gelu SwinV2's
+   blocks, erf epilogue), K3a 8 a Perceive stack, K3b 8 a trained stack, 0
+   K4); finite metrics, every trained model's parameters move, the
    frozen backbones do not, the baselines have no parameters. The
    full-set step (CUDA events, after a warm-up), its device busy time and
    idle share, peak memory, the MC eval per val batch; the autoregressive
@@ -200,8 +202,8 @@ Phases (any failure exits non-zero):
    raw read, the undistort and the resize; a batch's pinned and pageable
    copy rates. Then a cold epoch of the driver's flagship through
    ``run_epochs`` on ``build_data``'s loaders (2 train batches, 1 val batch,
-   MC eval; launches counted from 0 just before and read just after: 0 K1,
-   48 K2 and K3a a step, 24 per eval forward, 16-24 K3b a step; finite
+   MC eval; launches counted from 0 just before and read just after: 48
+   K1, K2 and K3a a step, 24 per eval forward, 16-24 K3b a step; finite
    metrics; peak memory; profiled copy and busy device time), and the
    steps again on the loader's pinned batches and on the same batches as
    numpy through the trainer's pageable copy: step ms, device busy, idle
@@ -378,6 +380,7 @@ K2_CASES = [(384, 4, 256, 32, 16), (24, 32, 64, 32, 1), (384, 4, 144, 32, 16),
 # stage 2.
 K2_PATH_CASES = [(384, 256, 128, 4, 16), (24, 256, 512, 16, 1)]
 K1_TOL = 1e-2  # max |kernel - plain| / max |plain|, bf16 output
+K1_GELUS = ("tanh", "exact")  # K1's epilogues: the tanh variant, the published erf
 # The GEMM core against torch.matmul of the same bf16 values in f32, of the
 # output's max: f32 outputs differ by sums in another order, bf16 ones by a
 # rounding of the output.
@@ -660,21 +663,27 @@ def k1_inputs(b, n, c, h, nw, seed):
 
 
 def check_k1(results: dict) -> float:
+    """K1 against its plain version at every stage's shapes, unshifted and
+    shifted, with each gelu epilogue (``K1_GELUS``) within ``K1_TOL``."""
     from routeformer_torch.ops import swin_block_fusion as sbf
 
-    worst = 0.0
-    for name, b, n, c, h, _, nw in STAGES:
-        for kinds in ([None, nw] if nw else [None]):
-            x, params, bias = k1_inputs(b, n, c, h, kinds, seed=c + (kinds or 0))
-            got = sbf.fused_swin_block(x, params, bias, h, True)
-            want = sbf.fused_swin_block_plain(x, params, bias, h, True)
-            err = rel_err(got, want)
-            worst = max(worst, (got.float() - want.float()).abs().max().item())
-            log(f"K1 {name} {(b, n, c)} H={h} kinds={kinds or 1}: "
-                f"max|kernel-plain|/max|plain| = {err:.3e}")
-            if not err <= K1_TOL:
-                raise AssertionError(f"K1 disagrees with its plain version: {err} > {K1_TOL}")
+    worst, by_gelu = 0.0, {}
+    for gelu in K1_GELUS:
+        for name, b, n, c, h, _, nw in STAGES:
+            for kinds in ([None, nw] if nw else [None]):
+                x, params, bias = k1_inputs(b, n, c, h, kinds, seed=c + (kinds or 0))
+                got = sbf.fused_swin_block(x, params, bias, h, True, gelu)
+                want = sbf.fused_swin_block_plain(x, params, bias, h, True, gelu)
+                err = rel_err(got, want)
+                by_gelu[gelu] = max(by_gelu.get(gelu, 0.0), err)
+                worst = max(worst, (got.float() - want.float()).abs().max().item())
+                log(f"K1 {gelu} gelu {name} {(b, n, c)} H={h} kinds={kinds or 1}: "
+                    f"max|kernel-plain|/max|plain| = {err:.3e}")
+                if not err <= K1_TOL:
+                    raise AssertionError(
+                        f"K1 ({gelu} gelu) disagrees with its plain version: {err} > {K1_TOL}")
     results["k1_max_abs_err"] = worst
+    results["k1_rel_err_by_gelu"] = by_gelu
     return worst
 
 
@@ -2019,13 +2028,16 @@ RUN_DIR = ROOT / "build" / "smoke_run"
 RUN_ENV = {"DATASET": "GEM", "MODEL_SET": "flagship", "BATCH_SIZE": str(TRAIN_BATCH),
            "EPOCHS": "1", "SAVE_EVERY_STEPS": "1"}
 RUN_TRAIN, RUN_VAL = 3, 1
-# The driver's flagship takes the JAX driver's exact-gelu SwinV2, whose
-# blocks run the unfused block: K2 in each of the 24 blocks, no K1. A cold
-# step runs two backbone passes (the input and the target pass, 48 K2) and
-# 6 Perceive stacks (48 K3a); an eval forward at batch 16 (the MC eval
-# runs 5 a batch) one backbone pass and 3 stacks.
-RUN_PER_STEP = {"K1": 0, "K2": 48, "K3a": 48, "K4": 0}
-PER_EVAL_FORWARD = {"K1": 0, "K2": 24, "K3a": 24, "K3b": 0, "K4": 0}
+# The driver's flagship takes the JAX driver's exact-gelu SwinV2, frozen:
+# its 24 blocks run K1 with the erf epilogue (one K2 inside each). A cold
+# step runs two backbone passes (the input and the target pass, 48 K1 and
+# K2) and 6 Perceive stacks (48 K3a); an eval forward at batch 16 (the MC
+# eval runs 5 a batch) one backbone pass and 3 stacks. Where a mesh's
+# model axis splits the blocks' Linear layers they run the unfused block
+# (K2, no K1: ``SPLIT_PER_STEP``).
+RUN_PER_STEP = {"K1": 48, "K2": 48, "K3a": 48, "K4": 0}
+PER_EVAL_FORWARD = {"K1": 24, "K2": 24, "K3a": 24, "K3b": 0, "K4": 0}
+SPLIT_PER_STEP = dict(RUN_PER_STEP, K1=0)
 MC_SAMPLES = 5
 MEMO_TOL = 1e-2  # memo features vs the backbone's, of max (bf16 store)
 STEADY_LOSS_TOL = 1e-2  # steady vs cold loss, relative (bf16 features)
@@ -3099,18 +3111,21 @@ def two_rank_phase(results: dict, smi: str) -> None:
     comparisons): the step within phase 7's bf16 limits (``step_gap``: a
     step from the same weights) with the first differing op named; on each
     rank the step's launches 0/48/48/16-24 K1/K2/K3a/K3b, each split
-    layer's forward FLOPs exactly half the no-mesh step's, the gathered
+    layer's forward FLOPs exactly half the no-mesh step's (its exact-gelu
+    blocks held to the unfused block the split ranks run), the gathered
     high-water within the largest unit's without the split weights, beside
     the largest unit's with them (the per-unit gathers alone); step ms and
     peak of two ranks sharing one card over gloo (not a multi-card time)."""
     import torch
 
+    from routeformer_torch.models.video_backbone.swin import hold_unfused
     from routeformer_torch.parallel.dryrun import launch
 
     t0 = time.perf_counter()
     s, train, _ = run_setup("cuda", fresh=False, n_train=1)
     trainer = mesh_trainer(s, torch.device("cuda"), None, False)
     quiet(trainer.models[FLAGSHIP])
+    hold_unfused(trainer.models[FLAGSHIP])
     record = StepRecord(FLAGSHIP)
     want = mesh_steps(trainer, train, record)
     ref = {"flops": record.flops, "rows": record.rows, "step": record.step,
@@ -3147,7 +3162,7 @@ def two_rank_phase(results: dict, smi: str) -> None:
             r["largest_unit_unsplit_bytes"], r
         for per_step in r["launches"]:
             for k in ("K1", "K2", "K3a", "K4"):
-                assert per_step[k] == RUN_PER_STEP[k], (r["rank"], per_step)
+                assert per_step[k] == SPLIT_PER_STEP[k], (r["rank"], per_step)
             assert 16 <= per_step["K3b"] <= 24, (r["rank"], per_step)
 
 
@@ -3177,8 +3192,9 @@ SWIN_BLOCKS, PERCEIVE_LAYERS = 24, 8  # SwinV2-base's depth; the driver's encode
 # the gaze encoder takes no gradient. AdaptedGIMO and the
 # MultiModalTransformer encode each of their three views by one backbone
 # call and one frame-encoder call and have no target pass. The GPS-only
-# models launch nothing; no model reaches K1 (the driver's SwinV2 takes the
-# exact gelu) or K4 (every attention is below 512 keys).
+# models launch nothing; every frozen backbone call runs K1 (the driver's
+# SwinV2 takes the exact gelu: the erf epilogue) with K2 inside each block,
+# and no model reaches K4 (every attention is below 512 keys).
 FULL_SET_DESIGN = {
     FLAGSHIP: (2, 1, 6, 3, (2, 3)),
     FLAGSHIP + "_autoreg_4s": (2, 1, 6, 3, (2, 3)),
@@ -3206,9 +3222,11 @@ def full_set_expected(name: str):
     K3b is a tuple of the counts gaze dropout allows."""
     calls_s, calls_f, stacks_s, stacks_f, trained = FULL_SET_DESIGN.get(
         name, (0, 0, 0, 0, (0,)))
-    step = {"K1": 0, "K2": SWIN_BLOCKS * calls_s, "K3a": PERCEIVE_LAYERS * stacks_s,
+    step = {"K1": SWIN_BLOCKS * calls_s, "K2": SWIN_BLOCKS * calls_s,
+            "K3a": PERCEIVE_LAYERS * stacks_s,
             "K3b": tuple(PERCEIVE_LAYERS * t for t in trained), "K4": 0}
-    forward = {"K1": 0, "K2": SWIN_BLOCKS * calls_f, "K3a": PERCEIVE_LAYERS * stacks_f,
+    forward = {"K1": SWIN_BLOCKS * calls_f, "K2": SWIN_BLOCKS * calls_f,
+               "K3a": PERCEIVE_LAYERS * stacks_f,
                "K3b": 0, "K4": 0}
     return step, forward
 
@@ -5256,9 +5274,9 @@ def k2_times() -> dict:
 
 # Keys of a kernel's timing kept in its entry beside the contract's: K2's
 # bf16 wrapper timings (k2_times), K4's time on the ViT's views (k4_times),
-# K1's GEMMs against cuBLAS (k1_gemm_times), K3's device time by part
-# (k3_times).
-EXTRA_KEYS = ("bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms",
+# K1's GEMMs against cuBLAS (k1_gemm_times) and its erf epilogue
+# (k1_times), K3's device time by part (k3_times).
+EXTRA_KEYS = ("erf_ms", "erf_plain_ms", "bf16_ms", "bf16_eager_ms", "bf16_bound_ms", "library_eager_ms", "views_ms",
               "gemm_ms", "gemm_library_ms", "gemm_graph_ms", "gemm_library_graph_ms",
               "gemm_stage_ms", "attention_ms", "rows_ms", "dinov2_ms", "dinov2_plain_ms",
               "dinov2_bound_ms", "dinov2_bound_by", "dinov2_parts",
@@ -5303,30 +5321,44 @@ def k1_gemm_times() -> dict:
     return out
 
 
-def kernel_line(launches: dict, results: dict) -> dict:
+def k1_times() -> dict:
+    """K1 per batch-1 flagship forward (STAGES) with the tanh epilogue, and
+    with the erf epilogue (``erf_ms``, ``erf_plain_ms``): one launch at each
+    stage's geometry (the unshifted bias; a shifted block differs only in
+    its bias's window kinds) times its blocks, beside its plain version.
+    Bound: the block's GEMM and attention operations with bf16 operands
+    against its input and output, weights, biases and bias table read once;
+    the erf is one more elementwise operation on the fc1 tile, so both
+    epilogues share it."""
     import torch
 
     from routeformer_torch.ops import swin_block_fusion as sbf
 
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0,
+          "erf_ms": 0.0, "erf_plain_ms": 0.0}
     for name, b, n, c, h, count, nw in STAGES:
-        # K1 at this geometry (the unshifted bias; a shifted block differs
-        # only in its bias's window kinds).
         x, params, bias = k1_inputs(b, n, c, h, None, seed=1)
-        t = cuda_ms(lambda: sbf.fused_swin_block(x, params, bias, h, True))
-        tp = cuda_ms(lambda: sbf.fused_swin_block_plain(x, params, bias, h, True),
-                     iters=3, warmup=1)
+        for gelu, key in (("tanh", ""), ("exact", "erf_")):
+            t = cuda_ms(lambda: sbf.fused_swin_block(x, params, bias, h, True, gelu))
+            tp = cuda_ms(lambda: sbf.fused_swin_block_plain(x, params, bias, h, True, gelu),
+                         iters=3, warmup=1)
+            k1[key + "ms"] += count * t
+            k1[key + "plain_ms"] += count * tp
+            log(f"K1 {gelu} gelu {name}: {t:.3f} ms (plain {tp:.3f}) x {count}")
         flops = 2 * b * n * (12 * c * c + 2 * n * c)
         nbytes = 2 * b * n * c * 2 + 12 * c * c * 2 + 13 * c * 4 + h * n * n * 4 + h * 4
         bt, _ = bound_ms(flops, nbytes)
-        k1["ms"] += count * t
-        k1["plain_ms"] += count * tp
         k1["bound_ms"] += count * bt
         k1["ops_s"] += count * flops / PEAK_BF16
         k1["bytes_s"] += count * nbytes / PEAK_BYTES
-        log(f"K1 {name}: {t:.3f} ms (plain {tp:.3f}, bound {bt:.4f}) x {count}")
+        log(f"K1 {name}: bound {bt:.4f} ms x {count}")
         del x, params, bias
         torch.cuda.empty_cache()
+    return k1
+
+
+def kernel_line(launches: dict, results: dict) -> dict:
+    k1 = k1_times()
     k1.update(k1_gemm_times())
 
     def entry(name, source, replaces, acc, err, library_ms, ms_per,

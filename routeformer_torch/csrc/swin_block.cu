@@ -10,7 +10,7 @@
 //   2. attn = window attention (K2, window_attention.cu; bf16 out)
 //   3. a    = attn W_proj^T + b_proj       (gemm_bias_act, f32 out)
 //   4. x1   = x + LN1(a)                   (residual_layernorm, f32 + bf16)
-//   5. y    = gelu_tanh(x1 W_fc1^T + b)    (gemm_bias_act, bf16 out)
+//   5. y    = gelu(x1 W_fc1^T + b_fc1)     (gemm_bias_act, bf16 out; tanh or erf)
 //   6. y2   = y W_fc2^T + b_fc2            (gemm_bias_act, f32 out)
 //   7. out  = x1 + LN2(y2)                 (residual_layernorm, out dtype)
 // keeping the TPU kernel's rounding points: matmul operands bf16 with f32
@@ -23,7 +23,7 @@
 // device memory (qkv f32, a, x1, y, y2: ~78 C bytes a token) outweigh it.
 // The GEMMs run on the Hopper core of gemm_sm90.cuh: wgmma m64n128k16 fed by
 // a TMA producer warp through a five-stage ring of 128-byte-swizzled tiles,
-// persistent CTAs whose epilogue (bias, tanh gelu, the f32 or bf16 store)
+// persistent CTAs whose epilogue (bias, the gelu, the f32 or bf16 store)
 // works on the accumulator registers while the next tile's loads are in
 // flight. The wrapper caches the bf16 weights, so no cast runs per call.
 
@@ -42,6 +42,11 @@ __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
 }
 
+// The exact gelu (torch's default): erff itself, no approximation of it.
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));  // x / sqrt(2)
+}
+
 // The GEMMs' epilogue: C[row, col..col+1] = act(v + bias), f32 or bf16.
 struct BiasActEpi {
   const float* bias;
@@ -55,9 +60,12 @@ struct BiasActEpi {
   __device__ __forceinline__ void store(int row, int col, float v0, float v1, In b) const {
     v0 += b.x;
     v1 += b.y;
-    if (act) {
+    if (act == 1) {
       v0 = gelu_tanh(v0);
       v1 = gelu_tanh(v1);
+    } else if (act == 2) {
+      v0 = gelu_erf(v0);
+      v1 = gelu_erf(v1);
     }
     const long long o = (long long)row * ldc + col;
     if (c_bf16)
@@ -110,12 +118,12 @@ __global__ void residual_layernorm_kernel(
 
 // C = act(A W^T + bias). A: (M, K) bf16, W: (N, K) bf16, bias: (N,) f32
 // on 8 bytes, C: (M, N) f32 (c_bf16 = 0) or bf16. act: 0 none, 1 tanh
-// gelu. K must be a multiple of 8, N even, A and W on 16-byte boundaries.
+// gelu, 2 exact (erf) gelu. K must be a multiple of 8, N even, A and W on 16-byte boundaries.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int rf_gemm_bias_act(const void* A, const void* W, const float* bias,
                                 void* C, int c_bf16, int M, int N, int K,
                                 int act, void* stream) {
-  if (K % 8 != 0 || M < 1 || N < 1 || N % 2 || act < 0 || act > 1 ||
+  if (K % 8 != 0 || M < 1 || N < 1 || N % 2 || act < 0 || act > 2 ||
       reinterpret_cast<uintptr_t>(A) % 16 || reinterpret_cast<uintptr_t>(W) % 16 ||
       reinterpret_cast<uintptr_t>(bias) % 8)
     return (int)cudaErrorInvalidValue;
@@ -155,7 +163,7 @@ cudaError_t residual_layernorm(const float* a, const void* res, int res_bf16, co
 
 // The block after its attention, steps 3-7, in one call: a = attn
 // W_proj^T + b_proj, x1 = x + LN1(a) (f32 and bf16), y = gelu(x1 W_fc1^T +
-// b_fc1) (bf16), y2 = y W_fc2^T + b_fc2, out = x1 + LN2(y2). x: (M, C) bf16
+// b_fc1) (bf16; act 1 tanh, 2 erf, as rf_gemm_bias_act), y2 = y W_fc2^T + b_fc2, out = x1 + LN2(y2). x: (M, C) bf16
 // (x_bf16) or f32; attn: (M, C) bf16; the weights bf16 (out, in), the rest
 // f32; out: (M, C) bf16 (out_bf16) or f32. ws: 11 M C / 2 floats on 16
 // bytes (a, x1, x1 in bf16, y, y2); C a multiple of 8. Returns the first
@@ -165,8 +173,8 @@ extern "C" int rf_swin_block_tail(const void* x, int x_bf16, const void* attn,
                                   const float* b1, const void* wfc1, const float* bfc1,
                                   const void* wfc2, const float* bfc2, const float* g2,
                                   const float* b2, void* out, int out_bf16, float* ws, int M,
-                                  int C, float eps, void* stream) {
-  if (M < 1 || C < 8 || C % 8 || reinterpret_cast<uintptr_t>(ws) % 16)
+                                  int C, float eps, int act, void* stream) {
+  if (M < 1 || C < 8 || C % 8 || act < 1 || act > 2 || reinterpret_cast<uintptr_t>(ws) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long mc = (long long)M * C;
@@ -178,7 +186,7 @@ extern "C" int rf_swin_block_tail(const void* x, int x_bf16, const void* attn,
   cudaError_t err = gemm_bias_act(attn, wproj, bproj, a, 0, M, C, C, 0, st);
   if (err == cudaSuccess)
     err = residual_layernorm(a, x, x_bf16, g1, b1, x1, x1b, M, C, eps, st);
-  if (err == cudaSuccess) err = gemm_bias_act(x1b, wfc1, bfc1, y, 1, M, 4 * C, C, 1, st);
+  if (err == cudaSuccess) err = gemm_bias_act(x1b, wfc1, bfc1, y, 1, M, 4 * C, C, act, st);
   if (err == cudaSuccess) err = gemm_bias_act(y, wfc2, bfc2, y2, 0, M, C, 4 * C, 0, st);
   if (err == cudaSuccess)
     err = residual_layernorm(y2, x1, 0, g2, b2, out_bf16 ? nullptr : static_cast<float*>(out),

@@ -30,8 +30,10 @@ the Informer, Transformer, DLinear and NLinear, and the stationary and
 linear baselines; ``full`` (the default) both and the autoregressive,
 scene-less and gaze-less variants, AdaptedGIMO and the
 MultiModalTransformer. ``USE_PATCHTST_BACKBONE=1`` puts PatchTST under the
-flagship. The SwinV2 blocks use the exact gelu (the unfused block, K2), as
-the JAX driver's do.
+flagship. The SwinV2 blocks use the exact gelu, as the JAX driver's do:
+K1 with its erf epilogue runs them in the frozen steps and the eval
+forwards, the unfused block (K2 for window attention) where the backbone
+trains.
 
 With ``ROUTEFORMER_DATASET_DIR`` (``DATASET=GEM``) or
 ``DREYEVE_DATASET_DIR`` (``DATASET=DREYEVE``, the default) set to a
@@ -218,9 +220,10 @@ def driver_configs(s: Settings) -> dict:
     """The JAX driver's configs (``experiments/full_comparison.py``), field
     for field, by their names there. ``DEBUG`` cuts the widths and takes the
     ``vit_tiny_test`` SwinV2 preset as the JAX driver does. The SwinV2 uses
-    the exact gelu, so the driver's blocks run the unfused block (K2 for
-    window attention), as the JAX driver's do; the tanh-gelu flagship of
-    ``flagship.py`` (K1) is serving's and ``build_flagship_training``'s."""
+    the exact gelu, as the JAX driver's does: its blocks run K1 with the
+    erf epilogue where the backbone is frozen and the unfused block (K2 for
+    window attention) where it trains; the tanh-gelu flagship of
+    ``flagship.py`` is serving's and ``build_flagship_training``'s."""
     from routeformer_torch.models import RouteformerConfig
     from routeformer_torch.models.gps_backbone import (
         GPSBackboneConfig,

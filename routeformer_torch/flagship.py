@@ -18,10 +18,11 @@ stacks' path (``models/cross_modal.py``).
 Each build function takes ``gps`` and ``video`` to swap a backbone at the same
 widths (``GPS_VARIANTS``, ``VIDEO_VARIANTS``): Autoformer and FEDformer
 (Fourier, or multiwavelet with 32 modes) in the Informer's slot; the
-driver's exact-gelu SwinV2, DinoV2 or InverseForm in the video slot. With
-``train_backbone`` the video backbone trains with the model (the augment,
-gradients through K1, K2 or K4); its config's ``remat``, read at each
-forward, recomputes its blocks in the backward.
+driver's exact-gelu SwinV2 (K1 with the erf epilogue while frozen),
+DinoV2 or InverseForm in the video slot. With ``train_backbone`` the video
+backbone trains with the model (the augment, gradients through K1, the
+exact SwinV2's unfused block and K2, or K4); its config's ``remat``, read
+at each forward, recomputes its blocks in the backward.
 """
 
 import dataclasses

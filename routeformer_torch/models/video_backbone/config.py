@@ -50,9 +50,10 @@ class TimmBackboneConfig(VideoBackboneConfig):
     model_type: Optional[str] = None
     # Encoder compute dtype; parameters stay float32.
     compute_dtype: str = "bfloat16"
-    # "exact" (erf) or "tanh". SwinV2: tanh blocks run the fused block
-    # kernel (K1), exact blocks window attention (K2) with plain Linear and
-    # LayerNorm. ViT: the gelu of the blocks' MLP.
+    # "exact" (erf) or "tanh". SwinV2: the fused block kernel (K1) with
+    # either gelu; exact blocks that autograd differentiates through (or
+    # that a mesh splits) run window attention (K2) with plain Linear and
+    # LayerNorm instead. ViT: the gelu of the blocks' MLP.
     gelu: str = "exact"
     # Recompute each encoder block in the backward (backbone training).
     remat: bool = False

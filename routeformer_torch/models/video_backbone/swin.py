@@ -6,11 +6,15 @@ windows), patch merging between stages, res-post-norm, cosine attention
 with a clamped learnable temperature and the continuous log-spaced
 position-bias MLP. Video frames are channel-last ``(N, H, W, C)``.
 
-Blocks with the tanh gelu run the fused block (K1,
-``ops/swin_block_fusion.py``) on every stage; blocks with the exact gelu
-run window attention (K2, ``ops/flash_attention.py``) with plain Linear and
-LayerNorm layers. The JAX package's TPU-only gates (the batch-8 bad-frame
-guard and the C <= 512 VMEM gate of the fused block) are not carried over.
+Blocks run the fused block (K1, ``ops/swin_block_fusion.py``, with the
+tanh or the exact gelu) on every stage. Blocks with the exact gelu run
+window attention (K2, ``ops/flash_attention.py``) with plain Linear and
+LayerNorm layers instead where autograd differentiates through them (a
+training backbone: K1's backward recomputes the block in f32, twice the
+unfused block's time), where a mesh splits their Linear layers, and in f32
+on the card (K1 computes with bf16 operands there). The JAX package's
+TPU-only gates (the batch-8 bad-frame guard and the C <= 512 VMEM gate of
+the fused block) are not carried over.
 Parameter names follow the flax paths; a scanned stage's pairs are a
 ``ModuleList``.
 
@@ -148,6 +152,7 @@ class SwinBlock(nn.Module):
     """SwinV2 block: res-post-norm window attention + MLP."""
 
     mesh_split_pairs = (("fc1", "fc2"),)  # fc1 -> gelu -> fc2 (the unfused block)
+    exact_on_k1 = True  # False: the exact gelu always unfused (``hold_unfused``)
 
     def __init__(self, dim: int, n_heads: int, window: int, shift: int,
                  input_hw: Tuple[int, int], compute_dtype=None,
@@ -211,14 +216,33 @@ class SwinBlock(nn.Module):
             sources += (self.attn_mask,)
         return derived("swin_bias", make, *sources)
 
+    def fused_now(self, x: torch.Tensor) -> bool:
+        """Whether this call runs K1: always with the tanh gelu; with the
+        exact gelu where autograd does not differentiate through the block,
+        no mesh splits its Linear layers (``mesh_split``, set under
+        ``MeshParams.gathered``), K1 computes in the block's dtype (f32
+        only on the CPU) and ``exact_on_k1`` holds."""
+        if self.gelu_approximate:
+            return True
+        if not self.exact_on_k1:
+            return False
+        if self.compute_dtype != torch.bfloat16 and x.device.type != "cpu":
+            return False
+        if any(hasattr(m, "mesh_split") for m in (self.attn.qkv, self.attn.proj,
+                                                     self.fc1, self.fc2)):
+            return False
+        return not (torch.is_grad_enabled()
+                    and (x.requires_grad or any(p.requires_grad for p in self.parameters())))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, C)."""
         n, h, w, c = x.shape
-        if self.gelu_approximate:
+        if self.fused_now(x):
             bias = self.fused_bias()
             out = fused_swin_block(
                 self._partition(x), self.fused_params(), bias,
                 self.attn.n_heads, self.compute_dtype == torch.bfloat16,
+                "tanh" if self.gelu_approximate else "exact",
             )
             return self._reverse(out, h, w)
         shortcut = x
@@ -227,6 +251,16 @@ class SwinBlock(nn.Module):
         x = shortcut + self.norm1(x.float()).to(shortcut.dtype)
         y = self.fc2(F.gelu(self.fc1(x)))
         return x + self.norm2(y.float()).to(x.dtype)
+
+
+def hold_unfused(model: nn.Module) -> None:
+    """Holds every exact-gelu SwinV2 block of ``model`` to the unfused block,
+    the path those blocks take where a mesh splits their Linear layers: a
+    one-process twin of such a mesh then calls, layer for layer, what its
+    ranks call."""
+    for m in model.modules():
+        if isinstance(m, SwinBlock):
+            m.exact_on_k1 = False
 
 
 class SwinBlockPair(nn.Module):
@@ -244,8 +278,9 @@ class SwinBlockPair(nn.Module):
                                  compute_dtype, gelu_approximate)
 
     def mesh_whole_weights(self) -> bool:
-        """K1 (the tanh blocks) takes the pair's whole weights; the unfused
-        blocks' Linear layers split on a mesh (qkv gathered before K2)."""
+        """K1 (the tanh blocks) takes the pair's whole weights; the exact
+        blocks' Linear layers split on a mesh, so they run the unfused block
+        there (qkv gathered before K2)."""
         return self.block_a.gelu_approximate
 
     def forward(self, x):

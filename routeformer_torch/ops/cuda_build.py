@@ -47,7 +47,7 @@ SIGNATURES = {
     },
     "swin_block": {
         "rf_gemm_bias_act": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "rf_swin_block_tail": [_P, _I, *[_P] * 12, _I, _P, _I, _I, _F, _P],
+        "rf_swin_block_tail": [_P, _I, *[_P] * 12, _I, _P, _I, _I, _F, _I, _P],
     },
 }
 

@@ -196,10 +196,13 @@ def test_window_kernel_matches_plain(cuda_device, n, nb, d, layout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gelu", ["tanh", "exact"])
 @pytest.mark.parametrize("b,n,c,h,nw", [(32, 256, 128, 4, 16), (8, 256, 256, 8, None),
                                         (4, 64, 1024, 32, None)])
-def test_block_kernel_matches_plain(cuda_device, b, n, c, h, nw):
-    """bf16 output: within 1e-2 of the output's max."""
+def test_block_kernel_matches_plain(cuda_device, b, n, c, h, nw, gelu):
+    """bf16 output: within 1e-2 of the output's max, with the tanh and with
+    the erf gelu epilogue; one K1 and one K2 launch, counted as an erf
+    block with the exact gelu."""
     g = torch.Generator().manual_seed(c)
     p = {
         "wqkv": _randn(g, 3 * c, c, s=c ** -0.5), "bqkv": _randn(g, 3 * c, s=0.15),
@@ -218,15 +221,39 @@ def test_block_kernel_matches_plain(cuda_device, b, n, c, h, nw):
         mask = torch.where(torch.rand(nw, n, n, generator=g) < 0.2, -100.0, 0.0)
         bias = bias[None] + mask[:, None]
     bias = bias.to(cuda_device)
-    before = (swin_block_fusion.launches, flash_attention.launches)
-    got = swin_block_fusion.fused_swin_block(x, p, bias, h, True)
-    assert (swin_block_fusion.launches, flash_attention.launches) == (
-        before[0] + 1, before[1] + 1)
-    want = swin_block_fusion.fused_swin_block_plain(x, p, bias, h, True)
+    before = (swin_block_fusion.launches, flash_attention.launches,
+              swin_block_fusion.launches_erf)
+    got = swin_block_fusion.fused_swin_block(x, p, bias, h, True, gelu)
+    assert (swin_block_fusion.launches, flash_attention.launches,
+            swin_block_fusion.launches_erf) == (
+        before[0] + 1, before[1] + 1, before[2] + (gelu == "exact"))
+    want = swin_block_fusion.fused_swin_block_plain(x, p, bias, h, True, gelu)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act,passes", [(swin_block_fusion.ACT_ERF, True),
+                                        (swin_block_fusion.ACT_TANH, False)])
+def test_gemm_erf_epilogue_is_the_exact_gelu(cuda_device, act, passes):
+    """K1's GEMM with the erf epilogue, f32 out, on pre-activations over
+    [-4, 4]: within 5e-5 absolute of the float64 exact gelu (f32 sums and
+    ``erff``). The tanh epilogue, up to 4.7e-4 off, fails the same bound."""
+    g = torch.Generator().manual_seed(21)
+    m, n, k = 4096, 512, 128
+    a = _randn(g, m, k).to(cuda_device, torch.bfloat16)
+    w = _randn(g, n, k, s=k ** -0.5).to(cuda_device, torch.bfloat16)
+    bias = (6 * torch.rand(n, generator=g) - 3).to(cuda_device)
+    out = torch.empty(m, n, dtype=torch.float32, device=cuda_device)
+    got = swin_block_fusion.gemm_bias_act(a, w, bias, out, act)
+    pre = a.double() @ w.double().T + bias.double()
+    torch.cuda.synchronize()
+    inside = pre.abs() <= 4  # the range checked; the pre-activations spread past it
+    assert pre.abs().max().item() > 4 and inside.float().mean().item() > 0.5
+    gap = (got.double() - torch.nn.functional.gelu(pre))[inside].abs().max().item()
+    assert (gap <= 5e-5) == passes, gap
 
 
 @pytest.mark.cuda

@@ -433,6 +433,7 @@ def _unit_checks(arg, shape, fsdp):
     held at once through a trainer step and an MC eval, beside the largest
     unit's (``layout.largest_unit_bytes``) and the whole model's."""
     from routeformer_torch.models.video_backbone import SwinV2Backbone, TimmBackboneConfig
+    from routeformer_torch.models.video_backbone.swin import hold_unfused
     from routeformer_torch.parallel import make_mesh
     from routeformer_torch.parallel.layout import largest_unit_bytes
     from routeformer_torch.parallel.mesh import MeshParams, whole_weights
@@ -477,6 +478,10 @@ def _unit_checks(arg, shape, fsdp):
             trainer._loss_fn("routeformer", m, inp, tgt, EPOCHS[0])
         return run
 
+    # On the mesh the frozen exact-gelu SwinV2 blocks, their Linear layers
+    # split, run the unfused block; the twin's would run K1, which calls none
+    # of those layers: the twin takes the mesh's path.
+    hold_unfused(twin)
     rec["flops"] = _layer_flops(twin, names, forward(twin))
     with layout.gathered():
         rec["split_flops"] = _layer_flops(model, names, forward(model))
